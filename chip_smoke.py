@@ -20,8 +20,30 @@ Phases, each of which exits non-zero on failure:
    byte-identical to TorchEngine(device="cpu") on the same requests, and
    every kernel's launch count over this phase must be > 0. Print
    record_batches/s, stage times and H2D/D2H bytes and ms.
-4. Print the kernels line, the card's name and power limit, and last the
+4. CRC-32C (K5, K6): both modes of the CRC kernel against the plain
+   version over edge lengths (0, 1, 7, 8, 63, 64, 65, r-1, r, r+5, -3 and
+   random, random bytes past each length), bit for bit; kernel ms at the
+   raft shape (K5) and the produce shape (K6).
+5. Produce path (BASELINE config 1, bench.py run_config1_crc_validate):
+   1024 one-record batches of 1 KiB values, r = 2048, through
+   CrcBackend("device") with one corrupted claimed CRC and through
+   CrcBackend.pick(regions, reps=8). Flags must equal the host backend's.
+6. Raft follower (BASELINE config 5): 256 partitions x 4 batches of just
+   under 16 KiB (1024 rows of 16384) through RaftDevicePlane(probe=False)
+   and a probing plane; flags must equal the host oracle's.
+7. Recovery scan: a 32 MiB segment of ~4 KiB batches (8192 frames) with a
+   torn tail and with a corrupt frame; scan_valid_prefix_device must equal
+   scan_valid_prefix_host.
+8. LZ4 (K11): the block decoder against its plain version over valid,
+   overflowing, truncated, bad-offset and empty streams (all three
+   outputs), then 16384 text-like 1 KiB records (BASELINE config 2's 16
+   partitions x 1024 records) decoded on the card, every row equal to its
+   source, and measure_probe (device MB/s against host liblz4).
+9. Print the kernels line, the card's name and power limit, and last the
    {"ok": true, "device": ...} line.
+
+Phases 3 and 5-8 each set every launch count to 0 just before their path
+and fail if a kernel of that path was not launched in it.
 
 Without a CUDA device it exits 1 before printing any result.
 """
@@ -41,6 +63,11 @@ ROW_STRIDE = 1152
 GROUP = 16  # ticks fused per launch
 DEPTH = 3  # launch groups in flight
 TICKS = 160
+PRODUCE_BATCHES = 1024  # bench.py config 1: 64 batches x 16
+RAFT_PARTITIONS, RAFT_BATCHES = 256, 4  # config 5: batches per append
+RAFT_VALUE, RAFT_RECORDS = 1000, 16  # a region just under 16 KiB
+SEGMENT_FRAMES, SEGMENT_RECORDS, SEGMENT_VALUE = 8192, 4, 1000  # ~4 KiB frames, 32 MiB
+LZ4_RECORDS, LZ4_RECORD = 16 * 1024, 1024  # config 2: 16 partitions x 1024 records
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 
@@ -182,6 +209,18 @@ def max_abs_err(pairs) -> float:
     )
 
 
+def path_launches(path: str, *expected) -> dict:
+    """Every kernel's launch count since the last reset; fails when a
+    kernel of this path was not launched."""
+    from redpanda_tpu_torch import kernels
+
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    for k in expected:
+        if launches[k.name] <= 0:
+            fail(f"kernel {k.name} was not launched on the {path} path")
+    return {k.name: launches[k.name] for k in expected}
+
+
 # ------------------------------------------------------------------ phases
 def phase_predicate(dev) -> dict:
     import numpy as np
@@ -240,7 +279,9 @@ def phase_predicate(dev) -> dict:
     log(f"K1 bench shape: n={n} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {b_ms * 1e3:.3f} us ({b_by}, {nbytes} B)")
     return {"max_abs_err": max_abs_err([(got, want)]), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by,
+            "parity": f"bit-identical on {len(exprs)} EXPRS cases, a depth-{deep.program.depth} "
+                      f"tree and the bench shape (n={n})"}
 
 
 def phase_payload(dev) -> dict:
@@ -296,7 +337,9 @@ def phase_payload(dev) -> dict:
                 err = max_abs_err([(got[:, prog.r_out:], want[:, prog.r_out:]),
                                    (got[keep, : prog.r_out], want[keep, : prog.r_out])])
                 out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": b_ms, "bound_by": b_by, "h2d_ms": h2d_ms}
+                       "bound_ms": b_ms, "bound_by": b_by, "h2d_ms": h2d_ms,
+                       "parity": "bit-identical (meta of every row, output of kept rows) for "
+                                 "both specs in both layouts, bench and short messages"}
     return out
 
 
@@ -376,15 +419,318 @@ def phase_engine(dev) -> dict:
             else:
                 log(f"engine {sname} short_msgs: {rate:.1f} record_batches/s, "
                     f"{kept} output batches per tick, replies byte-identical to the CPU engine")
-    launches = {k.name: k.launches for k in kernels.KERNELS}  # the main path ends here
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    launches = path_launches("engine", kernels.PREDICATE, kernels.PAYLOAD_TRANSFORM)
     for eng in engines.values():
         eng.shutdown()
     log(f"engine parity: every reply of both specs byte-identical to TorchEngine(cpu); "
         f"main-path launches {launches}")
     return launches
+
+
+# ------------------------------------------------------------------ CRC / LZ4 inputs
+def crc_edge_rows(r: int, seed: int, n_random: int):
+    """Rows of width r, random bytes everywhere (garbage past each length),
+    at the edge lengths and random ones."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = [0, 1, 7, 8, 63, 64, 65, r - 1, r, r + 5, -3]
+    lens += [int(x) for x in rng.integers(0, r + 1, n_random)]
+    data = rng.integers(0, 256, size=(len(lens), r), dtype=np.uint8)
+    return data, np.array(lens, np.int32)
+
+
+def produce_regions():
+    """bench.py run_config1_crc_validate: 64 one-record batches of 1 KiB
+    values, 16 times over: 1024 Kafka-CRC regions and their claimed CRCs."""
+    import numpy as np
+
+    from redpanda_tpu_torch.models import Record, RecordBatch
+
+    batches = [RecordBatch.build([Record(offset_delta=0, value=bytes([0]) * 1024)], base_offset=b)
+               for b in range(64)]
+    batches = batches * (PRODUCE_BATCHES // len(batches))
+    return [b.crc_region() for b in batches], np.array([b.header.crc for b in batches], np.uint32)
+
+
+def random_batches(n: int, records: int, value: int, seed: int):
+    import numpy as np
+
+    from redpanda_tpu_torch.models import Record, RecordBatch
+
+    rng = np.random.default_rng(seed)
+    return [RecordBatch.build([Record(offset_delta=k, timestamp_delta=k, value=rng.bytes(value))
+                               for k in range(records)], base_offset=records * i,
+                              first_timestamp=1_000_000 + i)
+            for i in range(n)]
+
+
+def lz4_encoder():
+    """(block encoder, its name): liblz4 where it loads, else the tests'
+    small block encoder (a data generator, never on the device path)."""
+    from redpanda_tpu_torch.ops.lz4_device import lz4_block_compress
+
+    try:
+        lz4_block_compress(b"probe")
+        return lz4_block_compress, "liblz4"
+    except OSError:
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+        from lz4_block_encoder import lz4_block_encode
+
+        return lz4_block_encode, "tests/lz4_block_encoder.py"
+
+
+def crc_bound(lens, n_in_arrays: int, out_bytes_per_row: int, r: int) -> tuple[float, str]:
+    """Valid bytes read once, the int32 arrays read once, the output written
+    once; one table step per valid byte."""
+    import numpy as np
+
+    valid = int(np.clip(lens, 0, r).sum())
+    n = len(lens)
+    return bound_ms(valid + 4 * n * n_in_arrays + out_bytes_per_row * n, valid)
+
+
+# ------------------------------------------------------------------ CRC phases
+def phase_crc_kernels(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from redpanda_tpu_torch.hashing.crc32c import crc32c_many
+    from redpanda_tpu_torch.ops import crc32c_device as C
+
+    out = {}
+    for r, n_random in ((100, 200), (2048, 1013), (16384, 1013)):
+        data, lens = crc_edge_rows(r, seed=r, n_random=n_random)
+        d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lens).to(dev)
+        got, want = C.crc32c_rows(d, ln), C.crc_plain(d, ln)
+        claimed = want.clone()
+        claimed[::3] ^= 0x100
+        ok, ok_want = C.validate_rows(d, ln, claimed), C.validate_plain(d, ln, claimed)
+        odd = d[:, 1:].contiguous()  # rows that are not 16-byte aligned
+        odd_got, odd_want = C.crc32c_rows(odd, ln), C.crc_plain(odd, ln)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(odd_got, odd_want)):
+            fail(f"crc32c kernel != plain at r={r}")
+        if not torch.equal(ok, ok_want):
+            fail(f"crc32c_validate kernel != plain at r={r}")
+        if not np.array_equal(C.as_u32(got), crc32c_many(data, lens)):
+            fail(f"crc32c kernel != host crc32c_many at r={r}")
+        log(f"K5/K6 parity at r={r}: {len(lens)} rows at edge and random lengths, "
+            f"{int(ok.sum())} ok, bit-identical to the plain version")
+        if r == 16384:
+            out["crc32c"] = {"max_abs_err": max_abs_err([(got, want), (odd_got, odd_want)])}
+        if r == 2048:
+            out["crc32c_validate"] = {"max_abs_err": max_abs_err([(ok, ok_want)])}
+
+    # timing at the paths' shapes: K5 at the raft append, K6 at the produce path
+    regions = [b.crc_region() for b in random_batches(1024, RAFT_RECORDS, RAFT_VALUE, 1)]
+    from redpanda_tpu_torch.ops.packing import pack_rows
+
+    rows, lens = pack_rows(regions, 16384)
+    d, ln = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
+    got, want = C.crc32c_rows(d, ln), C.crc_plain(d, ln)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("crc32c kernel != plain at the raft shape")
+    out["crc32c"]["max_abs_err"] = max(out["crc32c"]["max_abs_err"], max_abs_err([(got, want)]))
+    out["crc32c"]["parity"] = ("bit-identical at r=100, 2048 and 16384 (edge lengths, "
+                               "unaligned rows) and at the raft shape 1024 x 16384")
+    ms = cuda_ms(lambda: C.crc32c_rows(d, ln), 100)
+    plain_ms = cuda_ms(lambda: C.crc_plain(d, ln), 1)
+    b_ms, b_by = crc_bound(lens, 1, 4, 16384)
+    log(f"K5 raft shape: 1024 x 16384, {int(lens.sum())} valid B: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.2f} ms, bound {b_ms * 1e3:.3f} us ({b_by})")
+    out["crc32c"].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    regions, claimed = produce_regions()
+    rows, lens = pack_rows(regions, 2048)
+    d, ln = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
+    cl = torch.from_numpy(claimed.view(np.int32)).to(dev)
+    ok, ok_want = C.validate_rows(d, ln, cl), C.validate_plain(d, ln, cl)
+    torch.cuda.synchronize()
+    if not torch.equal(ok, ok_want):
+        fail("crc32c_validate kernel != plain at the produce shape")
+    v = out["crc32c_validate"]
+    v["max_abs_err"] = max(v["max_abs_err"], max_abs_err([(ok, ok_want)]))
+    v["parity"] = ("bit-identical at r=100, 2048 and 16384 (edge lengths, every third claim "
+                   "wrong) and at the produce shape 1024 x 2048")
+    ms = cuda_ms(lambda: C.validate_rows(d, ln, cl), 100)
+    plain_ms = cuda_ms(lambda: C.validate_plain(d, ln, cl), 1)
+    b_ms, b_by = crc_bound(lens, 2, 1, 2048)
+    log(f"K6 produce shape: 1024 x 2048, {int(lens.sum())} valid B: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.2f} ms, bound {b_ms * 1e3:.3f} us ({b_by})")
+    out["crc32c_validate"].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def phase_produce(dev) -> dict:
+    import numpy as np
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.ops.crc_backend import CrcBackend
+
+    regions, claimed = produce_regions()
+    bad = claimed.copy()
+    bad[517] ^= 0x40
+    host = CrcBackend("host").validate(regions, bad)
+    device = CrcBackend("device", device=dev)
+    device.validate(regions, claimed)  # build and first launch
+    kernels.reset_launches()  # the produce path starts here
+    t0 = time.perf_counter()
+    ok = device.validate(regions, bad)
+    t_dev = time.perf_counter() - t0
+    picked = CrcBackend.pick(regions, reps=8, device=dev)
+    launches = path_launches("produce", kernels.CRC32C_VALIDATE)  # the produce path ends here
+    if not np.array_equal(ok, host) or ok[517] or ok.sum() != len(regions) - 1:
+        fail("produce path: device flags differ from the host backend's")
+    d = picked.decision
+    log(f"produce path (config 1): {len(regions)} regions of {len(regions[0])} B at r=2048: "
+        f"CrcBackend('device') {len(regions) / t_dev:.1f} batches/s in one call, the corrupt "
+        f"batch rejected; pick(reps=8): host {d.host_batches_per_sec:.1f} batches/s, device "
+        f"{d.device_batches_per_sec:.1f} batches/s, chose {picked.backend}")
+    return launches
+
+
+def phase_raft(dev) -> dict:
+    import numpy as np
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.raft.device_plane import RaftDevicePlane, _host_validate
+
+    n = RAFT_PARTITIONS * RAFT_BATCHES
+    batches = random_batches(n, RAFT_RECORDS, RAFT_VALUE, 2)
+    regions = [b.crc_region() for b in batches]
+    claimed = np.array([b.header.crc for b in batches], np.uint32)
+    claimed[[3, n // 2, n - 1]] ^= 0x1
+    want = _host_validate(regions, claimed)
+    pinned = RaftDevicePlane(probe=False, device=dev)
+    pinned.validate(regions[:64], claimed[:64])  # build and first launch
+    probing = RaftDevicePlane(probe=True, device=dev)
+    kernels.reset_launches()  # the raft path starts here
+    t0 = time.perf_counter()
+    ok = pinned.validate(regions, claimed)
+    t_dev = time.perf_counter() - t0
+    ok_probe = probing.validate(regions, claimed)
+    launches = path_launches("raft", kernels.CRC32C)  # the raft path ends here
+    if not (np.array_equal(ok, want) and np.array_equal(ok_probe, want)) or ok.sum() != n - 3:
+        fail("raft path: device flags differ from the host oracle's")
+    nbytes = sum(len(x) for x in regions)
+    p = probing.stats()["probe"]
+    log(f"raft follower (config 5): {RAFT_PARTITIONS} partitions x {RAFT_BATCHES} batches, "
+        f"{n} regions of ~{nbytes // n} B (rows of 16384): pinned device plane "
+        f"{t_dev * 1e3:.3f} ms per append ({n / t_dev:.1f} batches/s, {nbytes / t_dev / 1e6:.1f} MB/s "
+        f"incl. pack and copies); probe t_host_ms {p['t_host_ms']}, t_device_ms "
+        f"{p['t_device_ms']}, speedup {p['speedup']}, chose {p['chosen']}")
+    return launches
+
+
+def phase_recovery(dev) -> dict:
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.storage.recovery import (
+        scan_valid_prefix_device, scan_valid_prefix_host)
+
+    frames = [b.encode_internal() for b in
+              random_batches(SEGMENT_FRAMES, SEGMENT_RECORDS, SEGMENT_VALUE, 3)]
+    blob = b"".join(frames)
+    torn = blob[: len(blob) - len(frames[-1]) // 2]
+    corrupt = bytearray(blob)
+    corrupt[len(blob) - 3 * len(frames[-1]) + 300] ^= 0xFF  # a payload byte, third frame from the end
+    corrupt = bytes(corrupt)
+    scan_valid_prefix_device(blob[:100_000], device=dev)  # build and first launch
+    kernels.reset_launches()  # the recovery path starts here
+    t0 = time.perf_counter()
+    got = scan_valid_prefix_device(torn, device=dev)
+    t_dev = time.perf_counter() - t0
+    got_corrupt = scan_valid_prefix_device(corrupt, device=dev)
+    launches = path_launches("recovery", kernels.CRC32C)  # the recovery path ends here
+    t0 = time.perf_counter()
+    want = scan_valid_prefix_host(torn)
+    t_host = time.perf_counter() - t0
+    want_corrupt = scan_valid_prefix_host(corrupt)
+    if got != want or got_corrupt != want_corrupt:
+        fail(f"recovery scan: device {got}/{got_corrupt} != host {want}/{want_corrupt}")
+    if got[0] != len(blob) - len(frames[-1]) or got_corrupt[0] != len(blob) - 3 * len(frames[-1]):
+        fail(f"recovery scan cut at the wrong frame: {got}, {got_corrupt}")
+    log(f"recovery scan: {len(blob) / 2**20:.1f} MiB segment, {len(frames)} frames of "
+        f"{len(frames[0])} B, torn tail: device scan {t_dev * 1e3:.2f} ms "
+        f"({len(torn) / t_dev / 1e6:.1f} MB/s), host scan {t_host * 1e3:.2f} ms "
+        f"({len(torn) / t_host / 1e6:.1f} MB/s); valid prefix {got} equal on both, "
+        f"and {got_corrupt} with a corrupt frame")
+    return launches
+
+
+# ------------------------------------------------------------------ LZ4 phase
+def phase_lz4(dev) -> tuple[dict, dict]:
+    import numpy as np
+    import torch
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.ops import lz4_device as L
+
+    rng = np.random.default_rng(4)
+    texts = L.text_records(400, 700, seed=5)
+    encode, source = lz4_encoder()
+    comp = [encode(t) for t in texts]
+    log(f"LZ4 streams made with {source}")
+    rows, lens = L.pack_streams(comp)
+    lens[::9] //= 2  # truncated
+    rows[4::13, 3] ^= 0x77  # damaged tokens, offsets and literals
+    lens[5] = 0  # empty
+    lens[6] = -4
+    handmade = [bytes([0x14, 97, 0, 0, 0, 0]), bytes([0x10, 97, 2, 0, 0]), bytes([0x10, 97, 1, 0])]
+    for k, h in enumerate(handmade):  # offset 0, offset past op, a stream ending in a match
+        rows[7 + k] = 0
+        rows[7 + k, : len(h)] = np.frombuffer(h, np.uint8)
+        lens[7 + k] = len(h)
+    garbage = rng.integers(0, 256, size=(100, rows.shape[1]), dtype=np.uint8)
+    rows = np.concatenate([rows, garbage])
+    lens = np.concatenate([lens, rng.integers(-2, rows.shape[1] + 9, 100).astype(np.int32)])
+    c, cl = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
+    n_edge = len(lens)
+    for max_out in (700, 256):  # 256: overflowing
+        got, want = L.decode_rows(c, cl, max_out), L.decode_plain(c, cl, max_out)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"lz4_block kernel != plain (max_out {max_out})")
+        log(f"K11 parity (max_out {max_out}): {len(lens)} streams, {int(want[2].sum())} ok, "
+            "out/out_len/ok bit-identical to the plain version")
+
+    # config 2's produce batch: 16 partitions x 1024 text-like 1 KiB records
+    records = L.text_records(LZ4_RECORDS, LZ4_RECORD, seed=6)
+    rows, lens = L.pack_streams([encode(r) for r in records])
+    decode = L.make_block_decoder(rows.shape[1], LZ4_RECORD, dev)
+    decode(rows[:64], lens[:64])  # build and first launch
+    kernels.reset_launches()  # the LZ4 path starts here
+    t0 = time.perf_counter()
+    out, out_len, ok = decode(rows, lens)
+    t_dev = time.perf_counter() - t0
+    probe = L.measure_probe(LZ4_RECORDS, LZ4_RECORD, reps=3, device=dev,
+                            compress=encode)
+    launches = path_launches("lz4", kernels.LZ4_BLOCK)  # the LZ4 path ends here
+    if not ok.all() or not (out_len == LZ4_RECORD).all():
+        fail("lz4 path: the decoder rejected valid streams")
+    if out.tobytes() != b"".join(records):
+        fail("lz4 path: a decoded row differs from its source")
+    log(f"lz4 path (config 2): {LZ4_RECORDS} records of {LZ4_RECORD} B from "
+        f"{int(lens.sum())} compressed B (rows of {rows.shape[1]}): decoded on the card in "
+        f"{t_dev * 1e3:.2f} ms incl. copies, every row equal to its source; "
+        f"measure_probe: {json.dumps(probe)}")
+    c, cl = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
+    got = L.decode_rows(c, cl, LZ4_RECORD)
+    want = L.decode_plain(c, cl, LZ4_RECORD)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail("lz4_block kernel != plain at full width")
+    ms = cuda_ms(lambda: L.decode_rows(c, cl, LZ4_RECORD), 20)
+    plain_ms = cuda_ms(lambda: L.decode_plain(c, cl, LZ4_RECORD), 1)
+    nbytes = int(lens.sum()) + 4 * len(lens) + LZ4_RECORDS * (LZ4_RECORD + 4 + 1)
+    b_ms, b_by = bound_ms(nbytes, LZ4_RECORDS * LZ4_RECORD)
+    log(f"K11 full width: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes} B)")
+    m = {"max_abs_err": max_abs_err(list(zip(got, want))), "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": b_ms, "bound_by": b_by,
+         "parity": f"out, out_len and ok bit-identical on {n_edge} edge streams at max_out 700 "
+                   f"and 256 and at full width {LZ4_RECORDS} x {LZ4_RECORD}"}
+    return m, launches
 
 
 def main() -> int:
@@ -410,10 +756,14 @@ def main() -> int:
     for k in kernels.KERNELS:
         ptxas = [ln.strip() for ln in k.build_log().splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {k.name}: {' | '.join(ptxas)}")
-    k1 = phase_predicate(dev)
-    k3 = phase_payload(dev)
+    measured = {"predicate": phase_predicate(dev), "payload_transform": phase_payload(dev)}
     launches = phase_engine(dev)
-    measured = {"predicate": k1, "payload_transform": k3}
+    measured.update(phase_crc_kernels(dev))
+    launches.update(phase_produce(dev))
+    crc_paths = [phase_raft(dev), phase_recovery(dev)]
+    launches["crc32c"] = sum(p["crc32c"] for p in crc_paths)
+    measured["lz4_block"], lz4_launches = phase_lz4(dev)
+    launches.update(lz4_launches)
     line = []
     for k in kernels.KERNELS:
         m = measured[k.name]
@@ -421,7 +771,7 @@ def main() -> int:
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "launches": launches[k.name], "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": None, "parity": "bit-identical",
+            "library_ms": None, "parity": m["parity"],
         })
     log(json.dumps({"kernels": line}))
     smi = subprocess.run(

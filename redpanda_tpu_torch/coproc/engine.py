@@ -42,6 +42,7 @@ import torch
 from redpanda_tpu_torch import native
 from redpanda_tpu_torch.coproc import batch_codec
 from redpanda_tpu_torch.coproc.column_plan import ColumnarPlan, PayloadPlan, plan_spec
+from redpanda_tpu_torch.device import resolve_device
 from redpanda_tpu_torch.hashing.crc32c import crc32c
 from redpanda_tpu_torch.models.fundamental import NTP
 from redpanda_tpu_torch.models.record import Compression, RecordBatch
@@ -315,19 +316,10 @@ class TorchEngine:
         compress_threshold: int = 512,
         output_codec: Compression = Compression.zstd,
     ):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._stream = None
         if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "TorchEngine(device='cuda'): no CUDA device is available; "
-                    "pass device='cpu' to run the plain versions"
-                )
-            if self.device.index is None:
-                self.device = torch.device("cuda", torch.cuda.current_device())
             self._stream = torch.cuda.Stream(device=self.device)
-        elif self.device.type != "cpu":
-            raise ValueError(f"unsupported device {self.device}")
         self._row_stride = int(row_stride)
         self._compress_threshold = compress_threshold
         self._output_codec = output_codec

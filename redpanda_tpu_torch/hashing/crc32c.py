@@ -8,7 +8,7 @@ Polynomial 0x1EDC6F41 (reflected 0x82F63B78), init 0xFFFFFFFF, xorout
 0xFFFFFFFF. Golden vector: crc32c(b"123456789") == 0xE3069283 (RFC 3720).
 
 The port's own build of native/redpanda_native.cc (redpanda_tpu_torch.native)
-serves single-buffer CRC when it loads; the numpy path is the fallback.
+serves single-buffer and row-batched CRC when it loads; the numpy path is the fallback.
 """
 
 from __future__ import annotations
@@ -128,3 +128,29 @@ class Crc32c:
 
     def value(self) -> int:
         return self._state ^ 0xFFFFFFFF
+
+
+def crc32c_many(data: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """CRC-32C of N variable-length records: the host oracle of the device
+    kernel (ops/crc32c_device.py).
+
+    data: uint8 [N, R] rows, lengths: int [N] sizes, clipped to [0, R] (a
+    negative length gives CRC 0). Returns uint32 [N]. Bytes past a row's
+    length are ignored. Runs the native row loop when the port's native
+    library loads, else walks the byte positions once with all N states in
+    lockstep, freezing each record's state at its length.
+    """
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    lengths = np.asarray(lengths)
+    n, r = data.shape
+    native = _load_native()
+    if native:
+        return native.crc32c_many(data, np.clip(lengths, -1, r).astype(np.int32))
+    state = np.full(n, 0xFFFFFFFF, dtype=np.uint32)
+    for j in range(r):
+        active = j < lengths
+        if not active.any():
+            break
+        nxt = TABLE[(state ^ data[:, j]) & 0xFF] ^ (state >> np.uint32(8))
+        state = np.where(active, nxt, state)
+    return state ^ np.uint32(0xFFFFFFFF)

@@ -8,7 +8,9 @@ the port's build directory at first use (or all at once, in parallel, with
 refused launch raises here instead of passing silently.
 
 Every ``Kernel`` keeps a plain integer count of its launches; the wrappers
-add one where they launch, and nowhere else.
+add one where they launch, and nowhere else. Two ``Kernel`` rows may share
+one source and library (``lib``) when one kernel serves two JAX programs
+that are counted apart.
 """
 
 from __future__ import annotations
@@ -46,8 +48,10 @@ def nvcc() -> str:
 class Kernel:
     """One CUDA source, its C entry point's signature and its launch count."""
 
-    def __init__(self, name: str, source: str, replaces: str, entry: str, argtypes):
+    def __init__(self, name: str, source: str, replaces: str, entry: str, argtypes,
+                 lib: str | None = None):
         self.name = name
+        self.lib = lib or name  # the build's name; rows sharing it build once
         self.source = source  # repo-relative path
         self.replaces = replaces  # file:line of the JAX program it replaces
         self.entry = entry
@@ -64,7 +68,7 @@ class Kernel:
                 src = os.path.join(CSRC, os.path.basename(self.source))
                 exe = nvcc()
                 self.path = cached_build(
-                    self.name, [src], lambda out: [exe, *NVCC_FLAGS, "-o", out, src]
+                    self.lib, [src], lambda out: [exe, *NVCC_FLAGS, "-o", out, src]
                 )
                 fn = getattr(ctypes.CDLL(self.path), self.entry)
                 fn.restype = ctypes.c_int
@@ -110,12 +114,43 @@ PAYLOAD_TRANSFORM = Kernel(
     [_P, _L, _P, _I, _I, _P, _L, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P],
 )
 
-KERNELS = (PREDICATE, PAYLOAD_TRANSFORM)
+# data, stride, lens, n, r, tables, crc_out, claimed, ok_out, stream
+_CRC_ARGS = [_P, _L, _P, _I, _I, _P, _P, _P, _P, _P]
+
+CRC32C = Kernel(
+    "crc32c",
+    "redpanda_tpu_torch/csrc/crc32c.cu",
+    "redpanda_tpu/ops/crc32c_device.py:84",
+    "rp_crc32c",
+    _CRC_ARGS,
+)
+
+# the same kernel in its validator mode (claimed -> ok), counted apart
+CRC32C_VALIDATE = Kernel(
+    "crc32c_validate",
+    "redpanda_tpu_torch/csrc/crc32c.cu",
+    "redpanda_tpu/ops/pipeline.py:53",
+    "rp_crc32c",
+    _CRC_ARGS,
+    lib="crc32c",
+)
+
+LZ4_BLOCK = Kernel(
+    "lz4_block",
+    "redpanda_tpu_torch/csrc/lz4_block.cu",
+    "redpanda_tpu/ops/lz4_device.py:52",
+    "rp_lz4_block_decode",
+    # comp, comp_len, n, max_in, out, out_len, ok, max_out, stream
+    [_P, _P, _I, _I, _P, _P, _P, _I, _P],
+)
+
+KERNELS = (PREDICATE, PAYLOAD_TRANSFORM, CRC32C, CRC32C_VALIDATE, LZ4_BLOCK)
 
 
 def build_all() -> dict[str, float]:
     """Build every kernel at once (one nvcc per source, all started
-    together); returns the wall seconds each build took."""
+    together; rows that share a library wait for its one build); returns
+    the wall seconds each build took."""
 
     def one(k: Kernel) -> float:
         t0 = time.perf_counter()

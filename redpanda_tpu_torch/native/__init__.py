@@ -2,11 +2,12 @@
 
 The port builds its own copy of that source with ``g++`` into its build
 directory (redpanda_tpu_torch/build.py) at first use and binds only the
-symbols the engine's main path calls: CRC-32C, the record framing parse
+symbols the port calls: CRC-32C (single buffer and row-batched), the record framing parse
 (``rp_parse_many``), the fused explode + JSON find (``rp_explode_find``),
 the span-table gathers (``rp_gather_*``), the per-path extractors
 (``rp_extract_*``), the fused projector (``rp_project_rows``), the row
-packer (``rp_pack_rows``) and the launch framer (``rp_frame_many``). Argument conventions follow the JAX package's
+packer and unpacker (``rp_pack_rows``, ``rp_unpack_rows``) and the launch
+framer (``rp_frame_many``). Argument conventions follow the JAX package's
 binding of the same library, so both packages feed the C code identical
 buffers.
 """
@@ -56,6 +57,8 @@ class NativeLib:
         sig = {
             "rp_crc32c_update": (ctypes.c_uint32, [ctypes.c_uint32, ctypes.c_char_p, _SZ]),
             "rp_crc32c": (ctypes.c_uint32, [ctypes.c_char_p, _SZ]),
+            "rp_crc32c_many": (None, [_P, _SZ, _SZ, _P, _P]),
+            "rp_unpack_rows": (_I64, [_P, _SZ, _P, _SZ, _P]),
             "rp_pack_rows": (_I32, [_P, _P, _P, _SZ, _P, _SZ]),
             "rp_parse_many": (_I64, [_P, _P, _P, _P, _I32, _P, _P]),
             "rp_explode_find": (
@@ -89,6 +92,17 @@ class NativeLib:
 
     def crc32c(self, data: bytes) -> int:
         return self._dll.rp_crc32c(data, len(data))
+
+    def crc32c_many(self, rows: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+        """CRC-32C of each row's first clip(length, 0, stride) bytes."""
+        rows = np.ascontiguousarray(rows, dtype=np.uint8)
+        lengths = _c32(lengths)
+        n, stride = rows.shape
+        if len(lengths) != n:
+            raise ValueError("crc32c_many rows/lengths mismatch")
+        out = np.empty(n, dtype=np.uint32)
+        self._dll.rp_crc32c_many(rows.ctypes.data, stride, n, lengths.ctypes.data, out.ctypes.data)
+        return out
 
     # ------------------------------------------------------------ framing
     def parse_many(self, joined, payload_off, payload_len, counts):
@@ -178,6 +192,17 @@ class NativeLib:
             src_arr.ctypes.data, offsets.ctypes.data, sizes.ctypes.data,
             n, dst.ctypes.data, stride,
         )
+
+    def unpack_rows(self, rows: np.ndarray, sizes: np.ndarray) -> bytes:
+        """The first clip(size, 0, stride) bytes of every row, concatenated."""
+        rows = np.ascontiguousarray(rows, dtype=np.uint8)
+        sizes = _c32(sizes)
+        n, stride = rows.shape
+        if len(sizes) != n:
+            raise ValueError("unpack_rows rows/sizes mismatch")
+        dst = np.empty(int(np.clip(sizes, 0, stride).sum()), dtype=np.uint8)
+        self._dll.rp_unpack_rows(rows.ctypes.data, stride, sizes.ctypes.data, n, dst.ctypes.data)
+        return dst.tobytes()
 
     # ------------------------------------------------------------ columns
     def gather_str(self, joined, offsets, types_col, vs_col, ve_col, w: int):

@@ -1,4 +1,10 @@
-"""The coproc payload pipeline (K4) around the v1 transform (K3).
+"""The coproc payload pipeline (K4) around the v1 transform (K3), and the
+batch validator (K6).
+
+``make_batch_validator(r)`` is the batch-level Kafka-CRC check over [N, r]
+prefixed batch rows: claimed wire CRCs go up with the rows and one ok flag
+per batch comes back, from one launch of the CRC kernel in its validator
+mode (ops/crc32c_device.py).
 
 ``make_packed_pipeline(spec, r_in)`` is the engine's record transform as a
 single-buffer program: one uint8 staging array in, one uint8 packed result
@@ -23,6 +29,8 @@ import functools
 import numpy as np
 import torch
 
+from redpanda_tpu_torch.device import resolve_device
+from redpanda_tpu_torch.ops.crc32c_device import as_i32, as_rows, validate_rows
 from redpanda_tpu_torch.ops.transforms import (
     TransformProgram,
     TransformSpec,
@@ -39,6 +47,22 @@ IN_META = 8
 # Trailing metadata columns of the packed output row: int32 LE out_len,
 # uint8 keep flag, 3 pad bytes.
 OUT_META = 8
+
+
+@functools.lru_cache(maxsize=16)
+def _batch_validator(r: int, device: torch.device):
+    def validate(rows, lens, claimed) -> np.ndarray:
+        data = as_rows(rows, device, r)
+        return validate_rows(data, as_i32(lens, device), as_i32(claimed, device)).cpu().numpy()
+
+    return validate
+
+
+def make_batch_validator(r: int, device="cuda"):
+    """fn(rows uint8 [N, r], lens int32 [N], claimed uint32 [N]) -> ok bool [N]
+    on ``device`` (the card unless the caller asks for the CPU): ok[i] =
+    CRC-32C of row i's first lens[i] bytes == claimed[i] and lens[i] > 0."""
+    return _batch_validator(int(r), resolve_device(device))
 
 
 def _le32(cols: torch.Tensor) -> torch.Tensor:

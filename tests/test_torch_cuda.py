@@ -128,3 +128,67 @@ def test_engine_on_card_matches_cpu_engine(card):
             eng.shutdown()
         assert replies[0] == replies[1]
         assert any(replies[1][0])
+
+
+# ------------------------------------------------------------------ CRC (K5/K6)
+def _crc_rows(r, seed):
+    rng = np.random.default_rng(seed)
+    lens = [0, 1, 7, 8, 15, 16, 17, 63, 64, 65, 511, 512, 513, r - 1, r, r + 5, -3]
+    lens += [int(x) for x in rng.integers(0, r + 1, 300)]
+    data = rng.integers(0, 256, size=(len(lens), r), dtype=np.uint8)  # garbage past len
+    return data, np.array(lens, np.int32), rng
+
+
+@pytest.mark.parametrize("r", [100, 2048, 16384])
+def test_crc_kernel_matches_plain(card, r):
+    from redpanda_tpu_torch.hashing.crc32c import crc32c_many
+    from redpanda_tpu_torch.ops import crc32c_device as C
+
+    data, lens, rng = _crc_rows(r, r)
+    d, ln = torch.from_numpy(data).to(card), torch.from_numpy(lens).to(card)
+    before = kernels.CRC32C.launches, kernels.CRC32C_VALIDATE.launches
+    got = C.crc32c_rows(d, ln)
+    assert torch.equal(got, C.crc_plain(d, ln))
+    np.testing.assert_array_equal(C.as_u32(got), crc32c_many(data, lens))
+    claimed = got.clone()
+    claimed[::5] ^= 1
+    ok = C.validate_rows(d, ln, claimed)
+    assert torch.equal(ok, C.validate_plain(d, ln, claimed))
+    assert (kernels.CRC32C.launches, kernels.CRC32C_VALIDATE.launches) == (before[0] + 1, before[1] + 1)
+    # rows that are not 16-byte aligned take the byte loads
+    odd = torch.from_numpy(data[:, 1:].copy()).to(card)
+    assert torch.equal(C.crc32c_rows(odd, ln), C.crc_plain(odd, ln))
+
+
+# ------------------------------------------------------------------ LZ4 (K11)
+def test_lz4_kernel_matches_plain(card):
+    from redpanda_tpu_torch.ops import lz4_device as L
+
+    rng = np.random.default_rng(8)
+    recs = L.text_records(200, 700)
+    try:
+        comp = [L.lz4_block_compress(p) for p in recs]
+    except OSError:  # no liblz4 on this machine: the tests' encoder makes the streams
+        from lz4_block_encoder import lz4_block_encode
+
+        comp = [lz4_block_encode(p) for p in recs]
+    rows, lens = L.pack_streams(comp)
+    lens[::7] = lens[::7] // 2  # truncated
+    rows[3::11, 5] ^= 0x5A  # damaged
+    lens[1] = 0
+    garbage = rng.integers(0, 256, size=(50, rows.shape[1]), dtype=np.uint8)
+    rows = np.concatenate([rows, garbage])
+    lens = np.concatenate([lens, rng.integers(-2, rows.shape[1] + 9, 50).astype(np.int32)])
+    c, cl = torch.from_numpy(rows).to(card), torch.from_numpy(lens).to(card)
+    for max_out in (700, 512, 1):
+        before = kernels.LZ4_BLOCK.launches
+        got = L.decode_rows(c, cl, max_out)
+        want = L.decode_plain(c, cl, max_out)
+        assert kernels.LZ4_BLOCK.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    out, out_len, ok = L.decode_rows(c, cl, 700)
+    good = [i for i in range(len(recs)) if i % 7 and (i - 3) % 11 and i != 1]
+    assert ok[good].all()
+    for i in good[:20]:
+        assert out[i, : int(out_len[i])].cpu().numpy().tobytes() == recs[i]
