@@ -39,11 +39,36 @@ Phases, each of which exits non-zero on failure:
    outputs), then 16384 text-like 1 KiB records (BASELINE config 2's 16
    partitions x 1024 records) decoded on the card, every row equal to its
    source, and measure_probe (device MB/s against host liblz4).
-9. Print the kernels line, the card's name and power limit, and last the
-   {"ok": true, "device": ...} line.
+9. The partition mesh on a virtual mesh of four shards on the one card
+   (partition_mesh(devices=[cuda:0] * 4): four streams of one card; it
+   runs every mesh kernel and copy, and measures nothing about scaling
+   across cards):
+   a. the mesh kernels against their plain versions, bit for bit: the vote
+      tally (K7) over [4, 256] and [4, 1] votes (and torch.sum's time
+      beside it), the sharded CRC check (K9) over [256, 4, 16384] (config
+      5's append: three claims wrong, a zero-length row, garbage past each
+      length), the CRC + vote step (K8) over the same rows as [4, 256,
+      16384] with [4, 256] votes, the stacked predicate (K2) over the DOCS
+      x EXPRS table cut into 4 shards with one empty and over the bench's
+      32768 rows range-sharded 4 ways, and the coproc step (K10) at full
+      width: 64 partitions x 4 batches of <= 16 KiB, 64 x 512 records of
+      ~1 KB JSON (r_rec 1152) and [64, 256] votes;
+   b. the engine's mesh lane at the bench's shape through
+      TorchEngine(mesh=..., mesh_probe=False), columnar spec, both
+      workloads: every reply byte-identical to the CPU engine's, the
+      stacked predicate launched and the single one not, rows per device
+      summing to the records; then one engine with mesh_probe=True and its
+      decision;
+   c. the raft plane's mesh leg at config 5's shape
+      (RaftDevicePlane(mesh=..., probe=False).validate, 1024 regions) and
+      tally_votes over [4, 256];
+   d. redpanda_tpu_torch.entry.dryrun_multichip(4) on the virtual mesh.
+10. Print the kernels line, the card's name and power limit, and last the
+    {"ok": true, "device": ...} line.
 
-Phases 3 and 5-8 each set every launch count to 0 just before their path
-and fail if a kernel of that path was not launched in it.
+Phases 3, 5-8 and 9b-9d, and the K9 and K10 runs of 9a, each set every
+launch count to 0 just before their path and fail if a kernel of that path
+was not launched in it.
 
 Without a CUDA device it exits 1 before printing any result.
 """
@@ -68,6 +93,9 @@ RAFT_PARTITIONS, RAFT_BATCHES = 256, 4  # config 5: batches per append
 RAFT_VALUE, RAFT_RECORDS = 1000, 16  # a region just under 16 KiB
 SEGMENT_FRAMES, SEGMENT_RECORDS, SEGMENT_VALUE = 8192, 4, 1000  # ~4 KiB frames, 32 MiB
 LZ4_RECORDS, LZ4_RECORD = 16 * 1024, 1024  # config 2: 16 partitions x 1024 records
+MESH_SHARDS = 4  # the virtual mesh's shards on the one card
+VOTE_GROUPS = 256  # raft groups in a vote tally
+STEP_BATCHES, STEP_RECORDS = 4, 512  # K10 per partition: batches of <= 16 KiB, ~1 KB records
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 
@@ -424,7 +452,7 @@ def phase_engine(dev) -> dict:
         eng.shutdown()
     log(f"engine parity: every reply of both specs byte-identical to TorchEngine(cpu); "
         f"main-path launches {launches}")
-    return launches
+    return launches, {"want": want, "work": work, "rates": results}
 
 
 # ------------------------------------------------------------------ CRC / LZ4 inputs
@@ -733,6 +761,390 @@ def phase_lz4(dev) -> tuple[dict, dict]:
     return m, launches
 
 
+# ------------------------------------------------------------------ mesh phases
+def equal(got, want) -> bool:
+    """Exact equality of a Sharded or tensor result with a tensor."""
+    import numpy as np
+
+    g = np.asarray(got) if not hasattr(got, "cpu") else got.cpu().numpy()
+    return g.shape == tuple(want.shape) and (g == want.cpu().numpy()).all()
+
+
+def config5_rows(seed: int):
+    """config 5's append as [1024, 16384] rows: random bytes everywhere
+    (garbage past each length), lengths just under 16 KiB, the claims
+    right but for three, one row of length 0."""
+    import numpy as np
+
+    from redpanda_tpu_torch.hashing.crc32c import crc32c_many
+
+    n = RAFT_PARTITIONS * RAFT_BATCHES
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 256, size=(n, 16384), dtype=np.uint8)
+    lens = rng.integers(15_000, 16385, n).astype(np.int32)
+    lens[77] = 0
+    claimed = crc32c_many(rows, lens)
+    claimed[[3, n // 2, n - 1]] ^= 0x1
+    return rows, lens, claimed
+
+
+def step_inputs(seed: int):
+    """K10 at full width: P partitions x 4 batch rows of 16384 (lengths
+    just under 16 KiB, two claims wrong), P x 512 record rows of 1152 (the
+    bench's JSON with short msgs, 16 copies of each partition's batch) and
+    [P, 256] votes."""
+    import numpy as np
+
+    from redpanda_tpu_torch.coproc import batch_codec
+    from redpanda_tpu_torch.hashing.crc32c import crc32c_many
+    from redpanda_tpu_torch.ops.packing import pack_rows
+
+    rng = np.random.default_rng(seed)
+    b_rows = rng.integers(0, 256, size=(P * STEP_BATCHES, 16384), dtype=np.uint8)
+    b_lens = rng.integers(15_000, 16385, P * STEP_BATCHES).astype(np.int32)
+    claimed = crc32c_many(b_rows, b_lens)
+    claimed[[5, -3]] ^= 0x8
+    req = build_request(short_msgs=True, seed=seed)
+    copies = STEP_RECORDS // RECORDS_PER_BATCH
+    batches = [b for it in req.items for b in [it.batches[0]] * copies]
+    ex = batch_codec.explode_batches(batches)
+    values = [bytes(ex.joined[o : o + z]) for o, z in zip(ex.offsets, ex.sizes)]
+    rec, rec_lens = pack_rows(values, ROW_STRIDE)
+    votes = rng.integers(0, 2, (P, VOTE_GROUPS)).astype(np.uint8)
+    return (b_rows.reshape(P, STEP_BATCHES, 16384), b_lens.reshape(P, STEP_BATCHES),
+            claimed.reshape(P, STEP_BATCHES), rec.reshape(P, STEP_RECORDS, ROW_STRIDE),
+            rec_lens.reshape(P, STEP_RECORDS), votes)
+
+
+def on_card(a, dev):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32 else a)).to(dev)
+
+
+def phase_mesh_kernels(dev, mesh) -> tuple[dict, dict]:
+    import numpy as np
+    import torch
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.coproc import batch_codec
+    from redpanda_tpu_torch.coproc.column_plan import plan_spec, predicate_stacked_plain
+    from redpanda_tpu_torch.coproc.host_pool import partition_counts
+    from redpanda_tpu_torch.coproc.engine import _bucket_rows
+    from redpanda_tpu_torch.ops.crc32c_device import validate_rows, validate_segments
+    from redpanda_tpu_torch.ops.exprs import host_eval
+    from redpanda_tpu_torch.ops.transforms import compile_transform, transform, where
+    from redpanda_tpu_torch.parallel import collectives as COL
+    from redpanda_tpu_torch.parallel import shard_to_mesh
+
+    D = mesh.size
+    out, launches = {}, {}
+    rng = np.random.default_rng(9)
+
+    # K7: the vote tally over the mesh, and torch.sum beside it
+    agg = COL.make_vote_aggregator(mesh)
+    pairs = []
+    for g in (VOTE_GROUPS, 1):
+        votes = on_card(rng.integers(0, 2, (D, g)).astype(np.uint8), dev)
+        got, want = agg(votes), COL.vote_tally_plain(votes)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"vote_tally != plain over [{D}, {g}]")
+        pairs.append((got, want))
+    votes = on_card(rng.integers(0, 2, (D, VOTE_GROUPS)).astype(np.uint8), dev)
+    ms = cuda_ms(lambda: agg(votes), 200)
+    one_ms = cuda_ms(lambda: COL.vote_tally(votes), 200)
+    plain_ms = cuda_ms(lambda: COL.vote_tally_plain(votes), 200)
+    lib_ms = cuda_ms(lambda: torch.sum(votes, 0, dtype=torch.int32), 200)
+    b_ms, b_by = bound_ms(D * VOTE_GROUPS + 4 * VOTE_GROUPS, D * VOTE_GROUPS)
+    log(f"K7 [{D}, {VOTE_GROUPS}]: aggregator ({D + 1} launches, {D - 1} copies) {ms:.4f} ms, "
+        f"one tally launch {one_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sum {lib_ms:.4f} ms, "
+        f"bound {b_ms * 1e3:.5f} us ({b_by})")
+    out["vote_tally"] = {"max_abs_err": max_abs_err(pairs), "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "parity": f"bit-identical over [{D}, {VOTE_GROUPS}] and [{D}, 1] votes"}
+
+    # K9 and K8 over config 5's append
+    rows, lens, claimed = config5_rows(10)
+    n, r = rows.shape
+    want_bad_total = 3
+    rt, lt, ct = on_card(rows, dev), on_card(lens, dev), on_card(claimed, dev)
+    check = COL.make_sharded_crc_check(mesh, r)
+    p9 = (rt.view(RAFT_PARTITIONS, RAFT_BATCHES, r), lt.view(RAFT_PARTITIONS, RAFT_BATCHES),
+          ct.view(RAFT_PARTITIONS, RAFT_BATCHES))
+    kernels.reset_launches()  # the sharded CRC check's run starts here
+    ok, bad = check(*p9)
+    launches.update(path_launches("sharded CRC check", kernels.CRC32C_SHARDED))
+    w_ok, w_bad = COL.sharded_crc_plain(*p9)
+    torch.cuda.synchronize()
+    if not (equal(ok, w_ok) and equal(bad, w_bad)) or int(w_bad.sum()) != want_bad_total:
+        fail("crc32c_sharded != plain over [256, 4, 16384]")
+    valid = int(np.clip(lens, 0, r).sum())
+    ms = cuda_ms(lambda: check(*p9), 50)
+    k = n // D  # one shard's block, one launch on the current stream
+    one_ms = cuda_ms(lambda: validate_segments(rt[:k], lt[:k], ct[:k], RAFT_BATCHES,
+                                               kernels.CRC32C_SHARDED), 50)
+    plain_ms = cuda_ms(lambda: COL.sharded_crc_plain(*p9), 1)
+    b_ms, b_by = bound_ms(valid + 8 * n + n + 4 * RAFT_PARTITIONS, valid)
+    log(f"K9 [{RAFT_PARTITIONS}, {RAFT_BATCHES}, {r}] ({valid} valid B): {ms:.4f} ms over {D} "
+        f"shards (one shard's launch alone {one_ms:.4f} ms), plain {plain_ms:.2f} ms, bound "
+        f"{b_ms * 1e3:.3f} us ({b_by}); bad per partition sums to {int(w_bad.sum())}, the "
+        "zero-length row neither ok nor bad")
+    out["crc32c_sharded"] = {
+        "max_abs_err": max_abs_err([(torch.from_numpy(np.asarray(ok)), w_ok.cpu()),
+                                    (torch.from_numpy(np.asarray(bad)), w_bad.cpu())]),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "parity": "ok and bad per partition bit-identical over [256, 4, 16384] (three claims "
+                  "wrong, a zero-length row, garbage past each length)"}
+    step8 = COL.make_crc_vote_step(mesh, r)
+    p8 = (rt.view(D, n // D, r), lt.view(D, n // D), ct.view(D, n // D), votes)
+    got, want = step8(*p8), COL.crc_vote_plain(*p8)
+    torch.cuda.synchronize()
+    if not all(equal(g, w) for g, w in zip(got, want)):
+        fail("crc32c_vote step != plain over [4, 256, 16384] with [4, 256] votes")
+    ms = cuda_ms(lambda: step8(*p8), 50)
+    plain_ms = cuda_ms(lambda: COL.crc_vote_plain(*p8), 1)
+    b_ms, b_by = bound_ms(valid + 8 * n + n + 4 * D + D * VOTE_GROUPS + 4 * VOTE_GROUPS, valid)
+    log(f"K8 [{D}, {n // D}, {r}] + [{D}, {VOTE_GROUPS}] votes: {ms:.4f} ms (CRC launch per "
+        f"shard + tally), plain {plain_ms:.2f} ms, bound {b_ms * 1e3:.3f} us ({b_by})")
+    out["crc32c_vote"] = {
+        "max_abs_err": max_abs_err([(torch.from_numpy(np.asarray(g)) if not hasattr(g, "cpu")
+                                     else g.cpu(), w.cpu()) for g, w in zip(got, want)]),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "parity": "ok, bad per shard and tally bit-identical over [4, 256, 16384] with [4, 256] "
+                  "votes"}
+
+    # K2 over DOCS x EXPRS in 4 shards (one empty), then the bench's launch
+    vals, exprs = docs_and_exprs()
+    cuts = [(0, 7), (7, 7), (7, 13), (13, len(vals))]
+
+    def stacks_for(plan, parts, values, n_blk):
+        per = []
+        for s, e in parts:
+            if s == e:
+                per.append(plan.zero_device_inputs(n_blk))
+                continue
+            v = values[s:e]
+            joined = b"".join(v)
+            offsets = np.cumsum([0] + [len(x) for x in v[:-1]]).astype(np.int64)
+            sizes = np.array([len(x) for x in v], np.int32)
+            per.append(plan.extract_device_inputs(joined, offsets, sizes, n_blk))
+        return [np.stack(c) for c in zip(*per)]
+
+    pairs = []
+    for i, expr in enumerate(exprs):
+        plan = plan_spec(where(expr))
+        stacked = stacks_for(plan, cuts, vals, 8)
+        got = plan.predicate_stacked(mesh, stacked)
+        want = predicate_stacked_plain(plan, [on_card(a, dev) for a in stacked])
+        torch.cuda.synchronize()
+        if not equal(got, want):
+            fail(f"predicate_stacked != plain on EXPRS[{i}]")
+        oracle = np.array([host_eval(expr, v) for v in vals])
+        bits = np.asarray(got)
+        keep = np.concatenate([np.unpackbits(bits[d])[: e - s] for d, (s, e) in enumerate(cuts)])
+        if not (keep.astype(bool) == oracle).all():
+            fail(f"predicate_stacked != host oracle on EXPRS[{i}]")
+        pairs.append((torch.from_numpy(bits), want.cpu()))
+    req = build_request(short_msgs=False)
+    batches = [b for it in req.items for b in it.batches] * GROUP
+    plan = plan_spec(columnar_spec())
+    ex, types, vs, ve = batch_codec.explode_and_find(batches, plan.flat_paths())
+    cache = plan.make_cache_from_tables(ex, plan.flat_paths(), types, vs, ve)
+    counts = [e - s for s, e in ex.ranges]
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    rec_cuts = [(int(starts[s]), int(starts[e])) for s, e in partition_counts(counts, D)]
+    n_blk = _bucket_rows(max(e - s for s, e in rec_cuts))
+    cols = plan.extract_device_inputs(ex.joined, ex.offsets, ex.sizes, len(ex.sizes), cache)
+    stacked = []
+    for c, z in zip(cols, plan.zero_device_inputs(n_blk)):
+        st = np.repeat(z[None], D, axis=0)
+        for k, (s, e) in enumerate(rec_cuts):
+            st[k, : e - s] = c[s:e]
+        stacked.append(st)
+    args = shard_to_mesh(mesh, *stacked)
+    args = args if isinstance(args, tuple) else (args,)
+    got = plan.predicate_stacked(mesh, args)
+    want = predicate_stacked_plain(plan, [on_card(a, dev) for a in stacked])
+    torch.cuda.synchronize()
+    if not equal(got, want):
+        fail("predicate_stacked != plain at the bench shape")
+    pairs.append((torch.from_numpy(np.asarray(got)), want.cpu()))
+    ms = cuda_ms(lambda: plan.predicate_stacked(mesh, args), 200)
+    st_cuda = [on_card(a, dev) for a in stacked]
+    block0 = [a[0] for a in st_cuda]
+    one_ms = cuda_ms(lambda: plan.predicate(block0, kernels.PREDICATE_STACKED), 200)
+    plain_ms = cuda_ms(lambda: predicate_stacked_plain(plan, st_cuda), 20)
+    nbytes = sum(a.nbytes for a in stacked) + D * n_blk // 8
+    b_ms, b_by = bound_ms(nbytes, D * n_blk * len(plan.program.code))
+    log(f"K2 parity: {len(exprs)} DOCS x EXPRS cases over {D} shards (one empty) bit-identical "
+        f"to the plain version and the host oracle; bench shape {D} x {n_blk} rows (range shard "
+        f"{[e - s for s, e in rec_cuts]}): {ms:.4f} ms ({D} launches; one shard's launch alone "
+        f"{one_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"bound {b_ms * 1e3:.4f} us ({b_by}, {nbytes} B)")
+    out["predicate_stacked"] = {
+        "max_abs_err": max_abs_err(pairs), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by,
+        "parity": f"bit-identical on {len(exprs)} EXPRS cases in {D} shards (one empty) and at "
+                  f"the bench shape ({D} x {n_blk})"}
+
+    # K10 at full width
+    host_in = step_inputs(11)
+    spec_json = payload_spec().to_json()
+    step = COL.make_sharded_coproc_step(mesh, spec_json, 16384, ROW_STRIDE)
+    prog = compile_transform(payload_spec(), ROW_STRIDE)
+    dev_in = [on_card(a, dev) for a in host_in]
+    kernels.reset_launches()  # the coproc step's run starts here
+    got = step(*dev_in)
+    launches.update(path_launches("coproc step", kernels.CRC32C_VALIDATE,
+                                  kernels.PAYLOAD_TRANSFORM, kernels.VOTE_TALLY))
+    launches["coproc_step"] = kernels.COPROC_STEP.launches
+    launches["vote_tally"] = kernels.VOTE_TALLY.launches
+    want = COL.coproc_step_plain(prog, *dev_in)
+    torch.cuda.synchronize()
+    g_ok, g_out, g_len, g_keep, g_tally = (np.asarray(x) if not hasattr(x, "cpu") else
+                                           x.cpu().numpy() for x in got)
+    w_ok, w_out, w_len, w_keep, w_tally = (w.cpu().numpy() for w in want)
+    if not ((g_ok == w_ok).all() and (g_len == w_len).all() and (g_keep == w_keep).all()
+            and (g_out[w_keep] == w_out[w_keep]).all() and (g_tally == w_tally).all()):
+        fail("coproc step != plain at full width")
+    if w_ok.all() or not w_keep.any():
+        fail("coproc step inputs do not exercise a bad batch and a kept record")
+    ms = cuda_ms(lambda: step(*dev_in), 20)
+    pb = P // D  # one shard's block: its three launches on the current stream
+    blk = [a[:pb] for a in dev_in]
+
+    def one_shard():
+        validate_rows(blk[0].reshape(-1, 16384), blk[1].reshape(-1), blk[2].reshape(-1))
+        transform(prog, blk[3].reshape(-1, ROW_STRIDE), blk[4].reshape(-1))
+        COL.vote_tally(blk[5])
+
+    one_ms = cuda_ms(one_shard, 20)
+    plain_ms = cuda_ms(lambda: COL.coproc_step_plain(prog, *dev_in), 1)
+    b_lens, rec_lens = host_in[1], host_in[4]
+    n_b, n_r = b_lens.size, rec_lens.size
+    nbytes = (int(np.clip(b_lens, 0, 16384).sum()) + 9 * n_b  # K6
+              + int(np.clip(rec_lens, 0, ROW_STRIDE).sum()) + 4 * n_r
+              + n_r * (prog.r_out + 4 + 1)  # K3
+              + host_in[5].size + 4 * VOTE_GROUPS)  # K7
+    b_ms, b_by = bound_ms(nbytes, int(np.clip(b_lens, 0, 16384).sum()))
+    log(f"K10 full width: [{P}, {STEP_BATCHES}, 16384] batches ({int((~w_ok).sum())} bad), "
+        f"[{P}, {STEP_RECORDS}, {ROW_STRIDE}] records ({int(w_keep.sum())} kept), [{P}, "
+        f"{VOTE_GROUPS}] votes: {ms:.4f} ms per step (one shard's three launches alone "
+        f"{one_ms:.4f} ms), plain {plain_ms:.1f} ms, bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes} B); launches in its run "
+        f"{ {k: launches[k] for k in ('crc32c_validate', 'payload_transform', 'vote_tally')} }")
+    out["coproc_step"] = {
+        "max_abs_err": max_abs_err([(torch.from_numpy(g_ok), torch.from_numpy(w_ok)),
+                                    (torch.from_numpy(g_len), torch.from_numpy(w_len)),
+                                    (torch.from_numpy(g_tally), torch.from_numpy(w_tally))]),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "parity": "ok, out_len, keep, tally and the kept rows' out bit-identical at full width"}
+    return out, launches
+
+
+def phase_engine_mesh(dev, mesh, engine_run) -> dict:
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+
+    spec = columnar_spec()
+    eng = TorchEngine(device=dev, mesh=mesh, mesh_probe=False, row_stride=ROW_STRIDE)
+    if eng.enable_coprocessors([(1, spec.to_json(), ("bench",))]) != [0]:
+        fail("enable on the mesh")
+    run_stream(eng, engine_run["work"]["bench"], GROUP + 1)  # warm-up
+    eng.reset_stats()
+    warm_rows = eng.stats()["mesh"]["rows_per_device"]
+    kernels.reset_launches()  # the engine's mesh lane starts here
+    rates, st = {}, None
+    for wname, req in engine_run["work"].items():
+        n_ticks = TICKS if wname == "bench" else 2 * GROUP
+        replies, rates[wname] = run_stream(eng, req, n_ticks)
+        ref = engine_run["want"]["columnar", wname]
+        for k, rep in enumerate(replies):
+            if reply_bytes(rep) != ref[k % GROUP]:
+                fail(f"mesh lane {wname}: reply {k} differs from the CPU engine's")
+        if wname == "bench":
+            st = eng.stats()  # the bench workload's stages, as phase 3 prints them
+    launches = path_launches("engine mesh lane", kernels.PREDICATE_STACKED)
+    if kernels.PREDICATE.launches:
+        fail("the single-device predicate ran on the pinned mesh lane")
+    eng.shutdown()
+    m = st["mesh"]
+    m["rows_per_device"] = [a - b for a, b in zip(m["rows_per_device"], warm_rows)]
+    if sum(m["rows_per_device"]) != st["n_records"] or st.get("n_failures_dispatch"):
+        fail(f"mesh lane accounting: {m}, n_records {st['n_records']}")
+    stages = {k: round(v, 6) for k, v in sorted(st.items()) if k.startswith(("t_", "n_", "bytes_"))}
+    single = engine_run["rates"]["columnar", "bench"][0]
+    log(f"engine mesh lane (virtual mesh of {mesh.size} shards on one card), columnar bench: "
+        f"{rates['bench']:.1f} record_batches/s against the single lane's {single:.1f} (phase 3); "
+        f"short_msgs {rates['short_msgs']:.1f}; replies byte-identical to TorchEngine(cpu); "
+        f"rows_per_device {m['rows_per_device']}; launches {launches}")
+    busy = (st.get("t_dev_h2d", 0) + st.get("t_dev_kernel", 0) + st.get("t_dev_d2h", 0)) \
+        * rates["bench"] / (TICKS * P)
+    log(f"engine mesh lane bench stages: {json.dumps(stages)}; shard streams busy {busy:.2%} "
+        "of the wall (sum of CUDA-event intervals over the four streams)")
+    probing = TorchEngine(device=dev, mesh=mesh, mesh_probe=True, row_stride=ROW_STRIDE)
+    probing.enable_coprocessors([(1, spec.to_json(), ("bench",))])
+    replies, _ = run_stream(probing, engine_run["work"]["bench"], GROUP)
+    if any(reply_bytes(r) != engine_run["want"]["columnar", "bench"][k % GROUP]
+           for k, r in enumerate(replies)):
+        fail("probing mesh engine: a reply differs from the CPU engine's")
+    pm = probing.stats()["mesh"]
+    probing.shutdown()
+    log(f"engine mesh probe (mesh_probe=True): decision {pm['decision']}, probe "
+        f"{json.dumps(pm.get('probe'))}")
+    return launches
+
+
+def phase_raft_mesh(dev, mesh) -> dict:
+    import numpy as np
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.raft.device_plane import RaftDevicePlane, _host_validate
+
+    n = RAFT_PARTITIONS * RAFT_BATCHES
+    batches = random_batches(n, RAFT_RECORDS, RAFT_VALUE, 2)
+    regions = [b.crc_region() for b in batches]
+    claimed = np.array([b.header.crc for b in batches], np.uint32)
+    claimed[[3, n // 2, n - 1]] ^= 0x1
+    want = _host_validate(regions, claimed)
+    plane = RaftDevicePlane(mesh=mesh, probe=False, device=dev)
+    plane.validate(regions[:64], claimed[:64])  # first launches
+    votes = np.random.default_rng(12).integers(0, 2, (mesh.size, VOTE_GROUPS)).astype(np.uint8)
+    kernels.reset_launches()  # the raft mesh leg starts here
+    t0 = time.perf_counter()
+    ok = plane.validate(regions, claimed)
+    t_dev = time.perf_counter() - t0
+    tally = plane.tally_votes(votes)
+    launches = path_launches("raft mesh leg", kernels.CRC32C_VOTE, kernels.VOTE_TALLY)
+    if not np.array_equal(ok, want) or ok.sum() != n - 3:
+        fail("raft mesh leg: flags differ from the host oracle's")
+    if not np.array_equal(tally, votes.astype(np.int32).sum(axis=0)):
+        fail("raft mesh leg: tally_votes differs from the numpy sum")
+    log(f"raft mesh leg (virtual mesh of {mesh.size} shards on one card): {n} regions of rows "
+        f"16384, {t_dev * 1e3:.3f} ms per append ({n / t_dev:.1f} batches/s incl. pack and "
+        f"copies); flags equal to the host oracle's; tally_votes [{mesh.size}, {VOTE_GROUPS}] "
+        f"equal to the numpy sum; launches {launches}")
+    return launches
+
+
+def phase_dryrun(dev) -> dict:
+    from redpanda_tpu_torch import entry, kernels
+
+    kernels.reset_launches()  # dryrun_multichip starts here
+    entry.dryrun_multichip(MESH_SHARDS, devices=[dev] * MESH_SHARDS)
+    launches = path_launches("dryrun_multichip", kernels.PREDICATE_STACKED,
+                             kernels.CRC32C_VALIDATE, kernels.PAYLOAD_TRANSFORM,
+                             kernels.VOTE_TALLY)
+    launches["coproc_step"] = kernels.COPROC_STEP.launches
+    if not launches["coproc_step"]:
+        fail("dryrun_multichip did not run the coproc step on the card")
+    log(f"dryrun_multichip({MESH_SHARDS}) on the virtual mesh: its asserts held; launches "
+        f"{launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -757,22 +1169,40 @@ def main() -> int:
         ptxas = [ln.strip() for ln in k.build_log().splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {k.name}: {' | '.join(ptxas)}")
     measured = {"predicate": phase_predicate(dev), "payload_transform": phase_payload(dev)}
-    launches = phase_engine(dev)
+    launches, engine_run = phase_engine(dev)
     measured.update(phase_crc_kernels(dev))
     launches.update(phase_produce(dev))
     crc_paths = [phase_raft(dev), phase_recovery(dev)]
     launches["crc32c"] = sum(p["crc32c"] for p in crc_paths)
     measured["lz4_block"], lz4_launches = phase_lz4(dev)
     launches.update(lz4_launches)
+    from redpanda_tpu_torch.parallel import partition_mesh
+
+    mesh = partition_mesh(devices=[dev] * MESH_SHARDS)
+    log(f"virtual mesh: {mesh} (four streams of one card; nothing here measures "
+        "scaling across cards)")
+    mesh_measured, mesh_launches = phase_mesh_kernels(dev, mesh)
+    measured.update(mesh_measured)
+    engine_launches = phase_engine_mesh(dev, mesh, engine_run)
+    raft_launches = phase_raft_mesh(dev, mesh)
+    dry_launches = phase_dryrun(dev)
+    launches["predicate_stacked"] = engine_launches["predicate_stacked"]
+    launches["crc32c_vote"] = raft_launches["crc32c_vote"]
+    launches["crc32c_sharded"] = mesh_launches["crc32c_sharded"]
+    launches["vote_tally"] = raft_launches["vote_tally"] + mesh_launches["vote_tally"]
+    launches["coproc_step"] = mesh_launches["coproc_step"] + dry_launches["coproc_step"]
     line = []
-    for k in kernels.KERNELS:
+    for k in (*kernels.KERNELS, kernels.COPROC_STEP):
         m = measured[k.name]
-        line.append({
+        row = {
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "launches": launches[k.name], "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": None, "parity": m["parity"],
-        })
+            "library_ms": m.get("library_ms"), "parity": m["parity"],
+        }
+        if isinstance(k, kernels.Step):
+            row["kernels"] = [p.name for p in k.parts]
+        line.append(row)
     log(json.dumps({"kernels": line}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

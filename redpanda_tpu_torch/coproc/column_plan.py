@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from redpanda_tpu_torch import kernels, native
+from redpanda_tpu_torch.device import constants_on
 from redpanda_tpu_torch.ops import exprs as E
 from redpanda_tpu_torch.ops.transforms import (
     Concat,
@@ -41,6 +42,7 @@ from redpanda_tpu_torch.ops.transforms import (
     _MapUppercase,
     project_out_width,
 )
+from redpanda_tpu_torch.parallel.mesh import Sharded, shard_to_mesh
 
 _INT9 = 999_999_999  # v1 projection rule: ints limited to 9 digits
 
@@ -111,10 +113,7 @@ class PredicateProgram:
         key = str(device)
         got = self._dev.get(key)
         if got is None:
-            got = (
-                torch.from_numpy(self.code).to(device),
-                torch.from_numpy(self.needles).to(device),
-            )
+            got = constants_on(device, self.code, self.needles)
             self._dev[key] = got
         return got
 
@@ -235,10 +234,12 @@ class ColumnarPlan:
         return slots
 
     # ------------------------------------------------------------ predicate
-    def predicate(self, arrays: list[torch.Tensor]) -> torch.Tensor:
+    def predicate(self, arrays: list[torch.Tensor], kernel=kernels.PREDICATE) -> torch.Tensor:
         """The predicate kernel's wrapper: the ordered column tensors ->
         packed keep bits uint8 [n_pad/8], MSB-first. CPU tensors run
-        ``predicate_plain``; CUDA tensors launch the kernel."""
+        ``predicate_plain``; CUDA tensors launch the kernel on the current
+        stream, counted under ``kernel`` (the mesh's per-shard launches
+        count as ``kernels.PREDICATE_STACKED``)."""
         n_pad = self._check_arrays(arrays)
         device = arrays[0].device
         if device.type == "cpu":
@@ -253,11 +254,47 @@ class ColumnarPlan:
             torch.empty((words, n_pad), dtype=torch.int64, device=device) if words > 0 else None
         )
         ptrs = (ctypes.c_void_p * len(arrays))(*[a.data_ptr() for a in arrays])
-        kernels.PREDICATE.launch(
+        kernel.launch(
             ptrs, len(arrays), code.data_ptr(), code.shape[0], needles.data_ptr(), n_pad,
             None if scratch is None else scratch.data_ptr(), out.data_ptr(),
             kernels.stream_handle(device),
         )
+        return out
+
+    def predicate_stacked(self, mesh, shard_arrays):
+        """The stacked predicate (K2): every column a per-shard stack
+        [D, n_pad, ...] (numpy, or ``Sharded`` from ``shard_to_mesh``), each
+        shard's [n_pad] block evaluated by one launch of the predicate kernel
+        on its device and stream -> packed keep bits [D, n_pad/8] as a
+        ``Sharded`` array. Block d equals ``predicate`` over shard d's rows
+        alone: the bits pack within a block and n_pad % 8 == 0."""
+        args = shard_to_mesh(mesh, *shard_arrays)
+        args = args if isinstance(args, tuple) else (args,)
+        for a in args:
+            if a.shape[0] != mesh.size:
+                raise ValueError(f"stack {a.shape} has no block per shard of {mesh}")
+        bits = []
+        for d in range(mesh.size):
+            with mesh.shard(d):
+                blocks = [a.blocks[d][0] for a in args]
+                bits.append(self.predicate(blocks, kernels.PREDICATE_STACKED)[None])
+        mesh.join(*bits)
+        return Sharded(mesh, bits)
+
+    def zero_device_inputs(self, n_pad: int) -> list[np.ndarray]:
+        """All-padding device inputs: the dtypes, shapes and arity of
+        ``extract_device_inputs`` with zero records (str vlen -1 = absent).
+        An empty mesh shard stacks these so every shard's block keeps one
+        shape."""
+        out = []
+        for c in self.dev_cols:
+            if c.kind == "str":
+                out += [np.zeros((n_pad, c.w), np.uint8), np.full(n_pad, -1, np.int32)]
+            elif c.kind == "num":
+                out += [np.zeros(n_pad, np.float32), np.zeros(n_pad, np.int32),
+                        np.zeros(n_pad, np.uint8)]
+            else:
+                out.append(np.zeros(n_pad, np.uint8))
         return out
 
     def _check_arrays(self, arrays) -> int:
@@ -583,6 +620,13 @@ def predicate_plain(plan: ColumnarPlan, arrays) -> torch.Tensor:
     """The plain PyTorch version of the predicate kernel."""
     keep = _build_expr(plan.spec.where, plan._bind_slots(arrays), _prepare_cmp_consts(plan.spec.where))
     return _packbits(keep)
+
+
+def predicate_stacked_plain(plan: ColumnarPlan, stacked) -> torch.Tensor:
+    """The plain PyTorch version of the stacked predicate: column stacks
+    [D, n_pad, ...] -> bits uint8 [D, n_pad/8], block by block."""
+    return torch.stack([predicate_plain(plan, [a[d] for a in stacked])
+                        for d in range(stacked[0].shape[0])])
 
 
 # ---------------------------------------------------------------- extractors

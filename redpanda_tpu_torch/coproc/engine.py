@@ -23,6 +23,18 @@ result is copied down into pinned memory, and one CUDA event marks the end.
 while the host explodes, extracts and frames others. On ``device="cpu"`` the
 same path runs the kernels' plain PyTorch versions synchronously.
 
+With a partition mesh (``mesh=`` a ``PartitionMesh``, or ``mesh_devices=n``
+cards) columnar launches take the mesh lane (coproc/meshrunner.py): the
+launch's records are cut into per-device shards by the host pool's range
+shard over its batches, each shard's predicate columns are padded to one
+common row bucket, and each shard runs the stacked predicate (K2) on its
+own device and stream, with its own pinned copies and end event. A launch
+of one batch cannot be range-sharded; on a mesh pinned by
+``mesh_probe=False`` it runs as D equal row blocks of the padded launch
+through the same launcher (the JAX engine's ``mesh=`` lane). The measured
+calibration may choose the single device; a failing shard launch raises
+through the same dispatch boundary as a failing single-device launch.
+
 Error policies mirror the public SDK: SkipOnFailure drops the failing batch
 but keeps the script; Deregister removes the script on first failure.
 """
@@ -41,6 +53,8 @@ import torch
 
 from redpanda_tpu_torch import native
 from redpanda_tpu_torch.coproc import batch_codec
+from redpanda_tpu_torch import kernels
+from redpanda_tpu_torch.coproc import meshrunner
 from redpanda_tpu_torch.coproc.column_plan import ColumnarPlan, PayloadPlan, plan_spec
 from redpanda_tpu_torch.device import resolve_device
 from redpanda_tpu_torch.hashing.crc32c import crc32c
@@ -48,6 +62,7 @@ from redpanda_tpu_torch.models.fundamental import NTP
 from redpanda_tpu_torch.models.record import Compression, RecordBatch
 from redpanda_tpu_torch.ops.pipeline import IN_META, run_packed, unpack_result
 from redpanda_tpu_torch.ops.transforms import TransformSpec, compile_transform
+from redpanda_tpu_torch.parallel.mesh import PartitionMesh, partition_mesh
 
 logger = logging.getLogger("rptorch.coproc.engine")
 
@@ -119,9 +134,10 @@ _PROGRAMMING_ERRORS = (AssertionError, NameError, UnboundLocalError)
 
 
 class _Pending:
-    """One device result in flight on the engine's stream: the pinned host
-    tensor it lands in, four timing events (start, H2D done, kernel done,
-    D2H done) and the tensors the stream still reads or writes."""
+    """One device result in flight: the pinned host tensor it lands in, for
+    each stream it runs on (one, or one per mesh shard) four timing events
+    (start, H2D done, kernel done, D2H done), and the tensors the streams
+    still read or write."""
 
     __slots__ = ("host", "marks", "refs")
 
@@ -132,11 +148,11 @@ class _Pending:
 
     def wait(self, engine: "TorchEngine") -> np.ndarray:
         if self.marks is not None:
-            m = self.marks
-            m[3].synchronize()
-            engine._stat_add("t_dev_h2d", m[0].elapsed_time(m[1]) / 1e3)
-            engine._stat_add("t_dev_kernel", m[1].elapsed_time(m[2]) / 1e3)
-            engine._stat_add("t_dev_d2h", m[2].elapsed_time(m[3]) / 1e3)
+            for m in self.marks:
+                m[3].synchronize()
+                engine._stat_add("t_dev_h2d", m[0].elapsed_time(m[1]) / 1e3)
+                engine._stat_add("t_dev_kernel", m[1].elapsed_time(m[2]) / 1e3)
+                engine._stat_add("t_dev_d2h", m[2].elapsed_time(m[3]) / 1e3)
             self.marks = self.refs = None
         return self.host.numpy()
 
@@ -155,6 +171,8 @@ class _Launch:
         self.ranges: list[tuple[int, int]] = []
         self.fits: np.ndarray | None = None
         self.pending: _Pending | None = None
+        # mesh lane: the records of each shard's block, in launch order
+        self.mesh_rows: list[int] | None = None
         self.exploded = None
         self.proj_data = None
         self.proj_ok: np.ndarray | None = None
@@ -203,7 +221,12 @@ class _Launch:
             )
         keep = np.ones(n, dtype=bool)
         if self.pending is not None:
-            keep = np.unpackbits(self._fetch())[:n].astype(bool)
+            bits = self._fetch()
+            if self.mesh_rows is None:
+                keep = np.unpackbits(bits)[:n].astype(bool)
+            else:  # [D, n_blk/8]: each shard's bits, trimmed to its records
+                keep = np.concatenate([np.unpackbits(b)[:k] for b, k in
+                                       zip(bits, self.mesh_rows)]).astype(bool)
         keep &= self.proj_ok
         t0 = time.perf_counter()
         plan: ColumnarPlan = self.plan
@@ -299,13 +322,19 @@ class Ticket:
 
 
 class TorchEngine:
-    """Script table + batched asynchronous device execution on one device.
+    """Script table + batched asynchronous device execution.
 
     ``device`` is where the kernels run: ``"cuda"`` (the default; raises
     when no CUDA device is present) or ``"cpu"``, which runs the kernels'
     plain PyTorch versions and is the port's reference run. Records wider
     than ``row_stride`` cannot be staged for the payload kernel; they are
     dropped from payload-plan output, never truncated.
+
+    ``mesh`` (a ``PartitionMesh`` of ``device``'s type) or ``mesh_devices``
+    (n >= 2: the first n cards, raising when there are fewer) gives the
+    columnar plans the mesh lane; a mesh of one shard is the single lane.
+    ``mesh_probe=False`` pins the mesh lane; True measures mesh against
+    single on the first representative launch (``stats()["mesh"]``).
     """
 
     def __init__(
@@ -315,11 +344,21 @@ class TorchEngine:
         row_stride: int = 1024,
         compress_threshold: int = 512,
         output_codec: Compression = Compression.zstd,
+        mesh: PartitionMesh | None = None,
+        mesh_devices: int | None = None,
+        mesh_probe: bool = True,
     ):
         self.device = resolve_device(device)
         self._stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(device=self.device)
+        if mesh is None and mesh_devices is not None and int(mesh_devices) >= 2:
+            mesh = partition_mesh(int(mesh_devices), device=self.device.type)
+        self._meshrunner: meshrunner.MeshRunner | None = None
+        if mesh is not None and mesh.size >= 2:
+            if mesh.type != self.device.type:
+                raise ValueError(f"mesh {mesh} does not run on the engine's device {self.device}")
+            self._meshrunner = meshrunner.MeshRunner(mesh, probe=mesh_probe)
         self._row_stride = int(row_stride)
         self._compress_threshold = compress_threshold
         self._output_codec = output_codec
@@ -385,18 +424,28 @@ class TorchEngine:
         return len(self._handles)
 
     def shutdown(self) -> None:
-        """Wait for every launch still on the engine's stream."""
+        """Wait for every launch still on the engine's streams."""
         if self._stream is not None:
             self._stream.synchronize()
+        if self._meshrunner is not None:
+            for stream in self._meshrunner.mesh.streams:
+                if stream is not None:
+                    stream.synchronize()
 
     # ------------------------------------------------------------ metrics
     def stats(self) -> dict:
         """Per-stage wall seconds (``t_*``; ``t_dev_*`` are device seconds
-        from CUDA events), counts (``n_*``, ``n_kernel_*`` per kernel) and
-        link bytes (``bytes_h2d``, ``bytes_d2h``)."""
+        from CUDA events, summed over the mesh's shard streams on the mesh
+        lane; ``t_mesh_ladder`` cuts a launch's columns into the shards'
+        stacks), counts (``n_*``, ``n_kernel_*`` per kernel,
+        ``n_mesh_launches``), link bytes (``bytes_h2d``, ``bytes_d2h``)
+        and, with a mesh, the meshrunner's ``mesh`` block (decision, probe,
+        launches and rows per device of the range-shard lane)."""
         with self._stats_lock:
             out = dict(self._stats)
         out["device"] = str(self.device)
+        if self._meshrunner is not None:
+            out["mesh"] = self._meshrunner.stats()
         return out
 
     def reset_stats(self) -> None:
@@ -500,10 +549,12 @@ class TorchEngine:
             exploded.joined, exploded.offsets, exploded.sizes, n_pad, cache
         )
         self._stat("t_extract_pred", t0)
-        inputs = [torch.from_numpy(c) for c in cols]
-        if self._stream is not None:
-            inputs = [t.pin_memory() for t in inputs]
-        launch.pending = self._run_device(inputs, plan.predicate, "predicate")
+        counts = [e - s for s, e in exploded.ranges]
+        if not (plan.dev_cols and self._dispatch_mesh(launch, plan, cols, counts, n)):
+            inputs = [torch.from_numpy(c) for c in cols]
+            if self._stream is not None:
+                inputs = [t.pin_memory() for t in inputs]
+            launch.pending = self._run_device(inputs, plan.predicate, "predicate")
         # projection extraction overlaps the device launch
         t0 = time.perf_counter()
         if plan.passthrough:
@@ -514,6 +565,93 @@ class TorchEngine:
                 exploded.joined, exploded.offsets, exploded.sizes, cache
             )
         self._stat("t_extract_proj", t0)
+
+    def _mesh_blocks(self, counts: list[int], n: int):
+        """The mesh lane's cut of a launch, or None for the single lane:
+        ([start, end) records of each shard, common rows per block, whether
+        the cut is the range shard)."""
+        runner = self._meshrunner
+        if runner is None or n == 0:
+            return None
+        decision = runner.decision
+        if decision == "single":
+            return None
+        d = runner.n_devices
+        if len(counts) < 2:
+            if decision != "mesh" or runner.probe_enabled:
+                return None
+            # one batch on a pinned mesh: D equal blocks of the padded launch
+            blk = -(-_bucket_rows(n) // (8 * d)) * 8
+            return [(min(k * blk, n), min((k + 1) * blk, n)) for k in range(d)], blk, False
+        if n < meshrunner.PROBE_MIN_ROWS and (decision is None or runner.probe_enabled):
+            # too small to probe on, or a trickle after a measured pin: the
+            # single lane is cheaper; a pinned mesh (probe off) takes all
+            return None
+        starts = np.concatenate([[0], np.cumsum(counts)])
+        rec = [(int(starts[s]), int(starts[e])) for s, e in runner.shard_ranges(counts)]
+        rec += [(n, n)] * (d - len(rec))  # fewer batches than shards: empty shards
+        return rec, _bucket_rows(max(e - s for s, e in rec)), True
+
+    def _dispatch_mesh(self, launch, plan: ColumnarPlan, cols, counts, n: int) -> bool:
+        """Issue the launch's predicate on the mesh; False sends it down the
+        single lane (not mesh-eligible, or the calibration chose single)."""
+        cut = self._mesh_blocks(counts, n)
+        if cut is None:
+            return False
+        rec, n_blk, ranged = cut
+        runner = self._meshrunner
+        t0 = time.perf_counter()
+        stacks = []
+        for col, zero in zip(cols, plan.zero_device_inputs(n_blk)):
+            stack = np.repeat(zero[None], runner.n_devices, axis=0)
+            for k, (s, e) in enumerate(rec):
+                stack[k, : e - s] = col[s:e]
+            stacks.append(stack)
+        self._stat("t_mesh_ladder", t0)
+        if runner.decision is None:
+            # cols are exactly what the single lane would launch
+            if runner.maybe_calibrate(plan, stacks, cols, self.device, n) != "mesh":
+                return False
+        launch.mesh_rows = [e - s for s, e in rec]
+        launch.pending = self._run_mesh(plan, stacks, n_blk)
+        if ranged:
+            runner.note_launch(launch.mesh_rows)
+        self._stat_add("n_mesh_launches", 1)
+        return True
+
+    def _run_mesh(self, plan: ColumnarPlan, stacks: list[np.ndarray], n_blk: int) -> _Pending:
+        """Per shard, on its device and stream: its block of every column
+        up from pinned memory, one stacked-predicate launch, its bits down
+        into row d of one pinned host result, and four timing events."""
+        mesh = self._meshrunner.mesh
+        t0 = time.perf_counter()
+        self._stat_add("n_kernel_predicate_stacked", mesh.size)
+        host = torch.empty((mesh.size, n_blk // 8), dtype=torch.uint8,
+                           pin_memory=mesh.type == "cuda")
+        inputs = [torch.from_numpy(s) for s in stacks]
+        if mesh.type != "cuda":
+            for d in range(mesh.size):
+                host[d] = plan.predicate([t[d] for t in inputs], kernels.PREDICATE_STACKED)
+            self._stat("t_dispatch", t0)
+            return _Pending(host)
+        inputs = [t.pin_memory() for t in inputs]
+        marks, refs = [], [inputs]
+        for d, dev in enumerate(mesh.devices):
+            with mesh.shard(d):
+                m = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                m[0].record()
+                cols = [t[d].to(dev, non_blocking=True) for t in inputs]
+                m[1].record()
+                bits = plan.predicate(cols, kernels.PREDICATE_STACKED)
+                m[2].record()
+                host[d].copy_(bits, non_blocking=True)
+                m[3].record()
+            marks.append(m)
+            refs.append((cols, bits))
+        self._stat("t_dispatch", t0)
+        self._stat_add("bytes_h2d", sum(t.nbytes for t in inputs))
+        self._stat_add("bytes_d2h", host.nbytes)
+        return _Pending(host, marks, refs)
 
     def _dispatch_payload(self, launch, exploded, n: int) -> None:
         prog = self._programs[launch.script_id]
@@ -555,7 +693,7 @@ class TorchEngine:
         self._stat("t_dispatch", t0)
         self._stat_add("bytes_h2d", sum(t.nbytes for t in inputs))
         self._stat_add("bytes_d2h", host.nbytes)
-        return _Pending(host, marks, (inputs, dev, out))
+        return _Pending(host, [marks], (inputs, dev, out))
 
 
 def pack_staged(exploded, row_stride: int, staged: np.ndarray) -> None:

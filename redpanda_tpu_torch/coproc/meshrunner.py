@@ -1,0 +1,142 @@
+"""meshrunner: the coproc engine's partition mesh (BASELINE config 5).
+
+The JAX package maps the ``[partition, batch, record]`` axis of a launch
+onto a 1-D device mesh (coproc/meshrunner.py there); this is its port over
+a ``PartitionMesh`` (parallel/mesh.py):
+
+- a launch's batches cut into per-device shards with the host pool's
+  contiguous range shard (``host_pool.partition_counts``), so the shards,
+  and ``stats()["mesh"]["rows_per_device"]``, equal the JAX engine's and
+  the concatenated outputs are byte-identical to the single-device path;
+- the predicate runs as the stacked predicate (K2): one launch of the
+  predicate kernel per shard over its block of a common row bucket;
+- mesh-vs-single is a measured decision taken on the first representative
+  launch (``PROBE_MIN_ROWS``): the same predicate over the same columns,
+  once over the mesh and once on the engine's one device, and the mesh
+  must win by ``PROBE_MARGIN``. The decision and the probe's times are in
+  ``stats()``. On a virtual mesh (one card named several times) the mesh
+  does the single lane's work plus a launch per shard, so "single" is the
+  expected answer there.
+
+The governor journal of the JAX package is not ported yet; the probe's
+numbers are in ``stats()["probe"]``. The JAX package's
+``available_devices`` (which returned [] on any error) has no counterpart:
+``partition_mesh(n)`` raises when there are fewer than n cards.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+import numpy as np
+import torch
+
+from redpanda_tpu_torch.coproc import host_pool
+from redpanda_tpu_torch.parallel.mesh import PartitionMesh
+
+# don't pin the engine-sticky mesh-vs-single decision on a launch too
+# small to represent steady state
+PROBE_MIN_ROWS = 1024
+
+# the mesh must beat the single device by this factor to be chosen
+PROBE_MARGIN = 1.25
+
+
+class MeshRunner:
+    """Owns the mesh-vs-single decision and the per-device accounting of a
+    ``PartitionMesh``; the engine keeps the launch machinery."""
+
+    def __init__(self, mesh: PartitionMesh, probe: bool = True):
+        if mesh.size < 2:
+            raise ValueError(f"meshrunner needs >= 2 shards, have {mesh.size}")
+        self.mesh = mesh
+        self.n_devices = mesh.size
+        self._probe_enabled = bool(probe)
+        # probe=False pins "mesh" unmeasured: parity runs and ablations need
+        # the mesh lane deterministically
+        self._decision: str | None = None if probe else "mesh"
+        self._probe: dict | None = None
+        self._lock = threading.Lock()
+        self._n_launches = 0
+        self._rows_per_device = [0] * self.n_devices
+
+    @property
+    def decision(self) -> str | None:
+        with self._lock:
+            return self._decision
+
+    @property
+    def probe_enabled(self) -> bool:
+        return self._probe_enabled
+
+    def shard_ranges(self, counts: list[int]) -> list[tuple[int, int]]:
+        """Per-device contiguous batch slices (may be fewer than the mesh's
+        shards when there are fewer batches; the rest run empty)."""
+        return host_pool.partition_counts(counts, self.n_devices)
+
+    def note_launch(self, shard_rows: list[int]) -> None:
+        with self._lock:
+            self._n_launches += 1
+            for d, n in enumerate(shard_rows):
+                self._rows_per_device[d] += int(n)
+
+    def maybe_calibrate(self, plan, stacked: list[np.ndarray], flat: list[np.ndarray],
+                        device: torch.device, n_rows: int) -> str:
+        """The engine-sticky pin, measured on the first representative
+        launch's own columns: ``stacked`` ([D, n_pad, ...] per column) over
+        the mesh against ``flat`` (the single lane's columns) on
+        ``device``. A launch under PROBE_MIN_ROWS runs single without
+        pinning. A failing probe raises."""
+        with self._lock:
+            if self._decision is not None:
+                return self._decision
+        if n_rows < PROBE_MIN_ROWS:
+            return "single"
+        t_mesh, t_single = self._measure(plan, stacked, flat, device)
+        ratio = t_single / t_mesh if t_mesh > 0 else 0.0
+        decision = "mesh" if ratio >= PROBE_MARGIN else "single"
+        with self._lock:
+            self._decision = decision
+            self._probe = {
+                "t_single_ms": round(t_single * 1e3, 3),
+                "t_mesh_ms": round(t_mesh * 1e3, 3),
+                "speedup": round(ratio, 3),
+                "devices": self.n_devices,
+                "chosen": decision,
+            }
+        return decision
+
+    def _measure(self, plan, stacked, flat, device) -> tuple[float, float]:
+        """Best of two timed passes each (after one untimed pass), host
+        columns in and keep bits back on the host, as a launch needs."""
+        def mesh_leg():
+            return np.asarray(plan.predicate_stacked(self.mesh, stacked))
+
+        def single_leg():
+            cols = [torch.from_numpy(c).to(device) for c in flat]
+            return plan.predicate(cols).cpu().numpy()
+
+        mesh_leg()
+        single_leg()
+        t_mesh = t_single = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            mesh_leg()
+            t_mesh = min(t_mesh, time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            single_leg()
+            t_single = min(t_single, time.perf_counter() - t0)
+        return t_mesh, t_single
+
+    def stats(self) -> dict:
+        with self._lock:
+            out = {
+                "devices": self.n_devices,
+                "decision": self._decision,
+                "launches": self._n_launches,
+                "rows_per_device": list(self._rows_per_device),
+            }
+            if self._probe is not None:
+                out["probe"] = dict(self._probe)
+        return out

@@ -22,3 +22,14 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def constants_on(device: torch.device, *arrays) -> tuple[torch.Tensor, ...]:
+    """Numpy arrays uploaded to ``device`` as kernel constants. On a card
+    the upload is waited for: it runs on whatever stream is current, and
+    the constants are then read from other streams (the engine's, each
+    mesh shard's), which a copy still in flight would race."""
+    out = tuple(torch.from_numpy(a).to(device) for a in arrays)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return out

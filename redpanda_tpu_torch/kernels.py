@@ -114,8 +114,8 @@ PAYLOAD_TRANSFORM = Kernel(
     [_P, _L, _P, _I, _I, _P, _L, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P],
 )
 
-# data, stride, lens, n, r, tables, crc_out, claimed, ok_out, stream
-_CRC_ARGS = [_P, _L, _P, _I, _I, _P, _P, _P, _P, _P]
+# data, stride, lens, n, r, tables, crc_out, claimed, ok_out, bad_out, seg, stream
+_CRC_ARGS = [_P, _L, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P]
 
 CRC32C = Kernel(
     "crc32c",
@@ -135,6 +135,45 @@ CRC32C_VALIDATE = Kernel(
     lib="crc32c",
 )
 
+# the validator with a bad-row count per shard (the raft mesh step) ...
+CRC32C_VOTE = Kernel(
+    "crc32c_vote",
+    "redpanda_tpu_torch/csrc/crc32c.cu",
+    "redpanda_tpu/parallel/collectives.py:124",
+    "rp_crc32c",
+    _CRC_ARGS,
+    lib="crc32c",
+)
+
+# ... and per partition (the sharded CRC check)
+CRC32C_SHARDED = Kernel(
+    "crc32c_sharded",
+    "redpanda_tpu_torch/csrc/crc32c.cu",
+    "redpanda_tpu/parallel/collectives.py:155",
+    "rp_crc32c",
+    _CRC_ARGS,
+    lib="crc32c",
+)
+
+# the predicate kernel launched once per mesh shard, counted apart
+PREDICATE_STACKED = Kernel(
+    "predicate_stacked",
+    "redpanda_tpu_torch/csrc/predicate.cu",
+    "redpanda_tpu/coproc/column_plan.py:268",
+    "rp_predicate",
+    PREDICATE.argtypes,
+    lib="predicate",
+)
+
+VOTE_TALLY = Kernel(
+    "vote_tally",
+    "redpanda_tpu_torch/csrc/vote_tally.cu",
+    "redpanda_tpu/parallel/collectives.py:39",
+    "rp_vote_tally",
+    # votes, rows, g, dtype (0 u8, 1 i32), out, stream
+    [_P, _I, _I, _I, _P, _P],
+)
+
 LZ4_BLOCK = Kernel(
     "lz4_block",
     "redpanda_tpu_torch/csrc/lz4_block.cu",
@@ -144,7 +183,32 @@ LZ4_BLOCK = Kernel(
     [_P, _P, _I, _I, _P, _P, _P, _I, _P],
 )
 
-KERNELS = (PREDICATE, PAYLOAD_TRANSFORM, CRC32C, CRC32C_VALIDATE, LZ4_BLOCK)
+KERNELS = (
+    PREDICATE, PAYLOAD_TRANSFORM, CRC32C, CRC32C_VALIDATE, LZ4_BLOCK,
+    PREDICATE_STACKED, VOTE_TALLY, CRC32C_VOTE, CRC32C_SHARDED,
+)
+
+
+class Step:
+    """A JAX program the port runs as launches of several kernel rows
+    (``parts``), not as a kernel of its own; ``launches`` counts the steps
+    that enqueued their kernels on a card."""
+
+    def __init__(self, name: str, source: str, replaces: str, parts: tuple[Kernel, ...]):
+        self.name = name
+        self.source = source
+        self.replaces = replaces
+        self.parts = parts
+        self.launches = 0
+
+
+# K10: per shard the batch validator, the payload transform and the tally
+COPROC_STEP = Step(
+    "coproc_step",
+    "redpanda_tpu_torch/parallel/collectives.py",
+    "redpanda_tpu/parallel/collectives.py:71",
+    (CRC32C_VALIDATE, PAYLOAD_TRANSFORM, VOTE_TALLY),
+)
 
 
 def build_all() -> dict[str, float]:
@@ -163,7 +227,7 @@ def build_all() -> dict[str, float]:
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
+    for k in (*KERNELS, COPROC_STEP):
         k.launches = 0
 
 

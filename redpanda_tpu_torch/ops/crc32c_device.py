@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from redpanda_tpu_torch import kernels
-from redpanda_tpu_torch.device import resolve_device
+from redpanda_tpu_torch.device import constants_on, resolve_device
 from redpanda_tpu_torch.hashing.crc32c import TABLE, TABLE8
 
 BLOCK = 16  # bytes a lane takes per round
@@ -70,10 +70,8 @@ def _tables_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     on ``device``."""
     with _on_device_lock:
         if device not in _on_device:
-            _on_device[device] = (
-                torch.from_numpy(kernel_tables().view(np.int32)).to(device),
-                torch.from_numpy(TABLE.astype(np.int64)).to(device),
-            )
+            _on_device[device] = constants_on(
+                device, kernel_tables().view(np.int32), TABLE.astype(np.int64))
         return _on_device[device]
 
 
@@ -116,8 +114,19 @@ def validate_plain(data: torch.Tensor, lengths: torch.Tensor, claimed: torch.Ten
     return (crc_plain(data, lengths) == claimed) & (lengths > 0)
 
 
+def validate_segments_plain(data, lengths, claimed, seg: int):
+    """Plain PyTorch validator with a bad count per segment of ``seg``
+    rows: (ok bool [N], bad int32 [ceil(N / seg)]), bad = sum(~ok & (len > 0))."""
+    ok = validate_plain(data, lengths, claimed)
+    bad_rows = (~ok & (lengths > 0)).to(torch.int32)
+    n = bad_rows.shape[0]
+    n_seg = -(-n // seg)
+    pad = torch.zeros(n_seg * seg - n, dtype=torch.int32, device=data.device)
+    return ok, torch.cat([bad_rows, pad]).reshape(n_seg, seg).sum(1, dtype=torch.int32)
+
+
 # ------------------------------------------------------------ wrappers
-def _launch(kernel, data, lengths, crc_out, claimed, ok_out) -> None:
+def _launch(kernel, data, lengths, crc_out, claimed, ok_out, bad_out=None, seg: int = 0) -> None:
     n, r = data.shape
     if n == 0:
         return
@@ -127,6 +136,7 @@ def _launch(kernel, data, lengths, crc_out, claimed, ok_out) -> None:
         None if crc_out is None else crc_out.data_ptr(),
         None if claimed is None else claimed.data_ptr(),
         None if ok_out is None else ok_out.data_ptr(),
+        None if bad_out is None else bad_out.data_ptr(), seg,
         kernels.stream_handle(data.device),
     )
 
@@ -152,6 +162,22 @@ def validate_rows(data: torch.Tensor, lengths: torch.Tensor, claimed: torch.Tens
     ok = torch.empty(data.shape[0], dtype=torch.bool, device=data.device)
     _launch(kernels.CRC32C_VALIDATE, data, lengths, None, claimed, ok)
     return ok
+
+
+def validate_segments(data, lengths, claimed, seg: int, kernel):
+    """The validator with a bad count per segment of ``seg`` rows, in one
+    launch of ``kernel`` (the mesh's rows ``crc32c_vote`` and
+    ``crc32c_sharded``): (ok bool [N], bad int32 [ceil(N / seg)])."""
+    _check(data, lengths, claimed)
+    if seg <= 0:
+        raise ValueError(f"segment length {seg} must be positive")
+    if data.device.type == "cpu":
+        return validate_segments_plain(data, lengths, claimed, seg)
+    n = data.shape[0]
+    ok = torch.empty(n, dtype=torch.bool, device=data.device)
+    bad = torch.zeros(-(-n // seg), dtype=torch.int32, device=data.device)
+    _launch(kernel, data, lengths, None, claimed, ok, bad, seg)
+    return ok, bad
 
 
 # ------------------------------------------------------------ numpy entry points

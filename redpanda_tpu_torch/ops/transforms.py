@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from redpanda_tpu_torch import kernels
+from redpanda_tpu_torch.device import constants_on
 
 
 # ----------------------------------------------------------------- spec types
@@ -458,10 +459,7 @@ class TransformProgram:
         key = str(device)
         got = self._dev.get(key)
         if got is None:
-            got = (
-                torch.from_numpy(self.desc).to(device),
-                torch.from_numpy(self.patterns).to(device),
-            )
+            got = constants_on(device, self.desc, self.patterns)
             self._dev[key] = got
         return got
 

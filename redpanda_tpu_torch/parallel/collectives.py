@@ -1,0 +1,237 @@
+"""The mesh's data-plane programs: the vote tally (K7), the sharded CRC
+checks (K8, K9) and the full per-tick coproc step (K10).
+
+The JAX package runs each as one ``shard_map`` program over the mesh's
+'p' axis (parallel/collectives.py there). Here each is a host function that
+enqueues, for every shard on that shard's stream, the kernels of the
+shard's block, and then the one collective: the tally's sum across shards.
+
+- ``make_vote_aggregator(mesh)``: each shard sums its block of u8 votes
+  into an int32 partial on its device (csrc/vote_tally.cu); the partials
+  are copied to ``mesh.devices[0]`` after an event wait on each shard's
+  stream, and the same kernel sums the stacked [D, G] partials there.
+  Integer sums are exact, so the tally is bit-identical in any order.
+- ``make_sharded_crc_check(mesh, r)``: the batch validator over each
+  shard's [P/D, B, r] rows with a bad count per partition, in one launch
+  of the CRC kernel per shard (csrc/crc32c.cu, row ``crc32c_sharded``).
+- ``make_crc_vote_step(mesh, r)``: the same per shard (row
+  ``crc32c_vote``), plus the vote tally: the raft follower plane's step.
+- ``make_sharded_coproc_step(mesh, spec_json, r_batch, r_rec)``: per shard
+  the batch validator (K6), the payload transform (K3, unpacked) and the
+  tally's shard sum, then the cross-shard sum.
+
+Inputs are global numpy arrays or tensors (split over the mesh with
+``shard_to_mesh``, which also makes the shard streams wait for the
+caller's) or ``Sharded`` arrays; outputs sharded over 'p' are
+``Sharded`` and the replicated tally is one int32 tensor on
+``mesh.devices[0]``. Each ``*_plain`` function is the same computation in
+plain PyTorch on whole tensors, built from the kernels' plain versions.
+On a CPU mesh every shard runs the plain versions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from redpanda_tpu_torch import kernels
+from redpanda_tpu_torch.ops.crc32c_device import validate_plain, validate_rows, validate_segments
+from redpanda_tpu_torch.ops.transforms import (
+    TransformSpec,
+    compile_transform,
+    transform,
+    transform_plain,
+)
+from redpanda_tpu_torch.parallel.mesh import PartitionMesh, Sharded, shard_to_mesh
+
+
+# ------------------------------------------------------------ K7 kernel wrapper
+def vote_tally_plain(votes: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch column sums of [rows, G] votes: int32 [G]."""
+    return votes.to(torch.int32).sum(0, dtype=torch.int32)
+
+
+def vote_tally(votes: torch.Tensor) -> torch.Tensor:
+    """Column sums (K7) of contiguous uint8 or int32 [rows, G] votes into
+    int32 [G]. CPU tensors run the plain version; CUDA tensors launch the
+    kernel on the current stream."""
+    if votes.dim() != 2 or votes.dtype not in (torch.uint8, torch.int32):
+        raise ValueError(f"votes must be uint8 or int32 [rows, G], got {votes.dtype} "
+                         f"{tuple(votes.shape)}")
+    if not votes.is_contiguous():
+        raise ValueError("votes must be contiguous")
+    if votes.device.type == "cpu":
+        return vote_tally_plain(votes)
+    if votes.device.type != "cuda":
+        raise ValueError(f"unsupported device {votes.device}")
+    rows, g = votes.shape
+    out = torch.empty(g, dtype=torch.int32, device=votes.device)
+    kernels.VOTE_TALLY.launch(
+        votes.data_ptr(), rows, g, int(votes.dtype == torch.int32), out.data_ptr(),
+        kernels.stream_handle(votes.device),
+    )
+    return out
+
+
+def _cross_shard_sum(mesh: PartitionMesh, partials: list[torch.Tensor]) -> torch.Tensor:
+    """The psum: each shard's int32 [G] partial, copied to devices[0] after
+    that shard's stream, summed there by the tally kernel. Runs on shard
+    0's stream."""
+    dev0 = mesh.devices[0]
+    with mesh.shard(0):
+        stacked = torch.empty((mesh.size, partials[0].shape[0]), dtype=torch.int32, device=dev0)
+        for d, p in enumerate(partials):
+            if mesh.streams[d] is not None:
+                torch.cuda.current_stream(dev0).wait_stream(mesh.streams[d])
+                # the copy reads p on the current stream of p's device
+                p.record_stream(torch.cuda.current_stream(p.device))
+            stacked[d].copy_(p)
+        return vote_tally(stacked)
+
+
+def _tally(mesh: PartitionMesh, votes: Sharded) -> torch.Tensor:
+    partials = []
+    for d in range(mesh.size):
+        with mesh.shard(d):
+            partials.append(vote_tally(votes.blocks[d]))
+    return _cross_shard_sum(mesh, partials)
+
+
+def make_vote_aggregator(mesh: PartitionMesh):
+    """fn(votes uint8 [D*k, G]) -> int32 [G] on mesh.devices[0]: total votes
+    per group, summed within each shard and then across the mesh."""
+
+    def aggregate(votes) -> torch.Tensor:
+        v = shard_to_mesh(mesh, votes)
+        tally = _tally(mesh, v)
+        mesh.join(tally)
+        return tally
+
+    return aggregate
+
+
+# ------------------------------------------------------------ K8, K9
+def sharded_crc_plain(rows, lens, claimed):
+    """Plain PyTorch version of K9 over whole tensors: rows u8 [P, B, r],
+    lens i32 [P, B], claimed i32 [P, B] (CRC bit patterns) -> (ok bool
+    [P, B], bad int32 [P])."""
+    p, b, r = rows.shape
+    ok = validate_plain(rows.reshape(p * b, r), lens.reshape(-1), claimed.reshape(-1)).reshape(p, b)
+    bad = (~ok & (lens > 0)).sum(1, dtype=torch.int32)
+    return ok, bad
+
+
+def crc_vote_plain(rows, lens, claimed, votes):
+    """Plain PyTorch version of K8: (ok bool [D, B], bad int32 [D], tally
+    int32 [G])."""
+    ok, bad = sharded_crc_plain(rows, lens, claimed)
+    return ok, bad, vote_tally_plain(votes)
+
+
+def _check_crc_blocks(rows: torch.Tensor, lens: torch.Tensor, claimed: torch.Tensor, r: int) -> None:
+    if rows.dim() != 3 or rows.shape[2] != r:
+        raise ValueError(f"rows must be [P, B, {r}], got {tuple(rows.shape)}")
+    if tuple(lens.shape) != tuple(rows.shape[:2]) or tuple(claimed.shape) != tuple(rows.shape[:2]):
+        raise ValueError("lens and claimed must be [P, B] like rows")
+
+
+def _crc_shards(mesh, rows, lens, claimed, r: int, kernel):
+    """Per shard: one launch of the validator with a bad count per
+    partition (segments of B rows)."""
+    oks, bads = [], []
+    for d in range(mesh.size):
+        rb, lb, cb = rows.blocks[d], lens.blocks[d], claimed.blocks[d]
+        _check_crc_blocks(rb, lb, cb, r)
+        p, b, _ = rb.shape
+        with mesh.shard(d):
+            if b == 0:
+                ok = torch.zeros(0, dtype=torch.bool, device=rb.device)
+                bad = torch.zeros(p, dtype=torch.int32, device=rb.device)
+            else:
+                ok, bad = validate_segments(
+                    rb.reshape(p * b, r), lb.reshape(-1), cb.reshape(-1), b, kernel)
+        oks.append(ok.reshape(p, b))
+        bads.append(bad)
+    return oks, bads
+
+
+def make_sharded_crc_check(mesh: PartitionMesh, r: int):
+    """fn(rows u8 [P, B, r], lens i32 [P, B], claimed u32 [P, B]) ->
+    (ok bool [P, B], bad int32 [P]) as ``Sharded`` arrays: every batch of
+    every partition validated on the shard that owns the partition, no
+    traffic between shards."""
+
+    def check(rows, lens, claimed):
+        rows, lens, claimed = shard_to_mesh(mesh, rows, lens, claimed)
+        oks, bads = _crc_shards(mesh, rows, lens, claimed, r, kernels.CRC32C_SHARDED)
+        mesh.join(*oks, *bads)
+        return Sharded(mesh, oks), Sharded(mesh, bads)
+
+    return check
+
+
+def make_crc_vote_step(mesh: PartitionMesh, r: int):
+    """The raft step (BASELINE config 5): fn(rows u8 [D, B, r], lens i32
+    [D, B], claimed u32 [D, B], votes u8 [D, G]) -> (ok bool [D, B], bad
+    int32 [D], tally int32 [G]): the batch validator with a bad count on
+    each shard, and the vote tally across the mesh."""
+
+    def step(rows, lens, claimed, votes):
+        rows, lens, claimed, votes = shard_to_mesh(mesh, rows, lens, claimed, votes)
+        oks, bads = _crc_shards(mesh, rows, lens, claimed, r, kernels.CRC32C_VOTE)
+        tally = _tally(mesh, votes)
+        mesh.join(*oks, *bads, tally)
+        return Sharded(mesh, oks), Sharded(mesh, bads), tally
+
+    return step
+
+
+# ------------------------------------------------------------ K10
+def coproc_step_plain(prog, b_rows, b_lens, claimed, rec_rows, rec_lens, votes):
+    """Plain PyTorch version of K10 over whole tensors: (ok bool [P, B],
+    out u8 [P, N, r_out], out_len int32 [P, N], keep bool [P, N], tally
+    int32 [G])."""
+    p, b, r_batch = b_rows.shape
+    ok = validate_plain(b_rows.reshape(p * b, r_batch), b_lens.reshape(-1),
+                        claimed.reshape(-1)).reshape(p, b)
+    n = rec_rows.shape[1]
+    out, out_len, keep = transform_plain(prog, rec_rows.reshape(p * n, -1), rec_lens.reshape(-1))
+    return (ok, out.reshape(p, n, -1), out_len.reshape(p, n), keep.reshape(p, n),
+            vote_tally_plain(votes))
+
+
+def make_sharded_coproc_step(mesh: PartitionMesh, spec_json: str, r_batch: int, r_rec: int):
+    """The full per-tick device program over the partition axis:
+    fn(batch_rows u8 [P, B, r_batch], batch_lens i32 [P, B], claimed u32
+    [P, B], rec_rows u8 [P, N, r_rec], rec_lens i32 [P, N], votes u8 [P, G])
+    -> (ok [P, B], out [P, N, r_out], out_len [P, N], keep [P, N], tally [G]).
+
+    Per shard, on its stream: the batch validator (K6) over its batches,
+    the payload transform (K3; out_len unmasked, as the JAX package's
+    ``compile_transform`` returns it) over its records, and the tally's
+    shard sum (K7); then the tally's sum across shards.
+    """
+    prog = compile_transform(TransformSpec.from_json(spec_json), int(r_rec))
+
+    def step(b_rows, b_lens, claimed, rec_rows, rec_lens, votes):
+        args = shard_to_mesh(mesh, b_rows, b_lens, claimed, rec_rows, rec_lens, votes)
+        oks, outs, out_lens, keeps, partials = [], [], [], [], []
+        for d in range(mesh.size):
+            br, bl, cl, rr, rl, v = (a.blocks[d] for a in args)
+            p, b, _ = br.shape
+            n = rr.shape[1]
+            with mesh.shard(d):
+                ok = validate_rows(br.reshape(p * b, r_batch), bl.reshape(-1), cl.reshape(-1))
+                out, out_len, keep = transform(prog, rr.reshape(p * n, r_rec), rl.reshape(-1))
+                partials.append(vote_tally(v))
+            oks.append(ok.reshape(p, b))
+            outs.append(out.reshape(p, n, prog.r_out))
+            out_lens.append(out_len.reshape(p, n))
+            keeps.append(keep.reshape(p, n))
+        tally = _cross_shard_sum(mesh, partials)
+        if mesh.type == "cuda":
+            kernels.COPROC_STEP.launches += 1
+        mesh.join(*oks, *outs, *out_lens, *keeps, tally)
+        return (Sharded(mesh, oks), Sharded(mesh, outs), Sharded(mesh, out_lens),
+                Sharded(mesh, keeps), tally)
+
+    return step

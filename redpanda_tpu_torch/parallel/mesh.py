@@ -1,0 +1,190 @@
+"""The partition mesh: an ordered list of devices in one process.
+
+The JAX package lays the partition axis of its data-plane arrays over a
+1-D ``jax.sharding.Mesh`` whose axis is ``'p'``, and drives every device of
+it from one Python process (parallel/mesh.py there). The port's mesh is the
+same thing: ``PartitionMesh`` is an ordered tuple of ``torch.device`` with
+one CUDA stream per shard, and shard d of an array is its d-th block on
+the leading axis, held on ``devices[d]``. Work for shard d is enqueued on
+shard d's stream; the one collective (the vote tally's sum) copies the
+shards' partials to ``devices[0]`` (parallel/collectives.py).
+
+A mesh may name one card several times (``devices=[cuda:0] * 4``): a
+*virtual mesh*, the counterpart of the JAX package's virtual CPU devices.
+Its shards share one card's SMs and run on four streams of it, so it runs
+every mesh kernel and every copy, but measures nothing about scaling
+across cards. ``device="cpu"`` gives CPU shards, on which the kernels'
+plain versions run synchronously: the tests' stand-in.
+
+Every function of the mesh modules leaves its results ready on the
+caller's current stream of each device: the shard streams first wait for
+the caller's streams (``fork``), and the caller's streams wait for the
+shard streams at the end (``join``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from redpanda_tpu_torch.device import resolve_device
+
+PARTITION_AXIS = "p"
+
+
+class PartitionMesh:
+    """An ordered tuple of devices over the partition axis ``'p'``, with
+    one CUDA stream per shard (None on the CPU)."""
+
+    axis = PARTITION_AXIS
+
+    def __init__(self, devices):
+        devs = tuple(resolve_device(d) for d in devices)
+        if not devs:
+            raise ValueError("a mesh needs at least one device")
+        if len({d.type for d in devs}) != 1:
+            raise ValueError(f"a mesh's devices must be of one type, got {devs}")
+        self.devices = devs
+        self.streams = tuple(
+            torch.cuda.Stream(device=d) if d.type == "cuda" else None for d in devs
+        )
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def type(self) -> str:
+        return self.devices[0].type
+
+    def __repr__(self) -> str:
+        return f"PartitionMesh({[str(d) for d in self.devices]})"
+
+    @contextlib.contextmanager
+    def shard(self, d: int):
+        """Run the block under it on shard d's device and stream."""
+        stream = self.streams[d]
+        if stream is None:
+            yield
+            return
+        with torch.cuda.device(self.devices[d]), torch.cuda.stream(stream):
+            yield
+
+    def fork(self) -> None:
+        """Each shard stream waits for the caller's current stream of its
+        device, so the shards see what the caller enqueued before."""
+        for dev, stream in zip(self.devices, self.streams):
+            if stream is not None:
+                stream.wait_stream(torch.cuda.current_stream(dev))
+
+    def join(self, *tensors: torch.Tensor) -> None:
+        """The caller's current stream of each device waits for every shard
+        stream, and each tensor is marked as used on the caller's stream of
+        its device so that its memory is not reused before that."""
+        if self.type != "cuda":
+            return
+        for dev, stream in zip(self.devices, self.streams):
+            torch.cuda.current_stream(dev).wait_stream(stream)
+        for t in tensors:
+            t.record_stream(torch.cuda.current_stream(t.device))
+
+
+class Sharded:
+    """An array laid out over a mesh's partition axis: ``blocks[d]`` is its
+    d-th block on the leading axis, held on ``mesh.devices[d]``.
+    ``numpy()`` (or ``np.asarray``) gathers it on the host."""
+
+    def __init__(self, mesh: PartitionMesh, blocks, keep=()):
+        if len(blocks) != mesh.size:
+            raise ValueError(f"{len(blocks)} blocks for a {mesh.size}-shard mesh")
+        self.mesh = mesh
+        self.blocks = tuple(blocks)
+        # pinned host blocks whose copies may still be in flight
+        self._keep = tuple(keep)
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        b = self.blocks[0]
+        return (sum(x.shape[0] for x in self.blocks), *b.shape[1:])
+
+    def numpy(self) -> np.ndarray:
+        return np.concatenate([b.cpu().numpy() for b in self.blocks])
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.numpy()
+        return out if dtype is None else out.astype(dtype)
+
+
+def partition_mesh(n_devices: int | None = None, devices=None, device="cuda") -> PartitionMesh:
+    """1-D mesh over the partition axis.
+
+    ``devices`` names the shards explicitly (a device may repeat: a virtual
+    mesh on one card). Otherwise the mesh takes the first ``n_devices``
+    cards of ``torch.cuda.device_count()`` (all of them when None) and
+    raises when there are fewer; ``device="cpu"`` gives ``n_devices`` CPU
+    shards (1 when None).
+    """
+    if devices is None:
+        kind = torch.device(device).type
+        if kind == "cpu":
+            devices = [torch.device("cpu")] * (1 if n_devices is None else int(n_devices))
+        else:
+            resolve_device(device)  # raises without a card
+            have = torch.cuda.device_count()
+            want = have if n_devices is None else int(n_devices)
+            if want > have:
+                raise RuntimeError(
+                    f"partition_mesh({want}): only {have} CUDA device(s); name the shards "
+                    "with devices=[...] for a virtual mesh on fewer cards"
+                )
+            devices = [torch.device("cuda", i) for i in range(want)]
+    elif n_devices is not None:
+        devices = list(devices)[: int(n_devices)]
+    return PartitionMesh(devices)
+
+
+def _as_tensor(a) -> torch.Tensor:
+    """A numpy array or tensor as a contiguous tensor; uint32 (claimed CRCs)
+    travels as its int32 bit pattern, as everywhere in the port."""
+    if torch.is_tensor(a):
+        return a.contiguous()
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a)
+
+
+def shard_to_mesh(mesh: PartitionMesh, *arrays):
+    """Split each array on its leading axis into ``mesh.size`` equal blocks
+    and put block d on shard d's device: host blocks through pinned memory
+    with a ``non_blocking`` copy on shard d's stream. Raises when the
+    leading axis does not divide by the mesh size, as ``shard_map`` does.
+    A ``Sharded`` argument passes through unchanged."""
+    mesh.fork()
+    out, moved = [], []
+    for a in arrays:
+        if isinstance(a, Sharded):
+            if a.mesh is not mesh:
+                raise ValueError("array is sharded over another mesh")
+            out.append(a)
+            continue
+        t = _as_tensor(a)
+        if t.dim() == 0 or t.shape[0] % mesh.size:
+            raise ValueError(
+                f"leading axis of {tuple(t.shape)} does not divide into {mesh.size} shards"
+            )
+        k = t.shape[0] // mesh.size
+        blocks, keep = [], []
+        for d, dev in enumerate(mesh.devices):
+            block = t[d * k : (d + 1) * k]
+            with mesh.shard(d):
+                if dev.type == "cuda" and block.device.type == "cpu":
+                    block = block.pin_memory()
+                    keep.append(block)
+                blocks.append(block.to(dev, non_blocking=True).contiguous())
+        moved += blocks
+        out.append(Sharded(mesh, blocks, keep))
+    mesh.join(*moved)
+    return tuple(out) if len(out) != 1 else out[0]

@@ -1,12 +1,15 @@
-"""Batched raft follower CRC validation and vote tally (BASELINE config 5),
-single-device leg.
+"""Batched raft follower CRC validation and vote tally (BASELINE config 5).
 
 The reference validates batch CRCs one at a time in host code
 (kafka_batch_adapter.cc:93, record_utils.cc:82) and counts votes and
 heartbeat acks one message at a time (heartbeat_manager.cc:155-204). Here
-every batch of an append is packed into [N, r] rows and CRC-validated by
-one launch of the CRC kernel (ops/crc32c_device.py) on the card; the vote
-tally is the host sum over a [voters, groups] bit matrix.
+every batch of an append is packed into [N, r] rows and CRC-validated on
+the card: by one launch of the CRC kernel (ops/crc32c_device.py) on one
+device, or, with a partition mesh, by the sharded CRC + vote step
+(parallel/collectives.py ``make_crc_vote_step``) with the rows laid over
+the mesh's shards. The vote tally over a [voters, groups] bit matrix is
+the mesh's vote aggregator when the plane has a mesh with one shard per
+voter row, and the host sum otherwise (by design, as in the JAX package).
 
 Where a validation runs is a measured decision: the first representative
 validation times the device leg against the host oracle on the same rows,
@@ -14,8 +17,6 @@ and the process keeps the winner (the device must win by PROBE_MARGIN).
 Both backends are bit-exact. The probe is a speed decision only: a device
 leg that fails to build or launch, or disagrees with the host oracle on
 the probe rows, raises; it never hands its call to the host.
-
-The mesh leg (a sharded CRC + vote step across cards) is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import numpy as np
 
 from redpanda_tpu_torch.device import resolve_device
 from redpanda_tpu_torch.hashing.crc32c import crc32c
+from redpanda_tpu_torch.parallel.mesh import PartitionMesh, partition_mesh
 
 # the device must beat the host by this factor to be chosen (the same
 # margin as the coproc host pool's probe)
@@ -62,26 +64,25 @@ class RaftDevicePlane:
     """Process-scoped batched CRC/vote executor with a measured backend.
 
     ``device`` is the card the device leg runs on (``"cuda"`` by default;
-    raises without one) or ``"cpu"`` for the plain versions. ``mesh`` is
-    the multi-card leg, which is not ported yet. ``probe=False`` pins the
-    device leg.
+    raises without one) or ``"cpu"`` for the plain versions. ``mesh`` (a
+    ``PartitionMesh`` of ``device``'s type) runs the device leg as the
+    sharded CRC + vote step over its shards and the vote tally as its
+    aggregator. ``probe=False`` pins the device leg.
     """
 
-    def __init__(self, mesh=None, probe: bool = True, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "RaftDevicePlane(mesh=...): the multi-card leg comes with the mesh "
-                "slice of the port (sharded CRC + vote step over torch.distributed)"
-            )
-        self.n_devices = 1
+    def __init__(self, mesh: PartitionMesh | None = None, probe: bool = True, device="cuda"):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.type != self.device.type:
+            raise ValueError(f"mesh {mesh} does not run on the plane's device {self.device}")
+        self.mesh = mesh
+        self.n_devices = mesh.size if mesh is not None else 1
         self._decision: str | None = None if probe else "device"
         self._probe: dict | None = None
         self._lock = threading.Lock()
         # serializes the one calibration; siblings that lose the race serve
         # their call on the host oracle instead of queueing behind it
         self._probe_run_lock = threading.Lock()
-        self._steps: dict[int, object] = {}
+        self._steps: dict = {}  # row width (or "vote") -> step
         self._n_validations = 0
         self._n_tallies = 0
         self._rows_validated = 0
@@ -92,21 +93,42 @@ class RaftDevicePlane:
         with self._lock:
             return self._decision
 
-    def _device_step(self, r: int):
+    def _device_step(self, key):
         with self._lock:
-            fn = self._steps.get(r)
+            fn = self._steps.get(key)
         if fn is None:
-            from redpanda_tpu_torch.ops.crc32c_device import make_crc_fn
+            from redpanda_tpu_torch.parallel import collectives
 
-            fn = make_crc_fn(r, self.device)
+            if key == "vote":
+                fn = collectives.make_vote_aggregator(self.mesh)
+            elif self.mesh is not None:
+                fn = collectives.make_crc_vote_step(self.mesh, key)
+            else:
+                from redpanda_tpu_torch.ops.crc32c_device import make_crc_fn
+
+                fn = make_crc_fn(key, self.device)
             with self._lock:
-                fn = self._steps.setdefault(r, fn)
+                fn = self._steps.setdefault(key, fn)
         return fn
 
     def _run_device(self, rows, lens, claimed):
         """ok flags on the device backend; rows is [N, r] host-packed."""
-        got = self._device_step(rows.shape[1])(rows, lens)
-        return (got == claimed) & (lens > 0)
+        n, r = rows.shape
+        if self.mesh is None:
+            got = self._device_step(r)(rows, lens)
+            return (got == claimed) & (lens > 0)
+        d = self.n_devices
+        n_pad = -(-n // d) * d  # N rounded up to a multiple of D: zero rows,
+        if n_pad != n:  # lengths and claims, neither ok nor bad
+            rows = np.concatenate([rows, np.zeros((n_pad - n, r), np.uint8)])
+            lens = np.concatenate([lens, np.zeros(n_pad - n, np.int32)])
+            claimed = np.concatenate([claimed, np.zeros(n_pad - n, np.uint32)])
+        k = n_pad // d
+        ok, _bad, _tally = self._device_step(r)(
+            rows.reshape(d, k, r), lens.reshape(d, k), claimed.reshape(d, k),
+            np.zeros((d, 1), np.uint8),
+        )
+        return np.asarray(ok).reshape(n_pad)[:n]
 
     def _calibrate(self, regions, rows, lens, claimed) -> str:
         """Host-vs-device pin on representative rows. Times the host leg
@@ -121,6 +143,9 @@ class RaftDevicePlane:
         t_dev = time.perf_counter() - t0
         if not np.array_equal(host_ok, dev_ok):
             raise RuntimeError("raft device plane: device CRC disagrees with the host oracle")
+        if self.mesh is not None:
+            # build the vote aggregator here, off the heartbeat tick
+            self._device_step("vote")(np.zeros((self.n_devices, 1), np.uint8))
         ratio = t_host / t_dev if t_dev > 0 else 0.0
         decision = "device" if ratio >= PROBE_MARGIN else "host"
         probe = {
@@ -181,11 +206,15 @@ class RaftDevicePlane:
 
     def tally_votes(self, votes: np.ndarray) -> np.ndarray:
         """Per-group vote/ack tally over a [voters, groups] bit matrix: the
-        batched analogue of counting one reply at a time. Without a mesh
-        this is the host sum, int32 counts."""
+        batched analogue of counting one reply at a time, int32 counts.
+        On the device leg with a mesh of one shard per voter row it is the
+        mesh's vote aggregator (K7); otherwise the host sum, by design."""
         votes = np.ascontiguousarray(votes, dtype=np.uint8)
         with self._lock:
             self._n_tallies += 1
+            decision = self._decision
+        if decision == "device" and self.mesh is not None and votes.shape[0] == self.n_devices:
+            return self._device_step("vote")(votes).cpu().numpy()
         return votes.astype(np.int32).sum(axis=0)
 
     def stats(self) -> dict:
@@ -204,17 +233,25 @@ class RaftDevicePlane:
 
 # broker wiring: both consumers are off by default. The measured probe
 # decides where a validation runs; these flags decide whether the call
-# sites run at all.
+# sites run at all. With mesh_devices >= 2 the default plane's device leg
+# is the sharded step over the first mesh_devices cards.
 _crc_validate = False
 _vote_tally = False
+_mesh_devices = 0
 
 
-def configure(crc_validate: bool | None = None, vote_tally: bool | None = None) -> None:
-    global _crc_validate, _vote_tally
+def configure(
+    crc_validate: bool | None = None,
+    vote_tally: bool | None = None,
+    mesh_devices: int | None = None,
+) -> None:
+    global _crc_validate, _vote_tally, _mesh_devices
     if crc_validate is not None:
         _crc_validate = bool(crc_validate)
     if vote_tally is not None:
         _vote_tally = bool(vote_tally)
+    if mesh_devices is not None:
+        _mesh_devices = int(mesh_devices)
 
 
 def crc_validate_enabled() -> bool:
@@ -230,14 +267,18 @@ _default_lock = threading.Lock()
 
 
 def default_plane(device="cuda") -> RaftDevicePlane:
-    """Process-wide single-device plane, built lazily on first use (on
-    ``device``; raises without a card unless the caller asks for the
-    CPU)."""
+    """Process-wide plane, built lazily on first use on ``device`` (raises
+    without a card unless the caller asks for the CPU). With configured
+    ``mesh_devices >= 2`` its device leg is the sharded step over a mesh of
+    that many devices, and it raises when there are fewer."""
     global _default
     if _default is None:
         with _default_lock:
             if _default is None:
-                _default = RaftDevicePlane(device=device)
+                mesh = None
+                if _mesh_devices >= 2:
+                    mesh = partition_mesh(_mesh_devices, device=device)
+                _default = RaftDevicePlane(mesh=mesh, device=device)
     return _default
 
 

@@ -300,8 +300,10 @@ def test_raft_plane_config_and_default_plane():
         assert plane is DP.default_plane(device="cpu") and plane.n_devices == 1
     finally:
         DP.reset_default_plane()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        DP.RaftDevicePlane(mesh=object(), device="cpu")
+    from redpanda_tpu_torch.parallel import partition_mesh
+
+    plane = DP.RaftDevicePlane(mesh=partition_mesh(2, device="cpu"), device="cpu")
+    assert plane.n_devices == 2 and plane.mesh is not None
 
 
 # ------------------------------------------------------------------ recovery

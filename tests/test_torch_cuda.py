@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-These tests need an NVIDIA CUDA device and skip elsewhere (the kernels have
-no CPU mode). They import only the port, so they run on a machine without
-JAX:
+The tests marked ``cuda`` need an NVIDIA CUDA device and skip elsewhere (the
+kernels have no CPU mode); the mesh's no-card test runs where there are
+fewer than two cards. They import only the port, so they run on a machine
+without JAX:
 
     python -m pytest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -25,8 +26,6 @@ from redpanda_tpu_torch.models import NTP, Record, RecordBatch
 from redpanda_tpu_torch.ops import exprs as E
 from redpanda_tpu_torch.ops import transforms as T
 from redpanda_tpu_torch.ops.pipeline import IN_META, packed_plain, run_packed
-
-pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -57,6 +56,7 @@ EXPRS = [
 ]
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("idx", range(len(EXPRS)))
 def test_predicate_kernel_matches_plain(card, idx):
     rng = np.random.default_rng(idx)
@@ -83,6 +83,7 @@ SPECS = [
 ]
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("idx", range(len(SPECS)))
 def test_payload_kernel_matches_plain(card, idx):
     rng = np.random.default_rng(10 + idx)
@@ -109,6 +110,7 @@ def test_payload_kernel_matches_plain(card, idx):
     assert torch.equal(got[kept, : prog.r_out], want[kept, : prog.r_out])
 
 
+@pytest.mark.cuda
 def test_engine_on_card_matches_cpu_engine(card):
     rng = np.random.default_rng(4)
     items = []
@@ -139,6 +141,7 @@ def _crc_rows(r, seed):
     return data, np.array(lens, np.int32), rng
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("r", [100, 2048, 16384])
 def test_crc_kernel_matches_plain(card, r):
     from redpanda_tpu_torch.hashing.crc32c import crc32c_many
@@ -161,6 +164,7 @@ def test_crc_kernel_matches_plain(card, r):
 
 
 # ------------------------------------------------------------------ LZ4 (K11)
+@pytest.mark.cuda
 def test_lz4_kernel_matches_plain(card):
     from redpanda_tpu_torch.ops import lz4_device as L
 
@@ -192,3 +196,181 @@ def test_lz4_kernel_matches_plain(card):
     assert ok[good].all()
     for i in good[:20]:
         assert out[i, : int(out_len[i])].cpu().numpy().tobytes() == recs[i]
+
+
+# ------------------------------------------------------------------ the mesh (K2, K7-K10)
+def _mesh_inputs(rng, p=8, b=3, r=512, n=5, r_rec=256, g=256):
+    """Batch rows at random lengths (garbage past each, one empty, three
+    claims wrong), JSON record rows and votes, over p partitions."""
+    from redpanda_tpu_torch.hashing.crc32c import crc32c_many
+
+    rows = rng.integers(0, 256, size=(p * b, r), dtype=np.uint8)
+    lens = rng.integers(1, r + 1, p * b).astype(np.int32)
+    lens[4] = 0
+    claimed = crc32c_many(rows, lens)
+    claimed[[1, 9, p * b - 1]] ^= 0x20
+    vals = _docs(rng, p * n)
+    rec = rng.integers(0, 256, size=(p * n, r_rec), dtype=np.uint8)
+    rec_lens = np.zeros(p * n, np.int32)
+    for i, v in enumerate(vals):
+        m = min(len(v), r_rec)
+        rec[i, :m] = np.frombuffer(v[:m], np.uint8)
+        rec_lens[i] = m
+    votes = rng.integers(0, 2, (p, g)).astype(np.uint8)
+    return (rows.reshape(p, b, r), lens.reshape(p, b), claimed.reshape(p, b),
+            rec.reshape(p, n, r_rec), rec_lens.reshape(p, n), votes)
+
+
+def _t(a, dev):
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+
+
+def _host(x) -> np.ndarray:
+    """A mesh result (Sharded or a tensor on the card) on the host."""
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _mesh_kernels_match_plain(mesh, dev):
+    from redpanda_tpu_torch.parallel import collectives as COL
+
+    rng = np.random.default_rng(31)
+    rows, lens, claimed, rec, rec_lens, votes = _mesh_inputs(rng, p=2 * mesh.size)
+    before = kernels.VOTE_TALLY.launches
+    for v in (votes, votes[:, :1]):
+        tally = COL.make_vote_aggregator(mesh)(v)
+        assert tally.device == mesh.devices[0]
+        assert torch.equal(tally.cpu(), COL.vote_tally_plain(torch.from_numpy(v)))
+    assert kernels.VOTE_TALLY.launches == before + 2 * (mesh.size + 1)
+    args = [_t(a, dev) for a in (rows, lens, claimed)]
+    want_ok, want_bad = COL.sharded_crc_plain(*args)
+    ok, bad = COL.make_sharded_crc_check(mesh, rows.shape[2])(rows, lens, claimed)
+    assert torch.equal(torch.from_numpy(np.asarray(ok)), want_ok.cpu())
+    assert torch.equal(torch.from_numpy(np.asarray(bad)), want_bad.cpu())
+    assert int(want_bad.sum()) == 3
+    v = votes[: mesh.size]
+    step = COL.make_crc_vote_step(mesh, rows.shape[2])
+    got = step(rows[: mesh.size], lens[: mesh.size], claimed[: mesh.size], v)
+    want = COL.crc_vote_plain(*[_t(a[: mesh.size], dev) for a in (rows, lens, claimed, v)])
+    for g, w in zip(got, want):
+        assert (_host(g) == w.cpu().numpy()).all()
+    spec = T.filter_field_eq("level", "error") | T.map_project(T.Int("code"), T.Str("msg", 16))
+    step = COL.make_sharded_coproc_step(mesh, spec.to_json(), rows.shape[2], rec.shape[2])
+    before = kernels.COPROC_STEP.launches
+    ok, out, out_len, keep, tally = step(rows, lens, claimed, rec, rec_lens, votes)
+    assert kernels.COPROC_STEP.launches == before + 1
+    prog = T.compile_transform(spec, rec.shape[2])
+    w = COL.coproc_step_plain(prog, *[_t(a, dev) for a in (rows, lens, claimed, rec, rec_lens, votes)])
+    w_keep = w[3].cpu().numpy()
+    assert (np.asarray(ok) == w[0].cpu().numpy()).all()
+    assert (np.asarray(keep) == w_keep).all() and (np.asarray(out_len) == w[2].cpu().numpy()).all()
+    assert (np.asarray(out)[w_keep] == w[1].cpu().numpy()[w_keep]).all()
+    assert torch.equal(tally.cpu(), w[4].cpu())
+
+
+@pytest.mark.cuda
+def test_mesh_kernels_match_plain_on_a_virtual_mesh(card):
+    from redpanda_tpu_torch.parallel import partition_mesh
+
+    _mesh_kernels_match_plain(partition_mesh(devices=[card] * 4), card)
+
+
+@pytest.mark.cuda
+def test_mesh_kernels_match_plain_across_cards(card):
+    from redpanda_tpu_torch.parallel import partition_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the cross-card copies of the tally's sum")
+    _mesh_kernels_match_plain(partition_mesh(), card)
+
+
+@pytest.mark.cuda
+def test_stacked_predicate_matches_plain(card):
+    from redpanda_tpu_torch.parallel import partition_mesh
+
+    mesh = partition_mesh(devices=[card] * 4)
+    rng = np.random.default_rng(41)
+    plan = plan_spec(T.where(EXPRS[0]))
+    n_pad = 264  # a multiple of 8, not of 32
+    stacks = []
+    for d, n in enumerate((250, 0, 264, 17)):  # shard 1 is empty
+        if n == 0:
+            stacks.append(plan.zero_device_inputs(n_pad))
+            continue
+        vals = _docs(rng, n)
+        joined = b"".join(vals)
+        offsets = np.cumsum([0] + [len(v) for v in vals[:-1]]).astype(np.int64)
+        sizes = np.array([len(v) for v in vals], np.int32)
+        stacks.append(plan.extract_device_inputs(joined, offsets, sizes, n_pad))
+    stacked = [np.stack(c) for c in zip(*stacks)]
+    before = kernels.PREDICATE_STACKED.launches
+    got = np.asarray(plan.predicate_stacked(mesh, stacked))
+    assert kernels.PREDICATE_STACKED.launches == before + 4
+    from redpanda_tpu_torch.coproc.column_plan import predicate_stacked_plain
+
+    want = predicate_stacked_plain(plan, [torch.from_numpy(a).to(card) for a in stacked])
+    assert (got == want.cpu().numpy()).all()
+    assert not got[1].any()
+
+
+@pytest.mark.cuda
+def test_engine_mesh_lane_and_raft_mesh_leg_on_the_card(card):
+    from redpanda_tpu_torch import entry
+    from redpanda_tpu_torch.parallel import partition_mesh
+    from redpanda_tpu_torch.raft.device_plane import RaftDevicePlane, _host_validate
+
+    mesh = partition_mesh(devices=[card] * 4)
+    rng = np.random.default_rng(5)
+    items = []
+    for p in range(6):
+        recs = [Record(offset_delta=i, value=v) for i, v in enumerate(_docs(rng, 40 + p))]
+        items.append(ProcessBatchItem(1, NTP.kafka("t", p), [RecordBatch.build(recs)]))
+    req = ProcessBatchRequest(items)
+    spec = T.where(EXPRS[0]) | T.map_project(T.Int("code"), T.Str("msg", 24))
+    replies = []
+    for kw in ({"device": card, "mesh": mesh, "mesh_probe": False}, {"device": "cpu"}):
+        eng = TorchEngine(row_stride=128, **kw)
+        assert eng.enable_coprocessors([(1, spec.to_json(), ("t",))]) == [0]
+        replies.append([[b.encode_internal() for it in t.result().items for b in it.batches]
+                        for t in eng.submit_group([req, req])])
+        stats = eng.stats()
+        eng.shutdown()
+        if "mesh" in kw:
+            assert stats["n_mesh_launches"] == 1 and "n_kernel_predicate" not in stats
+            assert sum(stats["mesh"]["rows_per_device"]) == 2 * sum(40 + p for p in range(6))
+    assert replies[0] == replies[1] and any(replies[1][0])
+    regions = [rng.bytes(int(rng.integers(1, 3000))) for _ in range(103)]
+    from redpanda_tpu_torch.hashing.crc32c import crc32c
+
+    claimed = np.array([crc32c(x) for x in regions], np.uint32)
+    claimed[[0, 50]] ^= 1
+    plane = RaftDevicePlane(mesh=mesh, probe=False, device=card)
+    before = kernels.CRC32C_VOTE.launches
+    assert (plane.validate(regions, claimed) == _host_validate(regions, claimed)).all()
+    assert kernels.CRC32C_VOTE.launches == before + 4
+    votes = rng.integers(0, 2, (4, 256)).astype(np.uint8)
+    assert (plane.tally_votes(votes) == votes.astype(np.int32).sum(0)).all()
+    entry.dryrun_multichip(4, devices=[card] * 4)
+
+
+def test_mesh_entry_points_raise_with_too_few_cards():
+    """Without enough cards nothing falls back to the CPU or one device."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two CUDA devices are present: a two-card mesh builds")
+    from redpanda_tpu_torch import entry
+    from redpanda_tpu_torch.parallel import partition_mesh
+    from redpanda_tpu_torch.raft import device_plane as DP
+
+    def default_plane_on_a_mesh():
+        DP.reset_default_plane()
+        DP.configure(mesh_devices=2)
+        try:
+            DP.default_plane()
+        finally:
+            DP.configure(mesh_devices=0)
+            DP.reset_default_plane()
+
+    for make in (lambda: partition_mesh(2), lambda: TorchEngine(mesh_devices=2),
+                 lambda: DP.RaftDevicePlane(mesh=partition_mesh(2)),
+                 lambda: entry.dryrun_multichip(2), default_plane_on_a_mesh):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            make()
