@@ -36,16 +36,22 @@ Phases, each of which exits non-zero on failure:
    scan_valid_prefix_host.
 8. LZ4 (K11): the block decoder against its plain version over valid,
    overflowing, truncated, bad-offset and empty streams (all three
-   outputs), then 16384 text-like 1 KiB records (BASELINE config 2's 16
-   partitions x 1024 records) decoded on the card, every row equal to its
-   source, and measure_probe (device MB/s against host liblz4).
+   outputs), and over the edge streams of ops/lz4_device.py edge_streams
+   in shared memory (max_out 128, 77 with unaligned rows of 515, 1024) and
+   on the global rows (max_out 49152: one warp's slice past 48 KB); then
+   16384 text-like 1 KiB records (BASELINE config 2's 16 partitions x 1024
+   records) decoded on the card, every row equal to its source, and
+   measure_probe (device MB/s against host liblz4).
 9. The partition mesh on a virtual mesh of four shards on the one card
    (partition_mesh(devices=[cuda:0] * 4): four streams of one card; it
    runs every mesh kernel and copy, and measures nothing about scaling
    across cards):
    a. the mesh kernels against their plain versions, bit for bit: the vote
-      tally (K7) over [4, 256] and [4, 1] votes (and torch.sum's time
-      beside it), the sharded CRC check (K9) over [256, 4, 16384] (config
+      tally (K7) over [4, 256] and [4, 1] votes and over 200 calls on
+      fresh votes made on the card, with its launches and copies per call,
+      timed on votes on the card and on host numpy votes (and torch.sum's
+      time beside it), the sharded CRC check (K9) over
+      [256, 4, 16384] (config
       5's append: three claims wrong, a zero-length row, garbage past each
       length), the CRC + vote step (K8) over the same rows as [4, 256,
       16384] with [4, 256] votes, the stacked predicate (K2) over the DOCS
@@ -61,7 +67,7 @@ Phases, each of which exits non-zero on failure:
       decision;
    c. the raft plane's mesh leg at config 5's shape
       (RaftDevicePlane(mesh=..., probe=False).validate, 1024 regions) and
-      tally_votes over [4, 256];
+      tally_votes over [4, 256], timed host to host;
    d. redpanda_tpu_torch.entry.dryrun_multichip(4) on the virtual mesh.
 10. Print the kernels line, the card's name and power limit, and last the
     {"ok": true, "device": ...} line.
@@ -721,6 +727,26 @@ def phase_lz4(dev) -> tuple[dict, dict]:
             fail(f"lz4_block kernel != plain (max_out {max_out})")
         log(f"K11 parity (max_out {max_out}): {len(lens)} streams, {int(want[2].sum())} ok, "
             "out/out_len/ok bit-identical to the plain version")
+    edge_sets = []
+    for max_out, pad in ((128, 0), (77, 3), (1024, 0), (49152, 0)):  # 49152: the global rows
+        rows, lens = L.edge_streams(max_out, seed=max_out)
+        rows = np.pad(rows, ((0, 0), (0, pad)))
+        if max_out > 2048:  # every 11th offset/length pair and every other stream: the
+            keep = np.r_[0 : 40 * 77 : 11, 40 * 77 : len(lens)]  # plain version runs
+            rows, lens = rows[keep], lens[keep]  # max_out steps, on the host
+        c, cl = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
+        t0 = time.perf_counter()
+        got = [g.cpu() for g in L.decode_rows(c, cl, max_out)]
+        want = L.decode_plain(c.cpu(), cl.cpu(), max_out)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"lz4_block kernel != plain on the edge streams (max_out {max_out})")
+        slice_b = -(-rows.shape[1] // 16) * 16 + -(-max_out // 16) * 16
+        where = "shared memory" if slice_b <= 48 * 1024 else "global rows"
+        edge_sets.append(f"{max_out} ({where})")
+        log(f"K11 edge streams (max_out {max_out}, rows of {rows.shape[1]}, a warp's slice "
+            f"{slice_b} B: {where}): {len(lens)} streams, {int(want[2].sum())} ok, all three "
+            f"outputs bit-identical to the plain version ({time.perf_counter() - t0:.1f} s "
+            "with the plain run)")
 
     # config 2's produce batch: 16 partitions x 1024 text-like 1 KiB records
     records = L.text_records(LZ4_RECORDS, LZ4_RECORD, seed=6)
@@ -754,10 +780,18 @@ def phase_lz4(dev) -> tuple[dict, dict]:
     b_ms, b_by = bound_ms(nbytes, LZ4_RECORDS * LZ4_RECORD)
     log(f"K11 full width: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
         f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes} B)")
+    # time against the number of streams: flat while the SMs have room
+    # (latency), linear once they are full (instruction throughput or bytes)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    by_n = {k: cuda_ms(lambda k=k: L.decode_rows(c[:k], cl[:k], LZ4_RECORD), 20)
+            for k in (sms, 10 * sms, 48 * sms, LZ4_RECORDS)}
+    log("K11 kernel ms by streams (" + ", ".join(f"{k}: {t:.4f}" for k, t in by_n.items())
+        + f"; {sms} SMs)")
     m = {"max_abs_err": max_abs_err(list(zip(got, want))), "ms": ms, "plain_ms": plain_ms,
          "bound_ms": b_ms, "bound_by": b_by,
-         "parity": f"out, out_len and ok bit-identical on {n_edge} edge streams at max_out 700 "
-                   f"and 256 and at full width {LZ4_RECORDS} x {LZ4_RECORD}"}
+         "parity": f"out, out_len and ok bit-identical on {n_edge} damaged streams at max_out "
+                   f"700 and 256, on the edge streams at max_out {', '.join(edge_sets)} and "
+                   f"at full width {LZ4_RECORDS} x {LZ4_RECORD}"}
     return m, launches
 
 
@@ -852,18 +886,38 @@ def phase_mesh_kernels(dev, mesh) -> tuple[dict, dict]:
         if not torch.equal(got, want):
             fail(f"vote_tally != plain over [{D}, {g}]")
         pairs.append((got, want))
-    votes = on_card(rng.integers(0, 2, (D, VOTE_GROUPS)).astype(np.uint8), dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n_calls, n_equal = 200, 0
+    before = kernels.VOTE_TALLY.launches, COL.tally_copies
+    for _ in range(n_calls):  # fresh votes made on the card just before each call
+        votes = torch.randint(0, 2, (D, VOTE_GROUPS), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        got = agg(votes)
+        n_equal += bool(torch.equal(got, COL.vote_tally_plain(votes)))
+    per_call = ((kernels.VOTE_TALLY.launches - before[0]) / n_calls,
+                (COL.tally_copies - before[1]) / n_calls)
+    if n_equal != n_calls:
+        fail(f"vote_tally != plain on {n_calls - n_equal} of {n_calls} calls on fresh votes")
+    host_votes = rng.integers(0, 2, (D, VOTE_GROUPS)).astype(np.uint8)
+    if not torch.equal(agg(host_votes).cpu(), COL.vote_tally_plain(torch.from_numpy(host_votes))):
+        fail(f"vote_tally != plain over host votes [{D}, {VOTE_GROUPS}]")
+    # host votes, as the raft plane's tally_votes sends them: one H2D copy per card
+    host_ms = cuda_ms(lambda: agg(host_votes), 200)
+    votes = on_card(host_votes, dev)
     ms = cuda_ms(lambda: agg(votes), 200)
     one_ms = cuda_ms(lambda: COL.vote_tally(votes), 200)
     plain_ms = cuda_ms(lambda: COL.vote_tally_plain(votes), 200)
     lib_ms = cuda_ms(lambda: torch.sum(votes, 0, dtype=torch.int32), 200)
     b_ms, b_by = bound_ms(D * VOTE_GROUPS + 4 * VOTE_GROUPS, D * VOTE_GROUPS)
-    log(f"K7 [{D}, {VOTE_GROUPS}]: aggregator ({D + 1} launches, {D - 1} copies) {ms:.4f} ms, "
-        f"one tally launch {one_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sum {lib_ms:.4f} ms, "
-        f"bound {b_ms * 1e3:.5f} us ({b_by})")
+    log(f"K7 [{D}, {VOTE_GROUPS}]: aggregator {ms:.4f} ms on votes on the card ({per_call[0]:g} "
+        f"launches and {per_call[1]:g} cross-card copies per call over {n_calls} calls, each equal "
+        f"to the plain sum of fresh votes), {host_ms:.4f} ms on host numpy votes (one H2D copy "
+        f"and one launch), one tally launch over the whole array {one_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.sum {lib_ms:.4f} ms, bound {b_ms * 1e3:.5f} us ({b_by})")
     out["vote_tally"] = {"max_abs_err": max_abs_err(pairs), "ms": ms, "plain_ms": plain_ms,
                          "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                         "parity": f"bit-identical over [{D}, {VOTE_GROUPS}] and [{D}, 1] votes"}
+                         "parity": f"bit-identical over [{D}, {VOTE_GROUPS}] and [{D}, 1] votes "
+                                   f"and over {n_calls} calls on fresh votes"}
 
     # K9 and K8 over config 5's append
     rows, lens, claimed = config5_rows(10)
@@ -899,7 +953,11 @@ def phase_mesh_kernels(dev, mesh) -> tuple[dict, dict]:
                   "wrong, a zero-length row, garbage past each length)"}
     step8 = COL.make_crc_vote_step(mesh, r)
     p8 = (rt.view(D, n // D, r), lt.view(D, n // D), ct.view(D, n // D), votes)
-    got, want = step8(*p8), COL.crc_vote_plain(*p8)
+    before = kernels.CRC32C_VOTE.launches, kernels.VOTE_TALLY.launches
+    got = step8(*p8)
+    k8_launches = {"crc32c_vote": kernels.CRC32C_VOTE.launches - before[0],
+                   "vote_tally": kernels.VOTE_TALLY.launches - before[1]}
+    want = COL.crc_vote_plain(*p8)
     torch.cuda.synchronize()
     if not all(equal(g, w) for g, w in zip(got, want)):
         fail("crc32c_vote step != plain over [4, 256, 16384] with [4, 256] votes")
@@ -907,7 +965,8 @@ def phase_mesh_kernels(dev, mesh) -> tuple[dict, dict]:
     plain_ms = cuda_ms(lambda: COL.crc_vote_plain(*p8), 1)
     b_ms, b_by = bound_ms(valid + 8 * n + n + 4 * D + D * VOTE_GROUPS + 4 * VOTE_GROUPS, valid)
     log(f"K8 [{D}, {n // D}, {r}] + [{D}, {VOTE_GROUPS}] votes: {ms:.4f} ms (CRC launch per "
-        f"shard + tally), plain {plain_ms:.2f} ms, bound {b_ms * 1e3:.3f} us ({b_by})")
+        f"shard + tally per card; launches per call {k8_launches}), plain {plain_ms:.2f} ms, "
+        f"bound {b_ms * 1e3:.3f} us ({b_by})")
     out["crc32c_vote"] = {
         "max_abs_err": max_abs_err([(torch.from_numpy(np.asarray(g)) if not hasattr(g, "cpu")
                                      else g.cpu(), w.cpu()) for g, w in zip(got, want)]),
@@ -1018,7 +1077,7 @@ def phase_mesh_kernels(dev, mesh) -> tuple[dict, dict]:
     def one_shard():
         validate_rows(blk[0].reshape(-1, 16384), blk[1].reshape(-1), blk[2].reshape(-1))
         transform(prog, blk[3].reshape(-1, ROW_STRIDE), blk[4].reshape(-1))
-        COL.vote_tally(blk[5])
+        COL.vote_tally(blk[5])  # the step's one tally launch, at one shard's rows
 
     one_ms = cuda_ms(one_shard, 20)
     plain_ms = cuda_ms(lambda: COL.coproc_step_plain(prog, *dev_in), 1)
@@ -1034,7 +1093,8 @@ def phase_mesh_kernels(dev, mesh) -> tuple[dict, dict]:
         f"{VOTE_GROUPS}] votes: {ms:.4f} ms per step (one shard's three launches alone "
         f"{one_ms:.4f} ms), plain {plain_ms:.1f} ms, bound "
         f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes} B); launches in its run "
-        f"{ {k: launches[k] for k in ('crc32c_validate', 'payload_transform', 'vote_tally')} }")
+        f"{ {k: launches[k] for k in ('crc32c_validate', 'payload_transform', 'vote_tally')} } "
+        "(per shard the validator and the transform, one tally for the card)")
     out["coproc_step"] = {
         "max_abs_err": max_abs_err([(torch.from_numpy(g_ok), torch.from_numpy(w_ok)),
                                     (torch.from_numpy(g_len), torch.from_numpy(w_len)),
@@ -1118,6 +1178,10 @@ def phase_raft_mesh(dev, mesh) -> dict:
     t_dev = time.perf_counter() - t0
     tally = plane.tally_votes(votes)
     launches = path_launches("raft mesh leg", kernels.CRC32C_VOTE, kernels.VOTE_TALLY)
+    t0 = time.perf_counter()
+    for _ in range(200):  # each call returns the tally on the host
+        plane.tally_votes(votes)
+    t_tally = (time.perf_counter() - t0) / 200
     if not np.array_equal(ok, want) or ok.sum() != n - 3:
         fail("raft mesh leg: flags differ from the host oracle's")
     if not np.array_equal(tally, votes.astype(np.int32).sum(axis=0)):
@@ -1125,7 +1189,8 @@ def phase_raft_mesh(dev, mesh) -> dict:
     log(f"raft mesh leg (virtual mesh of {mesh.size} shards on one card): {n} regions of rows "
         f"16384, {t_dev * 1e3:.3f} ms per append ({n / t_dev:.1f} batches/s incl. pack and "
         f"copies); flags equal to the host oracle's; tally_votes [{mesh.size}, {VOTE_GROUPS}] "
-        f"equal to the numpy sum; launches {launches}")
+        f"equal to the numpy sum, {t_tally * 1e3:.4f} ms a call host to host (mean of 200); "
+        f"launches {launches}")
     return launches
 
 

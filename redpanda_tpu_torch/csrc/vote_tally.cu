@@ -1,49 +1,69 @@
-// The vote tally (K7) on Hopper: column sums of a row-major [rows, G]
-// matrix into int32 [G].
+// The vote tally (K7) on Hopper: column sums of row-major [rows, G] vote
+// blocks into int32 [G].
 //
 // Replaces the JAX program redpanda_tpu/parallel/collectives.py:39
 // (make_vote_aggregator._local: votes.astype(int32).sum(axis=0), then a
-// psum over the mesh's 'p' axis). The psum is two launches of this kernel
-// (parallel/collectives.py): each shard sums its own block of u8 votes
-// into an i32 partial on its device, the partials are copied to the
-// mesh's first device, and the same kernel sums the stacked i32 [D, G]
-// partials there. Integer sums are exact, so the order does not matter.
+// psum over the mesh's 'p' axis). The psum is done per card
+// (parallel/collectives.py): rp_vote_tally_blocks sums up to 64 shard
+// blocks that lie on one card in one launch, reading them through a table
+// of device pointers passed by value. On a mesh of one card with at most
+// 64 shards that launch writes the tally itself. Otherwise each card (each
+// run of 64 of its shards) writes one int32 [G] partial, the partials are
+// gathered on the mesh's first card, and one more launch sums the stacked
+// int32 [C, G] partials there as a single block (C + 1 launches, C - 1
+// copies for C cards). vote_tally() of one matrix is the same entry point
+// with one block. Integer sums are exact, so the order does not matter.
 //
 // What bounds it on an H100: bytes, and at the shapes the port uses (a few
-// rows by 256 groups, a few KB) the launch latency. One thread per column
-// loops over the rows; neighbouring threads read neighbouring columns, so
-// each row's read is coalesced. Each thread writes its column once, so the
-// output needs no zeroing and no atomics.
+// rows by 256 groups, a few KB) the launch latency and the host's enqueue
+// work around it. The design spends one launch per card on it: one thread
+// per column loops over every row of every block; neighbouring threads
+// read neighbouring columns, so each row's read is coalesced. Each thread
+// writes its column once, so the output needs no zeroing and no atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 64;  // 512 B of pointers, well inside the 4 KB parameter limit
+
+struct BlockTable {
+  const void* ptr[kMaxBlocks];
+};
+
 template <typename T>
-__global__ void tally_kernel(const T* __restrict__ votes, int rows, int g,
-                             int32_t* __restrict__ out) {
+__global__ void tally_blocks_kernel(const BlockTable table, int nblocks, int rows, int g,
+                                    int32_t* __restrict__ out) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= g) return;
   int32_t acc = 0;
-  for (int r = 0; r < rows; ++r) acc += (int32_t)votes[(long long)r * g + col];
+  for (int b = 0; b < nblocks; ++b) {
+    const T* __restrict__ votes = static_cast<const T*>(table.ptr[b]);
+    for (int r = 0; r < rows; ++r) acc += (int32_t)votes[(long long)r * g + col];
+  }
   out[col] = acc;
 }
 
 }  // namespace
 
-// dtype 0: votes are uint8; dtype 1: votes are int32 partials.
-extern "C" int rp_vote_tally(const void* votes, int rows, int g, int dtype, void* out,
-                             void* stream) {
-  if (rows < 0 || g < 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+// The column sums over nblocks blocks of one card, each [rows, g] of one
+// dtype (0: uint8 votes, 1: int32 partials): `blocks` is a host array of
+// nblocks device pointers (1..64), copied into the launch's parameters.
+extern "C" int rp_vote_tally_blocks(const void* const* blocks, int nblocks, int rows, int g,
+                                    int dtype, void* out, void* stream) {
+  if (nblocks < 1 || nblocks > kMaxBlocks || rows < 0 || g < 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   if (g == 0) return 0;
-  const int threads = 256;
-  const int blocks = (g + threads - 1) / threads;
+  BlockTable table = {};
+  for (int b = 0; b < nblocks; ++b) table.ptr[b] = blocks[b];
+  const int grid = (g + kThreads - 1) / kThreads;
   if (dtype == 0)
-    tally_kernel<uint8_t><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)votes, rows, g, (int32_t*)out);
+    tally_blocks_kernel<uint8_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        table, nblocks, rows, g, (int32_t*)out);
   else
-    tally_kernel<int32_t><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)votes, rows, g, (int32_t*)out);
+    tally_blocks_kernel<int32_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        table, nblocks, rows, g, (int32_t*)out);
   return (int)cudaGetLastError();
 }

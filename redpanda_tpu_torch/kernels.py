@@ -169,9 +169,10 @@ VOTE_TALLY = Kernel(
     "vote_tally",
     "redpanda_tpu_torch/csrc/vote_tally.cu",
     "redpanda_tpu/parallel/collectives.py:39",
-    "rp_vote_tally",
-    # votes, rows, g, dtype (0 u8, 1 i32), out, stream
-    [_P, _I, _I, _I, _P, _P],
+    "rp_vote_tally_blocks",
+    # blocks (host array of device pointers), nblocks, rows, g, dtype (0 u8,
+    # 1 i32), out, stream
+    [_P, _I, _I, _I, _I, _P, _P],
 )
 
 LZ4_BLOCK = Kernel(
@@ -202,7 +203,8 @@ class Step:
         self.launches = 0
 
 
-# K10: per shard the batch validator, the payload transform and the tally
+# K10: per shard the batch validator and the payload transform, then the
+# tally once per card
 COPROC_STEP = Step(
     "coproc_step",
     "redpanda_tpu_torch/parallel/collectives.py",

@@ -3,8 +3,8 @@ keep-or-kill probe against host liblz4.
 
 ``decode_rows(comp u8 [n, max_in], comp_len i32 [n], max_out)`` returns
 (out u8 [n, max_out], out_len i32 [n], ok bool [n]). On CUDA tensors it
-launches the hand-written kernel (csrc/lz4_block.cu, one thread per
-stream); on CPU tensors it runs the plain PyTorch version, the JAX
+launches the hand-written kernel (csrc/lz4_block.cu, one warp per stream
+in shared memory); on CPU tensors it runs the plain PyTorch version, the JAX
 package's lockstep byte machine: every stream advances one token, length
 extension, offset, literal or match byte per step, and stops at the end of
 its input after literals or at the first failed check (a write at
@@ -16,6 +16,8 @@ the final op.
 
 ``measure_probe`` times the decoder on the card against host liblz4 on
 text-like records and reports which is faster on this machine.
+``edge_streams`` makes hand-built streams at the decoder's edges, the
+test data that holds the kernel to its plain version.
 
 Format (LZ4 block, lz4_Block_format.md): sequences of
   token(1B: lit_len<<4 | match_len) [lit_len ext 255*] literals
@@ -213,6 +215,96 @@ def pack_streams(streams: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
     for i, c in enumerate(streams):
         rows[i, : len(c)] = np.frombuffer(c, np.uint8)
         lens[i] = len(c)
+    return rows, lens
+
+
+def _ext(out: bytearray, n: int) -> None:
+    """Extension bytes of a length whose token nibble is 15."""
+    while n >= 255:
+        out.append(255)
+        n -= 255
+    out.append(n)
+
+
+def _seq(literals: bytes, offset: int | None = None, match_len: int = 0) -> bytes:
+    """One LZ4 sequence: token, literal-length extension, literals and, with
+    an offset, the 2-byte offset and the match-length extension."""
+    ml = match_len - 4
+    out = bytearray([(min(len(literals), 15) << 4) | (min(ml, 15) if offset is not None else 0)])
+    if len(literals) >= 15:
+        _ext(out, len(literals) - 15)
+    out += literals
+    if offset is not None:
+        out += bytes([offset & 255, offset >> 8])
+        if ml >= 15:
+            _ext(out, ml - 15)
+    return bytes(out)
+
+
+def edge_streams(max_out: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Hand-made LZ4 streams at the decoder's edges for ``max_out`` (>= 64),
+    packed as ``pack_streams`` packs them: (rows u8 [n, max_in], lens i32
+    [n]). They are test data for the decoder and its plain version:
+      - a match of every offset 1..40 at every length 4..80, after as many
+        literals as the offset, then 1-3 final literals;
+      - a literal run, and a match, that end exactly at max_out and one
+        byte past it, each followed by a final sequence or by nothing;
+      - a match at op == offset (its source is byte 0) and at op ==
+        offset - 1, offset 0 and offset 65535;
+      - length extensions: exactly 15, 15 + 255 and runs of 255s, for the
+        literal and the match length, and runs cut off by comp_len;
+      - comp_len past max_in (reads clip to the row's last byte), with the
+        literals straddling the row's end and with a run of 255s there;
+      - rows of random bytes at random lengths.
+    """
+    rng = np.random.default_rng(seed)
+
+    def text(n: int) -> bytes:
+        return rng.integers(97, 123, n, dtype=np.uint8).tobytes()
+
+    streams: list[bytes] = []
+    for off in range(1, 41):
+        for mlen in range(4, 81):
+            streams.append(_seq(text(off), off, mlen) + _seq(text(1 + (off + mlen) % 3)))
+    m = max_out
+    for tail in (20, 21):  # a final literal run ending at max_out, one past it
+        streams.append(_seq(b"abcd", 4, m - 24) + _seq(text(tail)))
+    if m <= 2048:  # a literal-only run of max_out bytes, and one more
+        streams += [_seq(text(m)), _seq(text(m + 1))]
+    streams += [
+        _seq(b"ab", 2, m - 2) + bytes([0x00]),  # a match ending at max_out, then no literals
+        _seq(b"ab", 2, m - 2) + _seq(b"z"),  # ... then one literal past it
+        _seq(b"ab", 2, m - 2),  # ... and the stream ends after the match
+        _seq(b"ab", 2, m - 1) + _seq(b"z"),  # a match one byte past max_out
+        _seq(b"abc", 3, m - 7) + _seq(b"wxyz"),  # literals ending exactly at max_out
+    ]
+    for k in (1, 2, 3, 5, 40):  # op == offset (valid), op == offset - 1 (not)
+        streams += [_seq(text(k), k, 9) + _seq(b"e"), _seq(text(k - 1), k, 9) + _seq(b"e")]
+    streams += [_seq(b"q", 0, 6) + _seq(b"e"), _seq(text(7), 65535, 6) + _seq(b"e")]
+    streams += [
+        bytes([0xF0, 0x00]) + text(15) + _seq(b"e"),  # literal length exactly 15
+        bytes([0xF0, 0xFF, 0x00]) + text(270),  # 15 + 255
+        _seq(b"ab", 2, 19) + _seq(b"e"),  # match length exactly 19 (ext 0)
+        _seq(b"ab", 2, 4 + 15 + 255 + 255 + 7) + _seq(b"e"),  # ext 255, 255, 7
+        bytes([0xF0, 0xFF, 0xFF]),  # a literal extension cut off by comp_len
+        bytes([0x1F, 0x61, 0x01, 0x00, 0xFF, 0xFF]),  # a match extension cut off
+    ]
+    max_in = 1 << (max(len(c) for c in streams) - 1).bit_length()
+    over = len(streams)
+    # comp_len past max_in: literals straddling the row's end; a run of 255s
+    # at its end; a valid stream claiming more input than the row holds
+    straddle = bytearray([0xF0])
+    _ext(straddle, max_in + 20 - 15)
+    streams += [
+        bytes(straddle) + text(max_in - len(straddle)),
+        bytes([0xF0]) + bytes([0xFF]) * (max_in - 1),
+        _seq(b"hello ", 6, 30) + _seq(b"world"),
+    ]
+    rows, lens = pack_streams(streams + [b"\0"] * 64)
+    lens[over : over + 3] = [max_in + 40, max_in + 40, max_in + 5]
+    garbage = slice(len(streams), None)
+    rows[garbage] = rng.integers(0, 256, size=(64, max_in), dtype=np.uint8)
+    lens[garbage] = rng.integers(-2, max_in + 9, 64)
     return rows, lens
 
 

@@ -6,19 +6,25 @@ The JAX package runs each as one ``shard_map`` program over the mesh's
 enqueues, for every shard on that shard's stream, the kernels of the
 shard's block, and then the one collective: the tally's sum across shards.
 
-- ``make_vote_aggregator(mesh)``: each shard sums its block of u8 votes
-  into an int32 partial on its device (csrc/vote_tally.cu); the partials
-  are copied to ``mesh.devices[0]`` after an event wait on each shard's
-  stream, and the same kernel sums the stacked [D, G] partials there.
-  Integer sums are exact, so the tally is bit-identical in any order.
+- ``make_vote_aggregator(mesh)``: the vote tally (csrc/vote_tally.cu) in
+  one launch per card, on the caller's current stream of that card, over
+  every block of u8 votes the card holds (``card_groups``; a card with
+  more than 64 shards takes one launch per 64, ``tally_chunks``). On a
+  mesh of one card (a virtual mesh) that launch writes the int32 [G]
+  tally: one launch, no copy, no stream wait. With C cards each card
+  writes an int32 partial, the C - 1 partials of the other cards are
+  copied to ``mesh.devices[0]`` and one more launch sums the stacked
+  [C, G] partials there. The blocks are placed with ``local_blocks`` on
+  the current streams, so the aggregator touches no shard stream. Integer
+  sums are exact, so the tally is bit-identical in any order.
 - ``make_sharded_crc_check(mesh, r)``: the batch validator over each
   shard's [P/D, B, r] rows with a bad count per partition, in one launch
   of the CRC kernel per shard (csrc/crc32c.cu, row ``crc32c_sharded``).
 - ``make_crc_vote_step(mesh, r)``: the same per shard (row
   ``crc32c_vote``), plus the vote tally: the raft follower plane's step.
 - ``make_sharded_coproc_step(mesh, spec_json, r_batch, r_rec)``: per shard
-  the batch validator (K6), the payload transform (K3, unpacked) and the
-  tally's shard sum, then the cross-shard sum.
+  the batch validator (K6) and the payload transform (K3, unpacked), then
+  the vote tally as the aggregator computes it.
 
 Inputs are global numpy arrays or tensors (split over the mesh with
 ``shard_to_mesh``, which also makes the shard streams wait for the
@@ -31,6 +37,9 @@ On a CPU mesh every shard runs the plain versions.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+
 import torch
 
 from redpanda_tpu_torch import kernels
@@ -41,7 +50,13 @@ from redpanda_tpu_torch.ops.transforms import (
     transform,
     transform_plain,
 )
-from redpanda_tpu_torch.parallel.mesh import PartitionMesh, Sharded, shard_to_mesh
+from redpanda_tpu_torch.parallel.mesh import (
+    PartitionMesh,
+    Sharded,
+    card_groups,
+    local_blocks,
+    shard_to_mesh,
+)
 
 
 # ------------------------------------------------------------ K7 kernel wrapper
@@ -52,59 +67,104 @@ def vote_tally_plain(votes: torch.Tensor) -> torch.Tensor:
 
 def vote_tally(votes: torch.Tensor) -> torch.Tensor:
     """Column sums (K7) of contiguous uint8 or int32 [rows, G] votes into
-    int32 [G]. CPU tensors run the plain version; CUDA tensors launch the
-    kernel on the current stream."""
+    int32 [G]: ``vote_tally_blocks`` over the one block."""
     if votes.dim() != 2 or votes.dtype not in (torch.uint8, torch.int32):
         raise ValueError(f"votes must be uint8 or int32 [rows, G], got {votes.dtype} "
                          f"{tuple(votes.shape)}")
-    if not votes.is_contiguous():
-        raise ValueError("votes must be contiguous")
-    if votes.device.type == "cpu":
-        return vote_tally_plain(votes)
-    if votes.device.type != "cuda":
-        raise ValueError(f"unsupported device {votes.device}")
-    rows, g = votes.shape
-    out = torch.empty(g, dtype=torch.int32, device=votes.device)
+    return vote_tally_blocks([votes])
+
+
+MAX_TALLY_BLOCKS = 64  # the kernel's table of block pointers
+
+# cross-card copies of tally partials made by ``_tally``, a plain count
+tally_copies = 0
+
+
+def vote_tally_blocks(blocks, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Column sums (K7) over every row of 1..64 contiguous blocks of one
+    device, each uint8 or int32 [rows, G] of one dtype and shape, into
+    int32 [G] (written into ``out`` when given). CPU blocks run the plain
+    version; CUDA blocks launch the kernel once, on the current stream."""
+    blocks = list(blocks)
+    if not 1 <= len(blocks) <= MAX_TALLY_BLOCKS:
+        raise ValueError(f"1 to {MAX_TALLY_BLOCKS} blocks, got {len(blocks)}")
+    b0 = blocks[0]
+    for b in blocks:
+        if b.dim() != 2 or b.dtype not in (torch.uint8, torch.int32):
+            raise ValueError(f"blocks must be uint8 or int32 [rows, G], got {b.dtype} "
+                             f"{tuple(b.shape)}")
+        if b.shape != b0.shape or b.dtype != b0.dtype or b.device != b0.device:
+            raise ValueError("blocks must share one shape, dtype and device")
+        if not b.is_contiguous():
+            raise ValueError("blocks must be contiguous")
+    g = b0.shape[1]
+    if out is not None and (out.shape != (g,) or out.dtype != torch.int32
+                            or out.device != b0.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous int32 [{g}] tensor on {b0.device}")
+    if b0.device.type == "cpu":
+        tally = vote_tally_plain(torch.cat(blocks))
+        return tally if out is None else out.copy_(tally)
+    if b0.device.type != "cuda":
+        raise ValueError(f"unsupported device {b0.device}")
+    if out is None:
+        out = torch.empty(g, dtype=torch.int32, device=b0.device)
+    ptrs = (ctypes.c_void_p * len(blocks))(*[b.data_ptr() for b in blocks])
     kernels.VOTE_TALLY.launch(
-        votes.data_ptr(), rows, g, int(votes.dtype == torch.int32), out.data_ptr(),
-        kernels.stream_handle(votes.device),
+        ptrs, len(blocks), b0.shape[0], g, int(b0.dtype == torch.int32), out.data_ptr(),
+        kernels.stream_handle(b0.device),
     )
     return out
 
 
-def _cross_shard_sum(mesh: PartitionMesh, partials: list[torch.Tensor]) -> torch.Tensor:
-    """The psum: each shard's int32 [G] partial, copied to devices[0] after
-    that shard's stream, summed there by the tally kernel. Runs on shard
-    0's stream."""
-    dev0 = mesh.devices[0]
-    with mesh.shard(0):
-        stacked = torch.empty((mesh.size, partials[0].shape[0]), dtype=torch.int32, device=dev0)
-        for d, p in enumerate(partials):
-            if mesh.streams[d] is not None:
-                torch.cuda.current_stream(dev0).wait_stream(mesh.streams[d])
-                # the copy reads p on the current stream of p's device
-                p.record_stream(torch.cuda.current_stream(p.device))
-            stacked[d].copy_(p)
-        return vote_tally(stacked)
+def tally_chunks(devices) -> tuple[tuple[torch.device, tuple[int, ...]], ...]:
+    """The tally's launches over a mesh: ``card_groups`` with each card's
+    shards cut into runs of at most ``MAX_TALLY_BLOCKS``, one launch each.
+    Chunk 0 is always ``devices[0]``'s."""
+    return tuple((dev, shards[i:i + MAX_TALLY_BLOCKS])
+                 for dev, shards in card_groups(devices)
+                 for i in range(0, len(shards), MAX_TALLY_BLOCKS))
+
+
+def _on(dev: torch.device):
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def _tally(mesh: PartitionMesh, votes: Sharded) -> torch.Tensor:
-    partials = []
-    for d in range(mesh.size):
-        with mesh.shard(d):
-            partials.append(vote_tally(votes.blocks[d]))
-    return _cross_shard_sum(mesh, partials)
+    """The psum of every shard's column sums, one launch per chunk of a
+    card's shards (``tally_chunks``) on the caller's current stream of that
+    card; the blocks must be ready there. With one chunk its launch writes
+    the tally. With several, the chunks on ``devices[0]`` write rows of the
+    stacked partials there and every other card's partial is copied into
+    its row (a device-to-device ``copy_``, which runs after an event wait
+    on the destination's current stream and makes that stream wait for the
+    copy), then one launch sums the rows."""
+    global tally_copies
+    chunks = tally_chunks(mesh.devices)
+    dev0 = mesh.devices[0]
+    with _on(dev0):
+        if len(chunks) == 1:
+            return vote_tally_blocks(votes.blocks)
+        stacked = torch.empty((len(chunks), votes.blocks[0].shape[1]), dtype=torch.int32,
+                              device=dev0)
+        for row, (dev, shards) in enumerate(chunks):
+            blocks = [votes.blocks[d] for d in shards]
+            if dev == dev0:
+                vote_tally_blocks(blocks, out=stacked[row])
+                continue
+            with _on(dev):
+                partial = vote_tally_blocks(blocks)
+            stacked[row].copy_(partial)
+            tally_copies += 1
+        return vote_tally(stacked)
 
 
 def make_vote_aggregator(mesh: PartitionMesh):
     """fn(votes uint8 [D*k, G]) -> int32 [G] on mesh.devices[0]: total votes
-    per group, summed within each shard and then across the mesh."""
+    per group, summed over the shards of each card and then across the
+    cards."""
 
     def aggregate(votes) -> torch.Tensor:
-        v = shard_to_mesh(mesh, votes)
-        tally = _tally(mesh, v)
-        mesh.join(tally)
-        return tally
+        return _tally(mesh, local_blocks(mesh, votes))
 
     return aggregate
 
@@ -178,8 +238,8 @@ def make_crc_vote_step(mesh: PartitionMesh, r: int):
     def step(rows, lens, claimed, votes):
         rows, lens, claimed, votes = shard_to_mesh(mesh, rows, lens, claimed, votes)
         oks, bads = _crc_shards(mesh, rows, lens, claimed, r, kernels.CRC32C_VOTE)
-        tally = _tally(mesh, votes)
-        mesh.join(*oks, *bads, tally)
+        tally = _tally(mesh, votes)  # on the current streams, after shard_to_mesh's join
+        mesh.join(*oks, *bads)
         return Sharded(mesh, oks), Sharded(mesh, bads), tally
 
     return step
@@ -205,32 +265,31 @@ def make_sharded_coproc_step(mesh: PartitionMesh, spec_json: str, r_batch: int, 
     [P, B], rec_rows u8 [P, N, r_rec], rec_lens i32 [P, N], votes u8 [P, G])
     -> (ok [P, B], out [P, N, r_out], out_len [P, N], keep [P, N], tally [G]).
 
-    Per shard, on its stream: the batch validator (K6) over its batches,
-    the payload transform (K3; out_len unmasked, as the JAX package's
-    ``compile_transform`` returns it) over its records, and the tally's
-    shard sum (K7); then the tally's sum across shards.
+    Per shard, on its stream: the batch validator (K6) over its batches
+    and the payload transform (K3; out_len unmasked, as the JAX package's
+    ``compile_transform`` returns it) over its records; then the vote tally
+    (K7) once, one launch per card on the current streams.
     """
     prog = compile_transform(TransformSpec.from_json(spec_json), int(r_rec))
 
     def step(b_rows, b_lens, claimed, rec_rows, rec_lens, votes):
         args = shard_to_mesh(mesh, b_rows, b_lens, claimed, rec_rows, rec_lens, votes)
-        oks, outs, out_lens, keeps, partials = [], [], [], [], []
+        oks, outs, out_lens, keeps = [], [], [], []
         for d in range(mesh.size):
-            br, bl, cl, rr, rl, v = (a.blocks[d] for a in args)
+            br, bl, cl, rr, rl = (a.blocks[d] for a in args[:5])
             p, b, _ = br.shape
             n = rr.shape[1]
             with mesh.shard(d):
                 ok = validate_rows(br.reshape(p * b, r_batch), bl.reshape(-1), cl.reshape(-1))
                 out, out_len, keep = transform(prog, rr.reshape(p * n, r_rec), rl.reshape(-1))
-                partials.append(vote_tally(v))
             oks.append(ok.reshape(p, b))
             outs.append(out.reshape(p, n, prog.r_out))
             out_lens.append(out_len.reshape(p, n))
             keeps.append(keep.reshape(p, n))
-        tally = _cross_shard_sum(mesh, partials)
+        tally = _tally(mesh, args[5])  # on the current streams, after shard_to_mesh's join
         if mesh.type == "cuda":
             kernels.COPROC_STEP.launches += 1
-        mesh.join(*oks, *outs, *out_lens, *keeps, tally)
+        mesh.join(*oks, *outs, *out_lens, *keeps)
         return (Sharded(mesh, oks), Sharded(mesh, outs), Sharded(mesh, out_lens),
                 Sharded(mesh, keeps), tally)
 

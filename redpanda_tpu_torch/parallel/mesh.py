@@ -6,8 +6,10 @@ it from one Python process (parallel/mesh.py there). The port's mesh is the
 same thing: ``PartitionMesh`` is an ordered tuple of ``torch.device`` with
 one CUDA stream per shard, and shard d of an array is its d-th block on
 the leading axis, held on ``devices[d]``. Work for shard d is enqueued on
-shard d's stream; the one collective (the vote tally's sum) copies the
-shards' partials to ``devices[0]`` (parallel/collectives.py).
+shard d's stream. The one collective, the vote tally's sum, runs once per
+card over that card's shards (``card_groups``) on the caller's current
+stream, and copies the other cards' partials to ``devices[0]``
+(parallel/collectives.py).
 
 A mesh may name one card several times (``devices=[cuda:0] * 4``): a
 *virtual mesh*, the counterpart of the JAX package's virtual CPU devices.
@@ -19,7 +21,8 @@ plain versions run synchronously: the tests' stand-in.
 Every function of the mesh modules leaves its results ready on the
 caller's current stream of each device: the shard streams first wait for
 the caller's streams (``fork``), and the caller's streams wait for the
-shard streams at the end (``join``).
+shard streams at the end (``join``). Work that runs only on the caller's
+current streams (the vote tally over ``local_blocks``) needs neither.
 """
 
 from __future__ import annotations
@@ -145,6 +148,18 @@ def partition_mesh(n_devices: int | None = None, devices=None, device="cuda") ->
     return PartitionMesh(devices)
 
 
+def card_groups(devices) -> tuple[tuple[torch.device, tuple[int, ...]], ...]:
+    """The shards of a mesh grouped by the device that holds them: one
+    ``(device, shard indices)`` pair per distinct device, in the order of
+    each device's first shard, the shards of a group in mesh order. Group 0
+    is always ``devices[0]``'s. A virtual mesh on one card, and any CPU
+    mesh, is one group."""
+    groups: dict[torch.device, list[int]] = {}
+    for d, dev in enumerate(devices):
+        groups.setdefault(dev, []).append(d)
+    return tuple((dev, tuple(shards)) for dev, shards in groups.items())
+
+
 def _as_tensor(a) -> torch.Tensor:
     """A numpy array or tensor as a contiguous tensor; uint32 (claimed CRCs)
     travels as its int32 bit pattern, as everywhere in the port."""
@@ -154,6 +169,18 @@ def _as_tensor(a) -> torch.Tensor:
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     return torch.from_numpy(a)
+
+
+def _split(mesh: PartitionMesh, a) -> list[torch.Tensor]:
+    """``a``'s ``mesh.size`` equal blocks on its leading axis, as views;
+    raises when the axis does not divide, as ``shard_map`` does."""
+    t = _as_tensor(a)
+    if t.dim() == 0 or t.shape[0] % mesh.size:
+        raise ValueError(
+            f"leading axis of {tuple(t.shape)} does not divide into {mesh.size} shards"
+        )
+    k = t.shape[0] // mesh.size
+    return [t[d * k : (d + 1) * k] for d in range(mesh.size)]
 
 
 def shard_to_mesh(mesh: PartitionMesh, *arrays):
@@ -170,15 +197,8 @@ def shard_to_mesh(mesh: PartitionMesh, *arrays):
                 raise ValueError("array is sharded over another mesh")
             out.append(a)
             continue
-        t = _as_tensor(a)
-        if t.dim() == 0 or t.shape[0] % mesh.size:
-            raise ValueError(
-                f"leading axis of {tuple(t.shape)} does not divide into {mesh.size} shards"
-            )
-        k = t.shape[0] // mesh.size
         blocks, keep = [], []
-        for d, dev in enumerate(mesh.devices):
-            block = t[d * k : (d + 1) * k]
+        for d, (dev, block) in enumerate(zip(mesh.devices, _split(mesh, a))):
             with mesh.shard(d):
                 if dev.type == "cuda" and block.device.type == "cpu":
                     block = block.pin_memory()
@@ -188,3 +208,33 @@ def shard_to_mesh(mesh: PartitionMesh, *arrays):
         out.append(Sharded(mesh, blocks, keep))
     mesh.join(*moved)
     return tuple(out) if len(out) != 1 else out[0]
+
+
+def local_blocks(mesh: PartitionMesh, a) -> Sharded:
+    """``a`` split over the mesh as ``shard_to_mesh`` splits it, with the
+    blocks on ``devices[d]`` placed by one copy per distinct device (of the
+    rows of that device's shards) on the caller's current stream there, and
+    each block a view of its device's copy (or of ``a`` where it already
+    lies there). No shard stream takes part, so work that reads the blocks
+    on the current streams needs no fork and no join. A ``Sharded``
+    argument passes through unchanged; its blocks are ready on the current
+    streams, as every mesh function leaves them."""
+    if isinstance(a, Sharded):
+        if a.mesh is not mesh:
+            raise ValueError("array is sharded over another mesh")
+        return a
+    t = _as_tensor(a)
+    parts = _split(mesh, t)
+    k = parts[0].shape[0]
+    blocks: list = [None] * mesh.size
+    for dev, shards in card_groups(mesh.devices):
+        if t.device == dev:
+            for d in shards:
+                blocks[d] = parts[d]
+            continue
+        lo, hi = shards[0], shards[-1] + 1
+        src = t[lo * k : hi * k] if hi - lo == len(shards) else torch.cat([parts[d] for d in shards])
+        rows = src.to(dev, non_blocking=True)  # rows of a contiguous tensor are contiguous
+        for i, d in enumerate(shards):
+            blocks[d] = rows[i * k : (i + 1) * k]
+    return Sharded(mesh, blocks)

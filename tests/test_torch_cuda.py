@@ -198,6 +198,73 @@ def test_lz4_kernel_matches_plain(card):
         assert out[i, : int(out_len[i])].cpu().numpy().tobytes() == recs[i]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_out,pad", [(128, 0), (77, 3), (1024, 0), (49152, 0)])
+def test_lz4_kernel_matches_plain_on_edge_streams(card, max_out, pad):
+    """The edge streams (ops/lz4_device.py edge_streams) in shared memory
+    (rows of 512 or 2048 in; 77 out and 515 in: unaligned rows take the
+    byte loads) and, at max_out 49152, on the global rows (one warp's
+    slice past 48 KB)."""
+    from redpanda_tpu_torch.ops import lz4_device as L
+
+    rows, lens = L.edge_streams(max_out, seed=max_out)
+    rows = np.pad(rows, ((0, 0), (0, pad)))
+    if max_out > 2048:  # every 11th offset/length pair and every other stream: the
+        keep = np.r_[0 : 40 * 77 : 11, 40 * 77 : len(lens)]  # plain version runs
+        rows, lens = rows[keep], lens[keep]  # max_out steps, on the host
+    c, cl = torch.from_numpy(rows).to(card), torch.from_numpy(lens).to(card)
+    before = kernels.LZ4_BLOCK.launches
+    got = L.decode_rows(c, cl, max_out)
+    assert kernels.LZ4_BLOCK.launches == before + 1
+    want = L.decode_plain(c.cpu(), cl.cpu(), max_out)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool(want[2].any()) and not bool(want[2].all())
+
+
+@pytest.mark.cuda
+def test_vote_aggregator_200_calls_on_fresh_votes(card):
+    """One launch and no copy per call on a virtual mesh, each tally equal
+    to the plain sum of votes made on the card just before the call (and
+    of host votes): a missing stream wait would read stale votes."""
+    from redpanda_tpu_torch.parallel import collectives as COL
+    from redpanda_tpu_torch.parallel import partition_mesh
+
+    mesh = partition_mesh(devices=[card] * 4)
+    agg = COL.make_vote_aggregator(mesh)
+    gen = torch.Generator(device=card).manual_seed(7)
+    before = kernels.VOTE_TALLY.launches, COL.tally_copies
+    for _ in range(200):
+        votes = torch.randint(0, 2, (4, 256), generator=gen, device=card, dtype=torch.uint8)
+        assert torch.equal(agg(votes), COL.vote_tally_plain(votes))
+    host = np.random.default_rng(3).integers(0, 2, (8, 256)).astype(np.uint8)
+    assert (agg(host).cpu().numpy() == host.astype(np.int32).sum(0)).all()
+    assert kernels.VOTE_TALLY.launches == before[0] + 201
+    assert COL.tally_copies == before[1]
+
+
+@pytest.mark.cuda
+def test_vote_aggregator_200_calls_across_two_cards(card):
+    """On a mesh of shards on two cards (0, 1, 0, 1) each call makes three
+    launches and one cross-card copy, each tally equal to the plain sum of
+    votes made on the first card just before the call."""
+    from redpanda_tpu_torch.parallel import collectives as COL
+    from redpanda_tpu_torch.parallel import partition_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the cross-card copy of the tally's partial")
+    other = torch.device("cuda", 1 - card.index)
+    mesh = partition_mesh(devices=[card, other] * 2)
+    agg = COL.make_vote_aggregator(mesh)
+    gen = torch.Generator(device=card).manual_seed(8)
+    before = kernels.VOTE_TALLY.launches, COL.tally_copies
+    for _ in range(200):
+        votes = torch.randint(0, 2, (4, 256), generator=gen, device=card, dtype=torch.uint8)
+        assert torch.equal(agg(votes), COL.vote_tally_plain(votes))
+    assert kernels.VOTE_TALLY.launches == before[0] + 3 * 200
+    assert COL.tally_copies == before[1] + 200
+
+
 # ------------------------------------------------------------------ the mesh (K2, K7-K10)
 def _mesh_inputs(rng, p=8, b=3, r=512, n=5, r_rec=256, g=256):
     """Batch rows at random lengths (garbage past each, one empty, three
@@ -233,14 +300,19 @@ def _host(x) -> np.ndarray:
 def _mesh_kernels_match_plain(mesh, dev):
     from redpanda_tpu_torch.parallel import collectives as COL
 
+    from redpanda_tpu_torch.parallel.mesh import card_groups
+
     rng = np.random.default_rng(31)
     rows, lens, claimed, rec, rec_lens, votes = _mesh_inputs(rng, p=2 * mesh.size)
-    before = kernels.VOTE_TALLY.launches
+    cards = len(card_groups(mesh.devices))
+    before = kernels.VOTE_TALLY.launches, COL.tally_copies
     for v in (votes, votes[:, :1]):
         tally = COL.make_vote_aggregator(mesh)(v)
         assert tally.device == mesh.devices[0]
         assert torch.equal(tally.cpu(), COL.vote_tally_plain(torch.from_numpy(v)))
-    assert kernels.VOTE_TALLY.launches == before + 2 * (mesh.size + 1)
+    # one launch per card, plus the partials' sum and C - 1 copies across cards
+    assert kernels.VOTE_TALLY.launches == before[0] + 2 * (1 if cards == 1 else cards + 1)
+    assert COL.tally_copies == before[1] + 2 * (cards - 1)
     args = [_t(a, dev) for a in (rows, lens, claimed)]
     want_ok, want_bad = COL.sharded_crc_plain(*args)
     ok, bad = COL.make_sharded_crc_check(mesh, rows.shape[2])(rows, lens, claimed)

@@ -172,6 +172,24 @@ def test_probe_records_are_the_reference_probes(monkeypatch, record_size):
     assert seen == L.text_records(6, record_size)
 
 
+@pytest.mark.parametrize("max_out", [128, 77])
+def test_edge_streams_match_jax(max_out):
+    """The decoder's edges (ops/lz4_device.py edge_streams, the card tests'
+    data too): every match offset 1..40 at lengths 4..80, runs ending at
+    max_out and one past it, op == offset, extensions, comp_len past
+    max_in and garbage."""
+    rows, lens = L.edge_streams(max_out, seed=max_out)
+    out, out_len, ok = _both(rows, lens, max_out)
+    off, mlen = np.meshgrid(np.arange(1, 41), np.arange(4, 81), indexing="ij")
+    want_len = (off + mlen + 1 + (off + mlen) % 3).ravel()  # prefix, match, 1-3 final literals
+    pairs = want_len.size
+    np.testing.assert_array_equal(ok[:pairs], want_len <= max_out)
+    np.testing.assert_array_equal(out_len[:pairs][ok[:pairs]], want_len[want_len <= max_out])
+    assert ok[pairs] and out_len[pairs] == max_out  # literals ending at max_out
+    assert not ok[pairs + 1] and out_len[pairs + 1] == max_out + 1  # one byte past
+    assert not ok[-64:].all()  # garbage rows
+
+
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the defaults run on it")

@@ -132,6 +132,78 @@ def test_vote_tally_wrapper_checks_its_inputs():
             COL.vote_tally(bad)
 
 
+def _cuda(*idx):
+    return [torch.device("cuda", i) for i in idx]
+
+
+@pytest.mark.parametrize("devices,want", [
+    (_cuda(0, 0, 0, 0), [(0, (0, 1, 2, 3))]),  # a virtual mesh: one launch, no copy
+    (_cuda(0, 1, 0, 1), [(0, (0, 2)), (1, (1, 3))]),
+    (_cuda(0, 1, 2, 3), [(0, (0,)), (1, (1,)), (2, (2,)), (3, (3,))]),
+    (_cuda(2, 0, 2, 1), [(2, (0, 2)), (0, (1,)), (1, (3,))]),  # group 0 is devices[0]'s
+])
+def test_card_groups_give_one_tally_launch_per_card(devices, want):
+    """The tally's grouping: group g's partial lands in row g of the stacked
+    partials on devices[0] (row 0 written in place by devices[0]'s own
+    launch), so C cards take C + 1 launches and C - 1 copies, one card 1."""
+    groups = M.card_groups(devices)
+    assert [(dev.index, shards) for dev, shards in groups] == want
+    assert groups[0][0] == devices[0]
+    assert sorted(d for _, shards in groups for d in shards) == list(range(len(devices)))
+    assert M.card_groups([torch.device("cpu")] * 4) == ((torch.device("cpu"), (0, 1, 2, 3)),)
+
+
+def test_vote_tally_blocks_and_local_blocks_on_the_cpu(mesh):
+    rng = np.random.default_rng(5)
+    votes = rng.integers(0, 2, (2 * D, 9)).astype(np.uint8)
+    v = M.local_blocks(mesh, votes)
+    assert [tuple(b.shape) for b in v.blocks] == [(2, 9)] * D and M.local_blocks(mesh, v) is v
+    want = votes.astype(np.int32).sum(0)
+    np.testing.assert_array_equal(COL.vote_tally_blocks(v.blocks).numpy(), want)
+    out = torch.full((9,), -1, dtype=torch.int32)
+    assert COL.vote_tally_blocks(v.blocks, out=out) is out
+    np.testing.assert_array_equal(out.numpy(), want)
+    parts = [torch.from_numpy(votes[:4].astype(np.int32)), torch.from_numpy(votes[4:].astype(np.int32))]
+    np.testing.assert_array_equal(COL.vote_tally_blocks(parts).numpy(), want)
+    for bad in ([], [v.blocks[0]] * (COL.MAX_TALLY_BLOCKS + 1), [v.blocks[0], v.blocks[1][:1]],
+                [v.blocks[0], parts[0][:2]], [v.blocks[0].t()]):
+        with pytest.raises(ValueError):
+            COL.vote_tally_blocks(bad)
+    with pytest.raises(ValueError):
+        COL.vote_tally_blocks(v.blocks, out=torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        M.local_blocks(mesh, votes[:6])  # 6 rows over 4 shards
+
+
+@pytest.mark.parametrize("devices,want", [
+    (_cuda(0) * 4, [(0, (0, 1, 2, 3))]),
+    (_cuda(0) * 130, [(0, tuple(range(64))), (0, tuple(range(64, 128))), (0, (128, 129))]),
+    (_cuda(1, 0) * 65, [(1, tuple(range(0, 128, 2))), (1, (128,)),
+                        (0, tuple(range(1, 129, 2))), (0, (129,))]),
+    (_cuda(0, 1) * 2, [(0, (0, 2)), (1, (1, 3))]),
+])
+def test_tally_chunks_cut_a_card_at_64_shards(devices, want):
+    """A card holding more shards than the kernel's table takes one launch
+    per 64 of them; chunk 0 is devices[0]'s."""
+    chunks = COL.tally_chunks(devices)
+    assert [(dev.index, shards) for dev, shards in chunks] == want
+    assert sorted(d for _, shards in chunks for d in shards) == list(range(len(devices)))
+
+
+@pytest.mark.parametrize("n_shards", [65, 130])
+def test_vote_aggregator_over_more_than_64_shards_on_the_cpu(n_shards):
+    """The aggregator on a CPU mesh wider than one launch's table: the
+    chunks' partials are summed like the cards', equal to the plain sum;
+    the host votes' blocks are views of one array."""
+    mesh = M.partition_mesh(n_shards, device="cpu")
+    votes = np.random.default_rng(n_shards).integers(0, 2, (2 * n_shards, 7)).astype(np.uint8)
+    v = M.local_blocks(mesh, votes)
+    assert len({b.untyped_storage().data_ptr() for b in v.blocks}) == 1
+    got = COL.make_vote_aggregator(mesh)(votes)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), votes.astype(np.int32).sum(0))
+
+
 # ------------------------------------------------------------------ K9
 def _ops_packed_batches():
     """tests/test_ops.py test_sharded_crc_check's rows, one byte corrupted."""
