@@ -43,28 +43,31 @@ Phases, each of which exits non-zero on failure:
    records) decoded on the card, every row equal to its source, and
    measure_probe (device MB/s against host liblz4).
 9. The partition mesh on a virtual mesh of four shards on the one card
-   (partition_mesh(devices=[cuda:0] * 4): four streams of one card; it
+   (partition_mesh(devices=[cuda:0] * 4): one card holding four shards; it
    runs every mesh kernel and copy, and measures nothing about scaling
    across cards):
    a. the mesh kernels against their plain versions, bit for bit: the vote
       tally (K7) over [4, 256] and [4, 1] votes and over 200 calls on
       fresh votes made on the card, with its launches and copies per call,
       timed on votes on the card and on host numpy votes (and torch.sum's
-      time beside it), the sharded CRC check (K9) over
-      [256, 4, 16384] (config
-      5's append: three claims wrong, a zero-length row, garbage past each
-      length), the CRC + vote step (K8) over the same rows as [4, 256,
-      16384] with [4, 256] votes, the stacked predicate (K2) over the DOCS
-      x EXPRS table cut into 4 shards with one empty and over the bench's
-      32768 rows range-sharded 4 ways, and the coproc step (K10) at full
-      width: 64 partitions x 4 batches of <= 16 KiB, 64 x 512 records of
-      ~1 KB JSON (r_rec 1152) and [64, 256] votes;
+      time beside it), the sharded CRC check (K9) over [256, 4, 16384]
+      (config 5's append: three claims wrong, a zero-length row, garbage
+      past each length), the CRC + vote step (K8) over the same rows as
+      [4, 256, 16384] with [4, 256] votes, the stacked predicate (K2) over
+      the DOCS x EXPRS table cut into 4 shards with one empty and over the
+      bench's 32768 rows range-sharded 4 ways (one launch a call per card
+      chunk, asserted; the call timed beside one launch of its kernel
+      alone), and the coproc step (K10) at full width: 64 partitions x 4
+      batches of <= 16 KiB, 64 x 512 records of ~1 KB JSON (r_rec 1152)
+      and [64, 256] votes (one fused launch a step and no other kernel,
+      asserted; the step timed beside its launch alone);
    b. the engine's mesh lane at the bench's shape through
       TorchEngine(mesh=..., mesh_probe=False), columnar spec, both
       workloads: every reply byte-identical to the CPU engine's, the
-      stacked predicate launched and the single one not, rows per device
-      summing to the records; then one engine with mesh_probe=True and its
-      decision;
+      stacked predicate launched once per mesh launch and card chunk and
+      the single one not, rows per device summing to the records, its
+      t_dispatch beside the single lane's; then one engine with
+      mesh_probe=True and its decision;
    c. the raft plane's mesh leg at config 5's shape
       (RaftDevicePlane(mesh=..., probe=False).validate, 1024 regions) and
       tally_votes over [4, 256], timed host to host;
@@ -421,7 +424,7 @@ def phase_engine(dev) -> dict:
         engines[sname] = eng
 
     kernels.reset_launches()  # the main path starts here
-    results = {}
+    results, dispatch = {}, {}
     for sname, eng in engines.items():
         for wname, req in work.items():
             n_ticks = TICKS if wname == "bench" else 2 * GROUP
@@ -436,6 +439,7 @@ def phase_engine(dev) -> dict:
                 fail(f"{sname} short_msgs: no output batch to compare")
             if wname == "bench":
                 st = eng.stats()
+                dispatch[sname] = st.get("t_dispatch", 0.0)
                 stages = {k: round(v, 6) for k, v in sorted(st.items())
                           if k.startswith(("t_", "n_", "bytes_"))}
                 log(f"engine {sname} bench: {rate:.1f} record_batches/s over {n_ticks} ticks "
@@ -458,7 +462,7 @@ def phase_engine(dev) -> dict:
         eng.shutdown()
     log(f"engine parity: every reply of both specs byte-identical to TorchEngine(cpu); "
         f"main-path launches {launches}")
-    return launches, {"want": want, "work": work, "rates": results}
+    return launches, {"want": want, "work": work, "rates": results, "dispatch": dispatch}
 
 
 # ------------------------------------------------------------------ CRC / LZ4 inputs
@@ -863,14 +867,16 @@ def phase_mesh_kernels(dev, mesh) -> tuple[dict, dict]:
 
     from redpanda_tpu_torch import kernels
     from redpanda_tpu_torch.coproc import batch_codec
-    from redpanda_tpu_torch.coproc.column_plan import plan_spec, predicate_stacked_plain
+    from redpanda_tpu_torch.coproc.column_plan import (
+        block_chunks, plan_spec, predicate_stacked_plain)
     from redpanda_tpu_torch.coproc.host_pool import partition_counts
     from redpanda_tpu_torch.coproc.engine import _bucket_rows
-    from redpanda_tpu_torch.ops.crc32c_device import validate_rows, validate_segments
+    from redpanda_tpu_torch.ops.crc32c_device import validate_segments
     from redpanda_tpu_torch.ops.exprs import host_eval
-    from redpanda_tpu_torch.ops.transforms import compile_transform, transform, where
+    from redpanda_tpu_torch.ops.transforms import compile_transform, where
     from redpanda_tpu_torch.parallel import collectives as COL
     from redpanda_tpu_torch.parallel import shard_to_mesh
+    from redpanda_tpu_torch.parallel.mesh import card_chunks, card_groups
 
     D = mesh.size
     out, launches = {}, {}
@@ -1030,8 +1036,20 @@ def phase_mesh_kernels(dev, mesh) -> tuple[dict, dict]:
     if not equal(got, want):
         fail("predicate_stacked != plain at the bench shape")
     pairs.append((torch.from_numpy(np.asarray(got)), want.cpu()))
+    n_cols = len(stacked)
+    chunks = sum(len(block_chunks(len(shards), n_cols)) for _, shards in card_groups(mesh.devices))
+    before = kernels.PREDICATE_STACKED.launches
     ms = cuda_ms(lambda: plan.predicate_stacked(mesh, args), 200)
+    per_call = (kernels.PREDICATE_STACKED.launches - before) / 201
+    if per_call != chunks:
+        fail(f"predicate_stacked made {per_call:g} launches a call, not {chunks} (card chunks)")
     st_cuda = [on_card(a, dev) for a in stacked]
+    raw, raw_out = raw_predicate_launch(plan, [[a[d] for a in st_cuda] for d in range(D)], dev)
+    raw()
+    torch.cuda.synchronize()
+    if not torch.equal(raw_out, want):
+        fail("one rp_predicate_blocks launch over the bench blocks != plain")
+    launch_ms = cuda_ms(raw, 200)
     block0 = [a[0] for a in st_cuda]
     one_ms = cuda_ms(lambda: plan.predicate(block0, kernels.PREDICATE_STACKED), 200)
     plain_ms = cuda_ms(lambda: predicate_stacked_plain(plan, st_cuda), 20)
@@ -1039,12 +1057,13 @@ def phase_mesh_kernels(dev, mesh) -> tuple[dict, dict]:
     b_ms, b_by = bound_ms(nbytes, D * n_blk * len(plan.program.code))
     log(f"K2 parity: {len(exprs)} DOCS x EXPRS cases over {D} shards (one empty) bit-identical "
         f"to the plain version and the host oracle; bench shape {D} x {n_blk} rows (range shard "
-        f"{[e - s for s, e in rec_cuts]}): {ms:.4f} ms ({D} launches; one shard's launch alone "
-        f"{one_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"{[e - s for s, e in rec_cuts]}): {ms:.4f} ms a call ({per_call:g} launch a call, "
+        f"{chunks} card chunk(s)); one launch over the {D} blocks alone {launch_ms:.4f} ms; "
+        f"the one-block predicate over shard 0 {one_ms:.4f} ms; plain {plain_ms:.4f} ms, "
         f"bound {b_ms * 1e3:.4f} us ({b_by}, {nbytes} B)")
     out["predicate_stacked"] = {
         "max_abs_err": max_abs_err(pairs), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-        "bound_by": b_by,
+        "bound_by": b_by, "launch_ms": launch_ms,
         "parity": f"bit-identical on {len(exprs)} EXPRS cases in {D} shards (one empty) and at "
                   f"the bench shape ({D} x {n_blk})"}
 
@@ -1054,12 +1073,15 @@ def phase_mesh_kernels(dev, mesh) -> tuple[dict, dict]:
     step = COL.make_sharded_coproc_step(mesh, spec_json, 16384, ROW_STRIDE)
     prog = compile_transform(payload_spec(), ROW_STRIDE)
     dev_in = [on_card(a, dev) for a in host_in]
+    step_chunks = len(card_chunks(mesh.devices, COL.MAX_STEP_SHARDS))
     kernels.reset_launches()  # the coproc step's run starts here
     got = step(*dev_in)
-    launches.update(path_launches("coproc step", kernels.CRC32C_VALIDATE,
-                                  kernels.PAYLOAD_TRANSFORM, kernels.VOTE_TALLY))
-    launches["coproc_step"] = kernels.COPROC_STEP.launches
-    launches["vote_tally"] = kernels.VOTE_TALLY.launches
+    launches.update(path_launches("coproc step", kernels.COPROC_STEP))
+    others = {k.name: k.launches for k in kernels.KERNELS
+              if k.launches and k is not kernels.COPROC_STEP}
+    if launches["coproc_step"] != step_chunks or others:
+        fail(f"the coproc step launched {launches['coproc_step']} fused kernels (want "
+             f"{step_chunks}) and {others} besides")
     want = COL.coproc_step_plain(prog, *dev_in)
     torch.cuda.synchronize()
     g_ok, g_out, g_len, g_keep, g_tally = (np.asarray(x) if not hasattr(x, "cpu") else
@@ -1070,16 +1092,21 @@ def phase_mesh_kernels(dev, mesh) -> tuple[dict, dict]:
         fail("coproc step != plain at full width")
     if w_ok.all() or not w_keep.any():
         fail("coproc step inputs do not exercise a bad batch and a kept record")
-    ms = cuda_ms(lambda: step(*dev_in), 20)
-    pb = P // D  # one shard's block: its three launches on the current stream
-    blk = [a[:pb] for a in dev_in]
-
-    def one_shard():
-        validate_rows(blk[0].reshape(-1, 16384), blk[1].reshape(-1), blk[2].reshape(-1))
-        transform(prog, blk[3].reshape(-1, ROW_STRIDE), blk[4].reshape(-1))
-        COL.vote_tally(blk[5])  # the step's one tally launch, at one shard's rows
-
-    one_ms = cuda_ms(one_shard, 20)
+    before = kernels.COPROC_STEP.launches
+    ms = cuda_ms(lambda: step(*dev_in), 50)
+    per_step = (kernels.COPROC_STEP.launches - before) / 51
+    if per_step != step_chunks:
+        fail(f"the coproc step made {per_step:g} launches a step, not {step_chunks}")
+    raw, raw_outs = raw_step_launch(prog, dev_in, D, 16384, ROW_STRIDE, dev)
+    raw()
+    torch.cuda.synchronize()
+    r_ok, r_out, r_len, r_keep, r_tally = (x.cpu().numpy() for x in raw_outs)
+    kept = w_keep.reshape(-1)
+    if not ((r_ok == w_ok.reshape(-1)).all() and (r_len == w_len.reshape(-1)).all()
+            and (r_keep == kept).all() and (r_tally == w_tally).all()
+            and (r_out[kept] == w_out.reshape(-1, prog.r_out)[kept]).all()):
+        fail("one rp_coproc_step launch at full width != plain")
+    launch_ms = cuda_ms(raw, 50)
     plain_ms = cuda_ms(lambda: COL.coproc_step_plain(prog, *dev_in), 1)
     b_lens, rec_lens = host_in[1], host_in[4]
     n_b, n_r = b_lens.size, rec_lens.size
@@ -1090,23 +1117,82 @@ def phase_mesh_kernels(dev, mesh) -> tuple[dict, dict]:
     b_ms, b_by = bound_ms(nbytes, int(np.clip(b_lens, 0, 16384).sum()))
     log(f"K10 full width: [{P}, {STEP_BATCHES}, 16384] batches ({int((~w_ok).sum())} bad), "
         f"[{P}, {STEP_RECORDS}, {ROW_STRIDE}] records ({int(w_keep.sum())} kept), [{P}, "
-        f"{VOTE_GROUPS}] votes: {ms:.4f} ms per step (one shard's three launches alone "
-        f"{one_ms:.4f} ms), plain {plain_ms:.1f} ms, bound "
-        f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes} B); launches in its run "
-        f"{ {k: launches[k] for k in ('crc32c_validate', 'payload_transform', 'vote_tally')} } "
-        "(per shard the validator and the transform, one tally for the card)")
+        f"{VOTE_GROUPS}] votes: {ms:.4f} ms per step ({per_step:g} fused launch a step, no other "
+        f"kernel); the fused launch alone {launch_ms:.4f} ms; plain {plain_ms:.1f} ms, bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes} B)")
     out["coproc_step"] = {
         "max_abs_err": max_abs_err([(torch.from_numpy(g_ok), torch.from_numpy(w_ok)),
                                     (torch.from_numpy(g_len), torch.from_numpy(w_len)),
                                     (torch.from_numpy(g_tally), torch.from_numpy(w_tally))]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "launch_ms": launch_ms,
         "parity": "ok, out_len, keep, tally and the kept rows' out bit-identical at full width"}
     return out, launches
 
 
+def raw_predicate_launch(plan, blocks, dev):
+    """One launch of rp_predicate_blocks over ``blocks`` with the C entry
+    point called directly (no wrapper, not counted): (fn, its output)."""
+    import ctypes
+
+    import torch
+
+    from redpanda_tpu_torch import kernels
+
+    code, needles = plan.program.on(dev)
+    n_pad, n_cols = blocks[0][0].shape[0], len(blocks[0])
+    out = torch.empty((len(blocks), n_pad // 8), dtype=torch.uint8, device=dev)
+    table = (ctypes.c_void_p * (len(blocks) * n_cols))(*[a.data_ptr() for b in blocks for a in b])
+    argv = (table, len(blocks), n_cols, code.data_ptr(), code.shape[0], needles.data_ptr(), n_pad,
+            None, out.data_ptr(), kernels.stream_handle(dev))
+    fn = kernels.PREDICATE_STACKED.fn()
+
+    def run():
+        if fn(*argv) != 0:
+            fail("rp_predicate_blocks refused its launch")
+
+    return run, out
+
+
+def raw_step_launch(prog, dev_in, n_shards, r_batch, r_rec, dev):
+    """One launch of rp_coproc_step over the step's inputs on the card cut
+    into ``n_shards`` blocks, the C entry point called directly (no
+    wrapper, not counted): (fn, (ok, out, out_len, keep, tally))."""
+    import ctypes
+
+    import torch
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.ops.crc32c_device import kernel_tables_on
+
+    p = dev_in[0].shape[0] // n_shards
+    b, n, g = dev_in[0].shape[1], dev_in[3].shape[1], dev_in[5].shape[1]
+    ok = torch.empty(n_shards * p * b, dtype=torch.bool, device=dev)
+    out = torch.empty((n_shards * p * n, prog.r_out), dtype=torch.uint8, device=dev)
+    out_len = torch.empty(n_shards * p * n, dtype=torch.int32, device=dev)
+    keep = torch.empty(n_shards * p * n, dtype=torch.bool, device=dev)
+    tally = torch.empty(g, dtype=torch.int32, device=dev)
+    table = (ctypes.c_void_p * (6 * n_shards))(
+        *[a[d * p:(d + 1) * p].data_ptr() for d in range(n_shards) for a in dev_in])
+    desc, pats = prog.on(dev)
+    argv = (table, n_shards, p * b, r_batch, kernel_tables_on(dev).data_ptr(), ok.data_ptr(),
+            p * n, r_rec, out.data_ptr(), out_len.data_ptr(), keep.data_ptr(), prog.r_out,
+            desc.data_ptr(), prog.n_filters, prog.mapper, prog.n_fields, pats.data_ptr(), p, g,
+            tally.data_ptr(), kernels.stream_handle(dev))
+    fn = kernels.COPROC_STEP.fn()
+
+    def run():
+        if fn(*argv) != 0:
+            fail("rp_coproc_step refused its launch")
+
+    return run, (ok, out, out_len, keep, tally)
+
+
 def phase_engine_mesh(dev, mesh, engine_run) -> dict:
     from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.coproc.column_plan import block_chunks, plan_spec
     from redpanda_tpu_torch.coproc.engine import TorchEngine
+    from redpanda_tpu_torch.parallel.mesh import card_groups
 
     spec = columnar_spec()
     eng = TorchEngine(device=dev, mesh=mesh, mesh_probe=False, row_stride=ROW_STRIDE)
@@ -1129,6 +1215,12 @@ def phase_engine_mesh(dev, mesh, engine_run) -> dict:
     launches = path_launches("engine mesh lane", kernels.PREDICATE_STACKED)
     if kernels.PREDICATE.launches:
         fail("the single-device predicate ran on the pinned mesh lane")
+    n_mesh = eng.stats()["n_mesh_launches"]  # both workloads since the reset
+    n_cols = len(plan_spec(spec).zero_device_inputs(8))  # column arrays a block reads
+    chunks = sum(len(block_chunks(len(shards), n_cols)) for _, shards in card_groups(mesh.devices))
+    if launches["predicate_stacked"] != n_mesh * chunks:
+        fail(f"mesh lane: {launches['predicate_stacked']} stacked predicate launches for "
+             f"{n_mesh} mesh launches of {chunks} card chunk(s) each")
     eng.shutdown()
     m = st["mesh"]
     m["rows_per_device"] = [a - b for a, b in zip(m["rows_per_device"], warm_rows)]
@@ -1142,8 +1234,12 @@ def phase_engine_mesh(dev, mesh, engine_run) -> dict:
         f"rows_per_device {m['rows_per_device']}; launches {launches}")
     busy = (st.get("t_dev_h2d", 0) + st.get("t_dev_kernel", 0) + st.get("t_dev_d2h", 0)) \
         * rates["bench"] / (TICKS * P)
-    log(f"engine mesh lane bench stages: {json.dumps(stages)}; shard streams busy {busy:.2%} "
-        "of the wall (sum of CUDA-event intervals over the four streams)")
+    log(f"engine mesh lane bench stages: {json.dumps(stages)}; streams busy {busy:.2%} "
+        "of the wall (sum of CUDA-event intervals over the cards' streams)")
+    log(f"engine t_dispatch over the bench's {TICKS} ticks: mesh lane "
+        f"{st.get('t_dispatch', 0):.6f} s "
+        f"({launches['predicate_stacked']} stacked predicate launches for {n_mesh} mesh launches, "
+        f"one per card chunk), single lane {engine_run['dispatch']['columnar']:.6f} s (phase 3)")
     probing = TorchEngine(device=dev, mesh=mesh, mesh_probe=True, row_stride=ROW_STRIDE)
     probing.enable_coprocessors([(1, spec.to_json(), ("bench",))])
     replies, _ = run_stream(probing, engine_run["work"]["bench"], GROUP)
@@ -1199,12 +1295,9 @@ def phase_dryrun(dev) -> dict:
 
     kernels.reset_launches()  # dryrun_multichip starts here
     entry.dryrun_multichip(MESH_SHARDS, devices=[dev] * MESH_SHARDS)
-    launches = path_launches("dryrun_multichip", kernels.PREDICATE_STACKED,
-                             kernels.CRC32C_VALIDATE, kernels.PAYLOAD_TRANSFORM,
-                             kernels.VOTE_TALLY)
-    launches["coproc_step"] = kernels.COPROC_STEP.launches
-    if not launches["coproc_step"]:
-        fail("dryrun_multichip did not run the coproc step on the card")
+    launches = path_launches("dryrun_multichip", kernels.PREDICATE_STACKED, kernels.COPROC_STEP)
+    if launches["coproc_step"] != 1 or launches["predicate_stacked"] != 1:
+        fail(f"dryrun_multichip on one card: {launches}, want one launch of each")
     log(f"dryrun_multichip({MESH_SHARDS}) on the virtual mesh: its asserts held; launches "
         f"{launches}")
     return launches
@@ -1254,10 +1347,10 @@ def main() -> int:
     launches["predicate_stacked"] = engine_launches["predicate_stacked"]
     launches["crc32c_vote"] = raft_launches["crc32c_vote"]
     launches["crc32c_sharded"] = mesh_launches["crc32c_sharded"]
-    launches["vote_tally"] = raft_launches["vote_tally"] + mesh_launches["vote_tally"]
+    launches["vote_tally"] = raft_launches["vote_tally"]
     launches["coproc_step"] = mesh_launches["coproc_step"] + dry_launches["coproc_step"]
     line = []
-    for k in (*kernels.KERNELS, kernels.COPROC_STEP):
+    for k in kernels.KERNELS:
         m = measured[k.name]
         row = {
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
@@ -1265,8 +1358,8 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m.get("library_ms"), "parity": m["parity"],
         }
-        if isinstance(k, kernels.Step):
-            row["kernels"] = [p.name for p in k.parts]
+        if "launch_ms" in m:
+            row["launch_ms"] = m["launch_ms"]
         line.append(row)
     log(json.dumps({"kernels": line}))
     smi = subprocess.run(

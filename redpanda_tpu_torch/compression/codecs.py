@@ -1,9 +1,10 @@
 """Individual codec implementations.
 
 - gzip: stdlib zlib (parity with compression/internal/gzip_compressor).
-- zstd at level 3: the `zstandard` package when it imports, else the system
-  libzstd through ctypes (ZSTD_compress / the streaming decompressor), so
-  a host without the package still reads and writes zstd batches.
+- zstd at level 3: the `zstandard` package when it imports (one context
+  per thread), else the system libzstd through ctypes (ZSTD_compress / the
+  streaming decompressor), so a host without the package still reads and
+  writes zstd batches.
 - lz4: LZ4 *frame* format via ctypes on the system liblz4
   (parity with compression/internal/lz4_frame_compressor).
 - snappy: xerial/java-framed snappy via ctypes on the system libsnappy
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import ctypes.util
 import struct
+import threading
 import zlib
 
 try:
@@ -36,8 +38,9 @@ def gzip_uncompress(data: bytes) -> bytes:
 
 # ------------------------------------------------------------------ zstd
 ZSTD_LEVEL = 3
-_zc = None
-_zd = None
+# one compressor and decompressor per thread: a zstandard context may not
+# be used by two threads at once
+_zstd_local = threading.local()
 
 
 class _ZstdInBuffer(ctypes.Structure):
@@ -93,12 +96,13 @@ def zstd_available() -> bool:
 
 
 def _zstd_ctx():
-    global _zc, _zd
-    if _zc is None:
-        # per-process reusable contexts (parity with stream_zstd workspaces)
-        _zc = zstandard.ZstdCompressor(level=ZSTD_LEVEL)
-        _zd = zstandard.ZstdDecompressor()
-    return _zc, _zd
+    """This thread's reusable (compressor, decompressor) (parity with the
+    stream_zstd workspaces, one per thread)."""
+    ctx = getattr(_zstd_local, "ctx", None)
+    if ctx is None:
+        ctx = _zstd_local.ctx = (zstandard.ZstdCompressor(level=ZSTD_LEVEL),
+                                 zstandard.ZstdDecompressor())
+    return ctx
 
 
 def zstd_compress(data: bytes) -> bytes:

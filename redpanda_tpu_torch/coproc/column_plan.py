@@ -13,7 +13,9 @@
 
 `plan_spec` is the single decision point. A columnar plan compiles its
 expression tree, once, into the flat postfix program the predicate kernel
-(csrc/predicate.cu) interprets; ``predicate`` is that kernel's wrapper, and
+(csrc/predicate.cu) interprets over a table of column blocks;
+``predicate_blocks`` is that kernel's wrapper (``predicate`` its one-block
+case, ``predicate_stacked`` the mesh's one launch per card), and
 ``predicate_plain`` is the same function in plain PyTorch (the JAX
 package's ``_build_expr`` / ``_contains`` / ``_packbits``). Extraction and
 assembly are the JAX package's, over the port's own binding of the same
@@ -42,7 +44,7 @@ from redpanda_tpu_torch.ops.transforms import (
     _MapUppercase,
     project_out_width,
 )
-from redpanda_tpu_torch.parallel.mesh import Sharded, shard_to_mesh
+from redpanda_tpu_torch.parallel.mesh import Sharded, card_groups, local_blocks, on_device
 
 _INT9 = 999_999_999  # v1 projection rule: ints limited to 9 digits
 
@@ -94,7 +96,8 @@ class FindCache:
 # ------------------------------------------------------------------ program
 OP_EXISTS, OP_STR_EQ, OP_CONTAINS, OP_BOOL, OP_NULL, OP_NUM, OP_AND, OP_OR, OP_NOT = range(1, 10)
 _CMP = {"eq": 0, "ne": 1, "lt": 2, "le": 3, "gt": 4, "ge": 5}
-MAX_COL_ARRAYS = 64  # csrc/predicate.cu kMaxCols: pointers passed by value
+MAX_COL_ARRAYS = 64  # csrc/predicate.cu kMaxCols: column arrays a block reads
+MAX_TABLE_PTRS = 480  # csrc/predicate.cu kMaxPtrs: the block table a launch takes by value
 
 
 class PredicateProgram:
@@ -187,6 +190,16 @@ def compile_predicate(expr, dev_cols: list[DevCol]) -> PredicateProgram:
     )
 
 
+def block_chunks(n_blocks: int, n_cols: int) -> list[tuple[int, int]]:
+    """The launches of the predicate kernel over ``n_blocks`` blocks of
+    ``n_cols`` column arrays each: [lo, hi) runs of at most
+    ``MAX_TABLE_PTRS // n_cols`` blocks, the most its table holds."""
+    if not 1 <= n_cols <= MAX_COL_ARRAYS:
+        raise ValueError(f"a block reads 1 to {MAX_COL_ARRAYS} column arrays, not {n_cols}")
+    cap = MAX_TABLE_PTRS // n_cols
+    return [(lo, min(lo + cap, n_blocks)) for lo in range(0, n_blocks, cap)]
+
+
 # ------------------------------------------------------------------ plans
 @dataclass
 class ColumnarPlan:
@@ -196,12 +209,22 @@ class ColumnarPlan:
     r_out: int
     passthrough: bool  # no projection: output = input value bytes
     program: PredicateProgram = dc_field(init=False, repr=False)
+    _kinds: list = dc_field(init=False, repr=False)
 
     mode = "columnar"
 
     def __post_init__(self):
         # compiled once per plan, at enable time: a launch only binds columns
         self.program = compile_predicate(self.spec.where, self.dev_cols)
+        # (dtype, byte width or None) of each input array, in _bind_slots order
+        self._kinds = []
+        for c in self.dev_cols:
+            if c.kind == "str":
+                self._kinds += [(torch.uint8, c.w), (torch.int32, None)]
+            elif c.kind == "num":
+                self._kinds += [(torch.float32, None), (torch.int32, None), (torch.uint8, None)]
+            else:
+                self._kinds.append((torch.uint8, None))
 
     def flat_paths(self) -> list[str]:
         """Distinct TOP-LEVEL (single-segment) paths the plan references;
@@ -235,50 +258,91 @@ class ColumnarPlan:
 
     # ------------------------------------------------------------ predicate
     def predicate(self, arrays: list[torch.Tensor], kernel=kernels.PREDICATE) -> torch.Tensor:
-        """The predicate kernel's wrapper: the ordered column tensors ->
+        """The predicate over one block: the ordered column tensors ->
         packed keep bits uint8 [n_pad/8], MSB-first. CPU tensors run
-        ``predicate_plain``; CUDA tensors launch the kernel on the current
-        stream, counted under ``kernel`` (the mesh's per-shard launches
-        count as ``kernels.PREDICATE_STACKED``)."""
-        n_pad = self._check_arrays(arrays)
-        device = arrays[0].device
-        if device.type == "cpu":
+        ``predicate_plain``; CUDA tensors are ``predicate_blocks`` over the
+        one block, counted under ``kernel``."""
+        if arrays and arrays[0].device.type == "cpu":
+            self._check_arrays(arrays)
             return predicate_plain(self, arrays)
+        return self.predicate_blocks([arrays], kernel)[0]
+
+    def predicate_blocks(self, blocks, kernel=kernels.PREDICATE_STACKED) -> torch.Tensor:
+        """The predicate kernel's wrapper: a list of blocks, each the
+        ordered column tensors of ``n_pad`` rows, all on one device ->
+        packed keep bits uint8 [len(blocks), n_pad/8]; row b is block b's
+        bits, as ``predicate`` gives them. CUDA tensors launch the kernel on
+        the current stream once per chunk of ``block_chunks`` (the block
+        table it takes by value), counted under ``kernel``; CPU blocks run
+        ``predicate`` block by block."""
+        blocks = [list(b) for b in blocks]
+        if not blocks:
+            raise ValueError("predicate_blocks takes at least one block")
+        n_pad = self._check_arrays(blocks[0])
+        device = blocks[0][0].device
+        for b in blocks[1:]:
+            if self._check_arrays(b) != n_pad or b[0].device != device:
+                raise ValueError("predicate blocks must share one row count and device")
+        if device.type == "cpu":
+            return torch.stack([self.predicate(b, kernel) for b in blocks])
         if device.type != "cuda":
             raise ValueError(f"unsupported device {device}")
+        return self._launch_table([[a.data_ptr() for a in b] for b in blocks], n_pad, device,
+                                  kernel)
+
+    def _launch_table(self, table: list[list[int]], n_pad: int, device, kernel) -> torch.Tensor:
+        """The kernel launches over checked blocks, given as the data
+        pointers of each block's column arrays on ``device``: uint8
+        [len(table), n_pad/8], one launch per ``block_chunks`` entry on the
+        current stream."""
         prog = self.program
         code, needles = prog.on(device)
-        out = torch.empty(n_pad // 8, dtype=torch.uint8, device=device)
+        n_cols = len(table[0])
+        out = torch.empty((len(table), n_pad // 8), dtype=torch.uint8, device=device)
         words = (prog.depth + 63) // 64 - 1
-        scratch = (
-            torch.empty((words, n_pad), dtype=torch.int64, device=device) if words > 0 else None
-        )
-        ptrs = (ctypes.c_void_p * len(arrays))(*[a.data_ptr() for a in arrays])
-        kernel.launch(
-            ptrs, len(arrays), code.data_ptr(), code.shape[0], needles.data_ptr(), n_pad,
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            kernels.stream_handle(device),
-        )
+        scratch = (torch.empty(words * len(table) * n_pad, dtype=torch.int64, device=device)
+                   if words > 0 else None)
+        stream = kernels.stream_handle(device)
+        for lo, hi in block_chunks(len(table), n_cols):
+            ptrs = (ctypes.c_void_p * ((hi - lo) * n_cols))(*[p for b in table[lo:hi] for p in b])
+            kernel.launch(
+                ptrs, hi - lo, n_cols, code.data_ptr(), code.shape[0], needles.data_ptr(), n_pad,
+                None if scratch is None else scratch[words * lo * n_pad :].data_ptr(),
+                out[lo].data_ptr(), stream,
+            )
         return out
 
     def predicate_stacked(self, mesh, shard_arrays):
         """The stacked predicate (K2): every column a per-shard stack
-        [D, n_pad, ...] (numpy, or ``Sharded`` from ``shard_to_mesh``), each
-        shard's [n_pad] block evaluated by one launch of the predicate kernel
-        on its device and stream -> packed keep bits [D, n_pad/8] as a
-        ``Sharded`` array. Block d equals ``predicate`` over shard d's rows
-        alone: the bits pack within a block and n_pad % 8 == 0."""
-        args = shard_to_mesh(mesh, *shard_arrays)
-        args = args if isinstance(args, tuple) else (args,)
-        for a in args:
-            if a.shape[0] != mesh.size:
-                raise ValueError(f"stack {a.shape} has no block per shard of {mesh}")
-        bits = []
-        for d in range(mesh.size):
-            with mesh.shard(d):
-                blocks = [a.blocks[d][0] for a in args]
-                bits.append(self.predicate(blocks, kernels.PREDICATE_STACKED)[None])
-        mesh.join(*bits)
+        [D, n_pad, ...] (numpy, a tensor, or ``Sharded``) -> packed keep
+        bits [D, n_pad/8] as a ``Sharded`` array whose blocks are views of
+        one result per card. Host stacks are placed with ``local_blocks``
+        (one copy per card, on its current stream); each shard's [1, n_pad,
+        ...] blocks are checked, and a card's shards are then one
+        ``predicate_blocks`` launch per chunk there, its table made from the
+        blocks' pointers (no view per block). Block d equals ``predicate``
+        over shard d's rows alone: the bits pack within a block and
+        n_pad % 8 == 0."""
+        args = [local_blocks(mesh, a) for a in shard_arrays]
+        rows = {self._check_arrays([a.blocks[d] for a in args], lead=(1,))
+                for d in range(mesh.size)}
+        if len(rows) != 1:
+            raise ValueError(f"stacks of {sorted(rows)} rows: one row count per mesh")
+        n_pad = rows.pop()
+        bits: list = [None] * mesh.size
+        for dev, shards in card_groups(mesh.devices):
+            if dev.type == "cuda":
+                if any(args[0].blocks[d].device != dev for d in shards):
+                    raise ValueError(f"a shard block of {mesh} is not on its device")
+                with on_device(dev):
+                    out = self._launch_table(
+                        [[a.blocks[d].data_ptr() for a in args] for d in shards], n_pad, dev,
+                        kernels.PREDICATE_STACKED)
+            else:
+                out = self.predicate_blocks([[a.blocks[d][0] for a in args] for d in shards],
+                                            kernels.PREDICATE_STACKED)
+            for i, d in enumerate(shards):
+                bits[d] = out[i : i + 1]
         return Sharded(mesh, bits)
 
     def zero_device_inputs(self, n_pad: int) -> list[np.ndarray]:
@@ -297,24 +361,22 @@ class ColumnarPlan:
                 out.append(np.zeros(n_pad, np.uint8))
         return out
 
-    def _check_arrays(self, arrays) -> int:
-        kinds = []
-        for c in self.dev_cols:
-            if c.kind == "str":
-                kinds += [(torch.uint8, c.w), (torch.int32, None)]
-            elif c.kind == "num":
-                kinds += [(torch.float32, None), (torch.int32, None), (torch.uint8, None)]
-            else:
-                kinds.append((torch.uint8, None))
+    def _check_arrays(self, arrays, lead: tuple = ()) -> int:
+        """The row count of the ordered column arrays, each of shape
+        (*lead, n_pad[, w]), contiguous, of its kind's dtype and on one
+        device; raises ValueError otherwise."""
+        kinds = self._kinds
         if len(arrays) != len(kinds) or not arrays:
             raise ValueError(f"predicate takes {len(kinds)} column arrays, got {len(arrays)}")
-        n_pad = arrays[0].shape[0]
+        if arrays[0].dim() <= len(lead):
+            raise ValueError(f"column {tuple(arrays[0].shape)} has no row axis after {lead}")
+        n_pad = arrays[0].shape[len(lead)]
         if n_pad % 8:
             raise ValueError(f"row count {n_pad} is not a multiple of 8")
         device = arrays[0].device
         for a, (dtype, w) in zip(arrays, kinds):
-            shape = (n_pad,) if w is None else (n_pad, w)
-            if a.dtype != dtype or tuple(a.shape) != shape or not a.is_contiguous():
+            shape = (*lead, n_pad) if w is None else (*lead, n_pad, w)
+            if a.dtype != dtype or a.shape != shape or not a.is_contiguous():
                 raise ValueError(
                     f"column {tuple(a.shape)} {a.dtype}: expected contiguous {shape} {dtype}"
                 )

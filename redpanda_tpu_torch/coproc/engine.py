@@ -27,11 +27,11 @@ With a partition mesh (``mesh=`` a ``PartitionMesh``, or ``mesh_devices=n``
 cards) columnar launches take the mesh lane (coproc/meshrunner.py): the
 launch's records are cut into per-device shards by the host pool's range
 shard over its batches, each shard's predicate columns are padded to one
-common row bucket, and each shard runs the stacked predicate (K2) on its
-own device and stream, with its own pinned copies and end event. A launch
-of one batch cannot be range-sharded; on a mesh pinned by
-``mesh_probe=False`` it runs as D equal row blocks of the padded launch
-through the same launcher (the JAX engine's ``mesh=`` lane). The measured
+common row bucket, and each card runs the stacked predicate (K2) over its
+shards' blocks in one launch, with one pinned copy per column and one end
+event per card. A launch of one batch cannot be range-sharded; on a mesh
+pinned by ``mesh_probe=False`` it runs as D equal row blocks of the padded
+launch through the same launcher (the JAX engine's ``mesh=`` lane). The measured
 calibration may choose the single device; a failing shard launch raises
 through the same dispatch boundary as a failing single-device launch.
 
@@ -57,12 +57,12 @@ from redpanda_tpu_torch import kernels
 from redpanda_tpu_torch.coproc import meshrunner
 from redpanda_tpu_torch.coproc.column_plan import ColumnarPlan, PayloadPlan, plan_spec
 from redpanda_tpu_torch.device import resolve_device
-from redpanda_tpu_torch.hashing.crc32c import crc32c
+from redpanda_tpu_torch.hashing.xx import xxhash64
 from redpanda_tpu_torch.models.fundamental import NTP
 from redpanda_tpu_torch.models.record import Compression, RecordBatch
 from redpanda_tpu_torch.ops.pipeline import IN_META, run_packed, unpack_result
 from redpanda_tpu_torch.ops.transforms import TransformSpec, compile_transform
-from redpanda_tpu_torch.parallel.mesh import PartitionMesh, partition_mesh
+from redpanda_tpu_torch.parallel.mesh import PartitionMesh, card_groups, partition_mesh
 
 logger = logging.getLogger("rptorch.coproc.engine")
 
@@ -92,7 +92,7 @@ class ScriptHandle:
     spec: TransformSpec
     input_topics: tuple[str, ...]
     policy: ErrorPolicy = ErrorPolicy.skip_on_failure
-    checksum: int = 0  # CRC-32C of the deployed spec JSON
+    checksum: int = 0  # xxHash64 of the deployed spec JSON, as the reference's
 
 
 @dataclass
@@ -135,7 +135,7 @@ _PROGRAMMING_ERRORS = (AssertionError, NameError, UnboundLocalError)
 
 class _Pending:
     """One device result in flight: the pinned host tensor it lands in, for
-    each stream it runs on (one, or one per mesh shard) four timing events
+    each stream it runs on (one, or one per card of the mesh) four timing events
     (start, H2D done, kernel done, D2H done), and the tensors the streams
     still read or write."""
 
@@ -400,9 +400,8 @@ class TorchEngine:
                 self._note_failure("enable", exc)
                 out.append(EnableResponseCode.internal_error)
                 continue
-            raw = spec_json.encode() if isinstance(spec_json, str) else bytes(spec_json)
             self._handles[script_id] = ScriptHandle(
-                script_id, spec, tuple(topics), policy, checksum=crc32c(raw)
+                script_id, spec, tuple(topics), policy, checksum=xxhash64(spec_json)
             )
             out.append(EnableResponseCode.success)
         return out
@@ -423,6 +422,11 @@ class TorchEngine:
         """Returns the number of registered scripts (liveness probe)."""
         return len(self._handles)
 
+    @property
+    def scripts(self) -> dict[int, ScriptHandle]:
+        """The registered scripts by id (a copy of the table)."""
+        return dict(self._handles)
+
     def shutdown(self) -> None:
         """Wait for every launch still on the engine's streams."""
         if self._stream is not None:
@@ -435,9 +439,9 @@ class TorchEngine:
     # ------------------------------------------------------------ metrics
     def stats(self) -> dict:
         """Per-stage wall seconds (``t_*``; ``t_dev_*`` are device seconds
-        from CUDA events, summed over the mesh's shard streams on the mesh
-        lane; ``t_mesh_ladder`` cuts a launch's columns into the shards'
-        stacks), counts (``n_*``, ``n_kernel_*`` per kernel,
+        from CUDA events, summed over the mesh's cards on the mesh lane;
+        ``t_mesh_ladder`` cuts a launch's columns into the shards' stacks),
+        counts (``n_*``, ``n_kernel_*`` per kernel,
         ``n_mesh_launches``), link bytes (``bytes_h2d``, ``bytes_d2h``)
         and, with a mesh, the meshrunner's ``mesh`` block (decision, probe,
         launches and rows per device of the range-shard lane)."""
@@ -620,9 +624,11 @@ class TorchEngine:
         return True
 
     def _run_mesh(self, plan: ColumnarPlan, stacks: list[np.ndarray], n_blk: int) -> _Pending:
-        """Per shard, on its device and stream: its block of every column
-        up from pinned memory, one stacked-predicate launch, its bits down
-        into row d of one pinned host result, and four timing events."""
+        """Per card, on its first shard's stream: one copy up from pinned
+        memory per column of the card's rows of the stacks, one launch of
+        the stacked predicate over the card's shard blocks, the bits down
+        into the card's rows of one pinned host result, and four timing
+        events."""
         mesh = self._meshrunner.mesh
         t0 = time.perf_counter()
         self._stat_add("n_kernel_predicate_stacked", mesh.size)
@@ -630,21 +636,28 @@ class TorchEngine:
                            pin_memory=mesh.type == "cuda")
         inputs = [torch.from_numpy(s) for s in stacks]
         if mesh.type != "cuda":
-            for d in range(mesh.size):
-                host[d] = plan.predicate([t[d] for t in inputs], kernels.PREDICATE_STACKED)
+            host[:] = plan.predicate_blocks([[t[d] for t in inputs] for d in range(mesh.size)],
+                                            kernels.PREDICATE_STACKED)
             self._stat("t_dispatch", t0)
             return _Pending(host)
         inputs = [t.pin_memory() for t in inputs]
         marks, refs = [], [inputs]
-        for d, dev in enumerate(mesh.devices):
-            with mesh.shard(d):
+        for dev, shards in card_groups(mesh.devices):
+            lo, hi = shards[0], shards[-1] + 1
+            rows = slice(lo, hi) if hi - lo == len(shards) else list(shards)  # list: a gather
+            with mesh.shard(lo):
                 m = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
                 m[0].record()
-                cols = [t[d].to(dev, non_blocking=True) for t in inputs]
+                cols = [t[rows].to(dev, non_blocking=True) for t in inputs]
                 m[1].record()
-                bits = plan.predicate(cols, kernels.PREDICATE_STACKED)
+                bits = plan.predicate_blocks([[c[i] for c in cols] for i in range(len(shards))],
+                                             kernels.PREDICATE_STACKED)
                 m[2].record()
-                host[d].copy_(bits, non_blocking=True)
+                if isinstance(rows, slice):
+                    host[rows].copy_(bits, non_blocking=True)
+                else:
+                    for i, d in enumerate(shards):
+                        host[d].copy_(bits[i], non_blocking=True)
                 m[3].record()
             marks.append(m)
             refs.append((cols, bits))

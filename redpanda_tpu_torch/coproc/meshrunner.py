@@ -9,14 +9,15 @@ a ``PartitionMesh`` (parallel/mesh.py):
   and ``stats()["mesh"]["rows_per_device"]``, equal the JAX engine's and
   the concatenated outputs are byte-identical to the single-device path;
 - the predicate runs as the stacked predicate (K2): one launch of the
-  predicate kernel per shard over its block of a common row bucket;
+  predicate kernel per card over its shards' blocks of a common row
+  bucket;
 - mesh-vs-single is a measured decision taken on the first representative
   launch (``PROBE_MIN_ROWS``): the same predicate over the same columns,
   once over the mesh and once on the engine's one device, and the mesh
   must win by ``PROBE_MARGIN``. The decision and the probe's times are in
   ``stats()``. On a virtual mesh (one card named several times) the mesh
-  does the single lane's work plus a launch per shard, so "single" is the
-  expected answer there.
+  does the single lane's work in one launch over padded blocks, so it
+  cannot win by the margin and "single" is the expected answer there.
 
 The governor journal of the JAX package is not ported yet; the probe's
 numbers are in ``stats()["probe"]``. The JAX package's

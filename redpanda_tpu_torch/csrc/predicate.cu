@@ -1,36 +1,50 @@
-// The columnar predicate (K1) on Hopper: a predicate interpreter.
+// The columnar predicate (K1) and the stacked predicate (K2) on Hopper: a
+// predicate interpreter over a table of column blocks.
 //
-// Replaces the JAX program redpanda_tpu/coproc/column_plan.py:213
+// Replaces the JAX programs redpanda_tpu/coproc/column_plan.py:213
 // (_compile_device_locked.predicate: _build_expr, _contains, _packbits, with
-// constants from _prepare_cmp_consts). The JAX package traces one XLA
-// program per deployed spec; deploys arrive over the wire at run time, so
-// this kernel compiles nothing per spec. At enable time the host turns the
-// expression tree into a flat postfix program (one 8-int instruction per
-// node: opcode, column slots, constants, needle offsets; see
-// coproc/column_plan.py compile_predicate) and keeps it on the device. Each
-// launch passes the column pointers by value.
+// constants from _prepare_cmp_consts) and :268 (_compile_stacked_locked
+// ._local: the same per device over stacks [D, n_pad, ...]). The JAX
+// package traces one XLA program per deployed spec; deploys arrive over the
+// wire at run time, so this kernel compiles nothing per spec. At enable time
+// the host turns the expression tree into a flat postfix program (one 8-int
+// instruction per node: opcode, column slots, constants, needle offsets; see
+// coproc/column_plan.py compile_predicate) and keeps it on the device.
+//
+// One entry point serves both programs: rp_predicate_blocks evaluates the
+// program over n_blocks blocks of n_pad rows, block b reading its column k
+// at table[b * n_cols + k], into one contiguous uint8 [n_blocks, n_pad / 8]
+// output. K1 is the one-block case; K2 is one launch per card over the
+// blocks of that card's mesh shards (coproc/column_plan.py
+// predicate_blocks). The table goes by value in the launch's parameters:
+// 480 pointers (3840 B, inside the classic 4 KB parameter space with the
+// other arguments), so a launch takes at most 480 / n_cols blocks and the
+// wrapper cuts a card's shards into chunks of that many.
 //
 // What bounds it on an H100: neither bytes nor operations. At the engine's
 // bench shape (32768 rows, one 5-byte string column) a launch reads about
 // 0.3 MB and writes 4 KB -- well under a microsecond at 3.35 TB/s -- so the
-// launch latency sets its time. The design keeps it one launch with no
-// host round trip: one thread per row walks the program (uniform across
-// the warp, so instruction reads broadcast) and evaluates it on a bit stack.
+// launch latency and the host's enqueue work around it set its time. The
+// design keeps it one launch per card with no host round trip: one thread
+// per row walks the program (uniform across the warp, so instruction reads
+// broadcast) and evaluates it on a bit stack; grid (ceil(n_pad / 256),
+// n_blocks), so a block's rows never share a warp with another block's.
 //
 // The bit stack lives in a 64-bit register: a push shifts the word left.
 // Trees deeper than 64 spill whole words to a global scratch of
-// [ceil(depth / 64) - 1, n_pad] words, so any depth the DSL can build works.
-// The keep bits pack with __ballot_sync: the ballot is LSB-first by lane and
-// _packbits is MSB-first, so each byte is bit-reversed before its store.
-// n_pad is a multiple of 8 but not always of 32: lanes past n_pad vote 0 and
-// store nothing.
+// [ceil(depth / 64) - 1, n_blocks * n_pad] words, so any depth the DSL can
+// build works. The keep bits pack with __ballot_sync: the ballot is
+// LSB-first by lane and _packbits is MSB-first, so each byte is
+// bit-reversed before its store. n_pad is a multiple of 8 but not always of
+// 32: lanes past n_pad vote 0 and store nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxCols = 64;
+constexpr int kMaxCols = 64;   // column arrays a block may read
+constexpr int kMaxPtrs = 480;  // the table's pointers: 3840 B of parameters
 constexpr int kInsn = 8;
 
 enum Op : int {
@@ -48,8 +62,8 @@ enum Op : int {
 // lattice flags of the numeric extractor (ops/exprs.py F_*)
 constexpr uint8_t F_PRESENT = 1, F_NUMBER = 2, F_INT_EXACT = 4, F_BOOL = 8, F_NULL = 16;
 
-struct Cols {
-  const void* p[kMaxCols];
+struct Table {
+  const void* p[kMaxPtrs];
 };
 
 template <typename T>
@@ -64,14 +78,17 @@ __device__ __forceinline__ bool cmp(int op, T a, T b) {
   }
 }
 
-__device__ __forceinline__ const uint8_t* u8(const Cols& c, int k) {
-  return static_cast<const uint8_t*>(c.p[k]);
+// Block b's column k is c[k] with c = &table.p[b * n_cols]: the table is
+// a __grid_constant__ parameter, so its address is taken without a copy.
+__device__ __forceinline__ const uint8_t* u8(const void* const* c, int k) {
+  return static_cast<const uint8_t*>(c[k]);
 }
-__device__ __forceinline__ const int32_t* i32(const Cols& c, int k) {
-  return static_cast<const int32_t*>(c.p[k]);
+__device__ __forceinline__ const int32_t* i32(const void* const* c, int k) {
+  return static_cast<const int32_t*>(c[k]);
 }
 
-__device__ bool eval_leaf(const Cols& c, const int* ins, const uint8_t* needles, long long row) {
+__device__ bool eval_leaf(const void* const* c, const int* ins, const uint8_t* needles,
+                          long long row) {
   switch (ins[0]) {
     case OP_EXISTS:
       return u8(c, ins[1])[row] != 0;
@@ -116,18 +133,24 @@ __device__ bool eval_leaf(const Cols& c, const int* ins, const uint8_t* needles,
       uint8_t fl = u8(c, ins[3])[row];
       if ((fl & F_NUMBER) == 0) return false;
       if (ins[6] && (fl & F_INT_EXACT)) return cmp<int32_t>(ins[4], i32(c, ins[2])[row], ins[7]);
-      const float* f = static_cast<const float*>(c.p[ins[1]]);
+      const float* f = static_cast<const float*>(c[ins[1]]);
       return cmp<float>(ins[4], f[row], __int_as_float(ins[5]));
     }
   }
 }
 
-__global__ void predicate_kernel(Cols cols, const int* __restrict__ code, int n_ops,
+__global__ void predicate_kernel(const __grid_constant__ Table table, int n_cols,
+                                 const int* __restrict__ code, int n_ops,
                                  const uint8_t* __restrict__ needles, int n_pad,
                                  unsigned long long* __restrict__ scratch,
                                  uint8_t* __restrict__ out) {
+  const int b = blockIdx.y;
+  const void* const* cols = &table.p[b * n_cols];
   const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = row < n_pad;
+  // this block's spill words: word w of its row at scratch[w * (n_blocks * n_pad) + row]
+  const size_t spill_stride = (size_t)gridDim.y * n_pad;
+  unsigned long long* spill = scratch + (size_t)b * n_pad + row;
   unsigned long long cur = 0;  // top word of the bit stack
   int sp = 0;                  // items on the stack
   if (valid) {
@@ -136,24 +159,24 @@ __global__ void predicate_kernel(Cols cols, const int* __restrict__ code, int n_
       int op = ins[0];
       bool bit;
       if (op == OP_AND || op == OP_OR || op == OP_NOT) {
-        bool b = cur & 1ull;
+        bool b1 = cur & 1ull;
         cur >>= 1;
         --sp;
-        if (sp > 0 && (sp & 63) == 0) cur = scratch[(size_t)((sp >> 6) - 1) * n_pad + row];
+        if (sp > 0 && (sp & 63) == 0) cur = spill[((sp >> 6) - 1) * spill_stride];
         if (op == OP_NOT) {
-          bit = !b;
+          bit = !b1;
         } else {
           bool a = cur & 1ull;
           cur >>= 1;
           --sp;
-          if (sp > 0 && (sp & 63) == 0) cur = scratch[(size_t)((sp >> 6) - 1) * n_pad + row];
-          bit = op == OP_AND ? (a && b) : (a || b);
+          if (sp > 0 && (sp & 63) == 0) cur = spill[((sp >> 6) - 1) * spill_stride];
+          bit = op == OP_AND ? (a && b1) : (a || b1);
         }
       } else {
         bit = eval_leaf(cols, ins, needles, row);
       }
       if (sp > 0 && (sp & 63) == 0) {
-        scratch[(size_t)((sp >> 6) - 1) * n_pad + row] = cur;
+        spill[((sp >> 6) - 1) * spill_stride] = cur;
         cur = 0;
       }
       cur = (cur << 1) | (bit ? 1ull : 0ull);
@@ -164,23 +187,30 @@ __global__ void predicate_kernel(Cols cols, const int* __restrict__ code, int n_
   int lane = threadIdx.x & 31;
   if (valid && (lane & 7) == 0) {
     unsigned byte = (ballot >> lane) & 0xffu;
-    out[row >> 3] = (uint8_t)(__brev(byte) >> 24);  // MSB-first, as _packbits
+    out[(size_t)b * (n_pad >> 3) + (row >> 3)] = (uint8_t)(__brev(byte) >> 24);  // MSB-first
   }
 }
 
 }  // namespace
 
-extern "C" int rp_predicate(const void* const* cols, int n_cols, const void* code, int n_ops,
-                            const void* needles, int n_pad, void* scratch, void* out,
-                            void* stream) {
-  if (n_cols > kMaxCols || n_pad % 8 != 0) return (int)cudaErrorInvalidValue;
+// The predicate over n_blocks blocks (1..480 / n_cols) of n_pad rows each:
+// `table` is a host array of n_blocks * n_cols device pointers, block b's
+// column arrays at [b * n_cols, (b + 1) * n_cols), copied into the launch's
+// parameters. out is uint8 [n_blocks, n_pad / 8]; scratch (words of
+// [ceil(depth / 64) - 1, n_blocks * n_pad]) may be null for depth <= 64.
+extern "C" int rp_predicate_blocks(const void* const* table, int n_blocks, int n_cols,
+                                   const void* code, int n_ops, const void* needles, int n_pad,
+                                   void* scratch, void* out, void* stream) {
+  if (n_blocks < 1 || n_cols < 1 || n_cols > kMaxCols || n_blocks * n_cols > kMaxPtrs ||
+      n_pad < 0 || n_pad % 8 != 0)
+    return (int)cudaErrorInvalidValue;
   if (n_pad == 0) return 0;
-  Cols c = {};
-  for (int k = 0; k < n_cols; ++k) c.p[k] = cols[k];
+  Table t = {};
+  for (int k = 0; k < n_blocks * n_cols; ++k) t.p[k] = table[k];
   const int threads = 256;
-  int blocks = (n_pad + threads - 1) / threads;
-  predicate_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      c, (const int*)code, n_ops, (const uint8_t*)needles, n_pad,
+  const dim3 grid((n_pad + threads - 1) / threads, n_blocks);
+  predicate_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      t, n_cols, (const int*)code, n_ops, (const uint8_t*)needles, n_pad,
       (unsigned long long*)scratch, (uint8_t*)out);
   return (int)cudaGetLastError();
 }

@@ -1,3 +1,4 @@
 from redpanda_tpu_torch.hashing.crc32c import Crc32c, crc32c, crc32c_extend, crc32c_many
+from redpanda_tpu_torch.hashing.xx import xxhash32, xxhash64
 
-__all__ = ["Crc32c", "crc32c", "crc32c_extend", "crc32c_many"]
+__all__ = ["Crc32c", "crc32c", "crc32c_extend", "crc32c_many", "xxhash32", "xxhash64"]

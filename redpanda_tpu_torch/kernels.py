@@ -1,11 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one CUDA C++ source under ``csrc/`` with a plain C entry
-point. It is compiled with ``nvcc`` for ``sm_90a`` into a shared library in
-the port's build directory at first use (or all at once, in parallel, with
-``build_all``) and loaded with ctypes: pointers and the stream travel as
-``c_void_p``, and the C function returns ``cudaGetLastError()`` so that a
-refused launch raises here instead of passing silently.
+point; device code that two kernels share lives in headers there
+(``*.cuh``). A source is compiled with ``nvcc`` for ``sm_90a`` (``-I csrc``)
+into a shared library in the port's build directory at first use (or all at
+once, in parallel, with ``build_all``), named by a hash of the source, every
+header it includes and the command line, and loaded with ctypes: pointers
+and the stream travel as ``c_void_p``, and the C function returns
+``cudaGetLastError()`` so that a refused launch raises here instead of
+passing silently.
 
 Every ``Kernel`` keeps a plain integer count of its launches; the wrappers
 add one where they launch, and nowhere else. Two ``Kernel`` rows may share
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import threading
 import time
@@ -45,6 +49,21 @@ def nvcc() -> str:
     return found
 
 
+def source_files(src: str) -> list[str]:
+    """``src`` and every header it includes with ``#include "..."`` from
+    ``csrc/``, transitively: the files whose bytes name its build."""
+    out, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in out:
+            continue
+        out.append(path)
+        with open(path) as f:
+            found = re.findall(r'^#include "([^"]+)"', f.read(), re.M)
+        todo += [os.path.join(CSRC, h) for h in found]
+    return out
+
+
 class Kernel:
     """One CUDA source, its C entry point's signature and its launch count."""
 
@@ -68,7 +87,8 @@ class Kernel:
                 src = os.path.join(CSRC, os.path.basename(self.source))
                 exe = nvcc()
                 self.path = cached_build(
-                    self.lib, [src], lambda out: [exe, *NVCC_FLAGS, "-o", out, src]
+                    self.lib, source_files(src),
+                    lambda out: [exe, *NVCC_FLAGS, "-I", CSRC, "-o", out, src],
                 )
                 fn = getattr(ctypes.CDLL(self.path), self.entry)
                 fn.restype = ctypes.c_int
@@ -94,14 +114,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
+# table (host array of n_blocks * n_cols device pointers), n_blocks, n_cols,
+# code, n_ops, needles, n_pad, scratch, out, stream
+_PREDICATE_ARGS = [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P]
+
 PREDICATE = Kernel(
     "predicate",
     "redpanda_tpu_torch/csrc/predicate.cu",
     "redpanda_tpu/coproc/column_plan.py:213",
-    "rp_predicate",
-    # cols (host array of device pointers), n_cols, code, n_ops, needles,
-    # n_pad, scratch, out, stream
-    [_P, _I, _P, _I, _P, _I, _P, _P, _P],
+    "rp_predicate_blocks",
+    _PREDICATE_ARGS,
 )
 
 PAYLOAD_TRANSFORM = Kernel(
@@ -155,13 +177,14 @@ CRC32C_SHARDED = Kernel(
     lib="crc32c",
 )
 
-# the predicate kernel launched once per mesh shard, counted apart
+# the same entry point launched once per card over the blocks of the card's
+# mesh shards (the stacked predicate), counted apart
 PREDICATE_STACKED = Kernel(
     "predicate_stacked",
     "redpanda_tpu_torch/csrc/predicate.cu",
     "redpanda_tpu/coproc/column_plan.py:268",
-    "rp_predicate",
-    PREDICATE.argtypes,
+    "rp_predicate_blocks",
+    _PREDICATE_ARGS,
     lib="predicate",
 )
 
@@ -184,32 +207,22 @@ LZ4_BLOCK = Kernel(
     [_P, _P, _I, _I, _P, _P, _P, _I, _P],
 )
 
-KERNELS = (
-    PREDICATE, PAYLOAD_TRANSFORM, CRC32C, CRC32C_VALIDATE, LZ4_BLOCK,
-    PREDICATE_STACKED, VOTE_TALLY, CRC32C_VOTE, CRC32C_SHARDED,
+# K10: the batch validator, the payload transform and the vote tally of a
+# card's mesh shards in one launch
+COPROC_STEP = Kernel(
+    "coproc_step",
+    "redpanda_tpu_torch/csrc/coproc_step.cu",
+    "redpanda_tpu/parallel/collectives.py:71",
+    "rp_coproc_step",
+    # table (host array of 6 * n_blocks device pointers), n_blocks, rows_b,
+    # r_batch, crc tables, ok, rows_r, r_rec, out, out_len, keep, r_out,
+    # desc, n_filters, mapper, n_fields, patterns, vote_rows, g, tally, stream
+    [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P],
 )
 
-
-class Step:
-    """A JAX program the port runs as launches of several kernel rows
-    (``parts``), not as a kernel of its own; ``launches`` counts the steps
-    that enqueued their kernels on a card."""
-
-    def __init__(self, name: str, source: str, replaces: str, parts: tuple[Kernel, ...]):
-        self.name = name
-        self.source = source
-        self.replaces = replaces
-        self.parts = parts
-        self.launches = 0
-
-
-# K10: per shard the batch validator and the payload transform, then the
-# tally once per card
-COPROC_STEP = Step(
-    "coproc_step",
-    "redpanda_tpu_torch/parallel/collectives.py",
-    "redpanda_tpu/parallel/collectives.py:71",
-    (CRC32C_VALIDATE, PAYLOAD_TRANSFORM, VOTE_TALLY),
+KERNELS = (
+    PREDICATE, PAYLOAD_TRANSFORM, CRC32C, CRC32C_VALIDATE, LZ4_BLOCK,
+    PREDICATE_STACKED, VOTE_TALLY, CRC32C_VOTE, CRC32C_SHARDED, COPROC_STEP,
 )
 
 
@@ -229,7 +242,7 @@ def build_all() -> dict[str, float]:
 
 
 def reset_launches() -> None:
-    for k in (*KERNELS, COPROC_STEP):
+    for k in KERNELS:
         k.launches = 0
 
 

@@ -75,6 +75,13 @@ def _tables_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
         return _on_device[device]
 
 
+def kernel_tables_on(device: torch.device) -> torch.Tensor:
+    """The CRC kernels' tables (``kernel_tables``) kept on ``device``: the
+    batch CRC kernel and the fused coproc step (csrc/coproc_step.cu) read
+    them."""
+    return _tables_on(device)[0]
+
+
 def _to_i32(crc: torch.Tensor) -> torch.Tensor:
     """uint32 values held in int64 -> their int32 bit patterns."""
     return torch.where(crc >= 1 << 31, crc - (1 << 32), crc).to(torch.int32)
@@ -130,7 +137,7 @@ def _launch(kernel, data, lengths, crc_out, claimed, ok_out, bad_out=None, seg: 
     n, r = data.shape
     if n == 0:
         return
-    tables = _tables_on(data.device)[0]
+    tables = kernel_tables_on(data.device)
     kernel.launch(
         data.data_ptr(), data.stride(0), lengths.data_ptr(), n, r, tables.data_ptr(),
         None if crc_out is None else crc_out.data_ptr(),

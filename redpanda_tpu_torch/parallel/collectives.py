@@ -2,9 +2,11 @@
 checks (K8, K9) and the full per-tick coproc step (K10).
 
 The JAX package runs each as one ``shard_map`` program over the mesh's
-'p' axis (parallel/collectives.py there). Here each is a host function that
-enqueues, for every shard on that shard's stream, the kernels of the
-shard's block, and then the one collective: the tally's sum across shards.
+'p' axis (parallel/collectives.py there), one program per device. Here the
+vote tally and the coproc step are one kernel launch per card over the
+blocks of that card's shards, on the caller's current stream of the card,
+and the sharded CRC checks one launch per shard on that shard's stream;
+then the one collective, the tally's sum across cards.
 
 - ``make_vote_aggregator(mesh)``: the vote tally (csrc/vote_tally.cu) in
   one launch per card, on the caller's current stream of that card, over
@@ -22,14 +24,18 @@ shard's block, and then the one collective: the tally's sum across shards.
   of the CRC kernel per shard (csrc/crc32c.cu, row ``crc32c_sharded``).
 - ``make_crc_vote_step(mesh, r)``: the same per shard (row
   ``crc32c_vote``), plus the vote tally: the raft follower plane's step.
-- ``make_sharded_coproc_step(mesh, spec_json, r_batch, r_rec)``: per shard
-  the batch validator (K6) and the payload transform (K3, unpacked), then
-  the vote tally as the aggregator computes it.
+- ``make_sharded_coproc_step(mesh, spec_json, r_batch, r_rec)``: the batch
+  validator (K6), the payload transform (K3, unpacked) and the vote tally
+  (K7) of a card's shards in one launch of the fused step kernel
+  (csrc/coproc_step.cu) per card (per 80 of its shards,
+  ``MAX_STEP_SHARDS``); the cards' tally partials are summed as the
+  aggregator sums them. Each output is one tensor per card, and each
+  shard's block a view of it.
 
 Inputs are global numpy arrays or tensors (split over the mesh with
 ``shard_to_mesh``, which also makes the shard streams wait for the
-caller's) or ``Sharded`` arrays; outputs sharded over 'p' are
-``Sharded`` and the replicated tally is one int32 tensor on
+caller's, or with ``local_blocks``) or ``Sharded`` arrays; outputs sharded
+over 'p' are ``Sharded`` and the replicated tally is one int32 tensor on
 ``mesh.devices[0]``. Each ``*_plain`` function is the same computation in
 plain PyTorch on whole tensors, built from the kernels' plain versions.
 On a CPU mesh every shard runs the plain versions.
@@ -37,24 +43,20 @@ On a CPU mesh every shard runs the plain versions.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
 
 from redpanda_tpu_torch import kernels
-from redpanda_tpu_torch.ops.crc32c_device import validate_plain, validate_rows, validate_segments
-from redpanda_tpu_torch.ops.transforms import (
-    TransformSpec,
-    compile_transform,
-    transform,
-    transform_plain,
-)
+from redpanda_tpu_torch.ops.crc32c_device import kernel_tables_on, validate_plain, validate_segments
+from redpanda_tpu_torch.ops.transforms import TransformSpec, compile_transform, transform_plain
 from redpanda_tpu_torch.parallel.mesh import (
     PartitionMesh,
     Sharded,
+    card_chunks,
     card_groups,
     local_blocks,
+    on_device,
     shard_to_mesh,
 )
 
@@ -120,42 +122,46 @@ def tally_chunks(devices) -> tuple[tuple[torch.device, tuple[int, ...]], ...]:
     """The tally's launches over a mesh: ``card_groups`` with each card's
     shards cut into runs of at most ``MAX_TALLY_BLOCKS``, one launch each.
     Chunk 0 is always ``devices[0]``'s."""
-    return tuple((dev, shards[i:i + MAX_TALLY_BLOCKS])
-                 for dev, shards in card_groups(devices)
-                 for i in range(0, len(shards), MAX_TALLY_BLOCKS))
+    return card_chunks(devices, MAX_TALLY_BLOCKS)
 
 
-def _on(dev: torch.device):
-    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+def _sum_chunks(mesh: PartitionMesh, chunks, g: int, launch) -> torch.Tensor:
+    """The psum over a mesh's chunks of per-card launches: ``launch(dev,
+    shards, out)`` enqueues one chunk's work on the current stream of
+    ``dev`` and returns its int32 [g] column sums (written into ``out``
+    when given). With one chunk its launch writes the tally. With several,
+    the chunks on ``devices[0]`` write rows of the stacked partials there
+    and every other card's partial is copied into its row (a
+    device-to-device ``copy_``, which runs after an event wait on the
+    destination's current stream and makes that stream wait for the copy),
+    then one tally launch sums the rows. Integer sums are exact, so the
+    result is the same in any order."""
+    global tally_copies
+    dev0 = mesh.devices[0]
+    with on_device(dev0):
+        if len(chunks) == 1:
+            return launch(*chunks[0], None)
+        stacked = torch.empty((len(chunks), g), dtype=torch.int32, device=dev0)
+        for row, (dev, shards) in enumerate(chunks):
+            if dev == dev0:
+                launch(dev, shards, stacked[row])
+                continue
+            with on_device(dev):
+                partial = launch(dev, shards, None)
+            stacked[row].copy_(partial)
+            tally_copies += 1
+        return vote_tally(stacked)
 
 
 def _tally(mesh: PartitionMesh, votes: Sharded) -> torch.Tensor:
     """The psum of every shard's column sums, one launch per chunk of a
     card's shards (``tally_chunks``) on the caller's current stream of that
-    card; the blocks must be ready there. With one chunk its launch writes
-    the tally. With several, the chunks on ``devices[0]`` write rows of the
-    stacked partials there and every other card's partial is copied into
-    its row (a device-to-device ``copy_``, which runs after an event wait
-    on the destination's current stream and makes that stream wait for the
-    copy), then one launch sums the rows."""
-    global tally_copies
-    chunks = tally_chunks(mesh.devices)
-    dev0 = mesh.devices[0]
-    with _on(dev0):
-        if len(chunks) == 1:
-            return vote_tally_blocks(votes.blocks)
-        stacked = torch.empty((len(chunks), votes.blocks[0].shape[1]), dtype=torch.int32,
-                              device=dev0)
-        for row, (dev, shards) in enumerate(chunks):
-            blocks = [votes.blocks[d] for d in shards]
-            if dev == dev0:
-                vote_tally_blocks(blocks, out=stacked[row])
-                continue
-            with _on(dev):
-                partial = vote_tally_blocks(blocks)
-            stacked[row].copy_(partial)
-            tally_copies += 1
-        return vote_tally(stacked)
+    card; the blocks must be ready there."""
+
+    def launch(dev, shards, out):
+        return vote_tally_blocks([votes.blocks[d] for d in shards], out=out)
+
+    return _sum_chunks(mesh, tally_chunks(mesh.devices), votes.blocks[0].shape[1], launch)
 
 
 def make_vote_aggregator(mesh: PartitionMesh):
@@ -259,37 +265,107 @@ def coproc_step_plain(prog, b_rows, b_lens, claimed, rec_rows, rec_lens, votes):
             vote_tally_plain(votes))
 
 
+MAX_STEP_SHARDS = 80  # csrc/coproc_step.cu: six pointers a shard, 480 in its table
+
+
+def _check_step_blocks(blocks, r_batch: int, r_rec: int) -> None:
+    """One shard's six blocks: batch rows u8 [p, B, r_batch], lengths and
+    claimed CRCs i32 [p, B], record rows u8 [p, N, r_rec], lengths i32
+    [p, N] and votes u8 [p, G], contiguous and on one device."""
+    br, bl, cl, rr, rl, v = blocks
+    _check_crc_blocks(br, bl, cl, r_batch)
+    p = br.shape[0]
+    if rr.dim() != 3 or rr.shape[0] != p or rr.shape[2] != r_rec:
+        raise ValueError(f"record rows must be [{p}, N, {r_rec}], got {tuple(rr.shape)}")
+    if tuple(rl.shape) != tuple(rr.shape[:2]):
+        raise ValueError("record lengths must be [P, N] like the record rows")
+    if v.dim() != 2 or v.shape[0] != p:
+        raise ValueError(f"votes must be [{p}, G], got {tuple(v.shape)}")
+    for t, dtype in zip(blocks, (torch.uint8, torch.int32, torch.int32, torch.uint8,
+                                 torch.int32, torch.uint8)):
+        if t.dtype != dtype or not t.is_contiguous() or t.device != br.device:
+            raise ValueError(f"step block {tuple(t.shape)} {t.dtype} on {t.device}: expected "
+                             f"a contiguous {dtype} block on {br.device}")
+
+
+def _step_plain_shards(mesh: PartitionMesh, prog, args, r_batch: int, r_rec: int):
+    """The step on a CPU mesh: the plain versions shard by shard, and the
+    tally as the aggregator sums it."""
+    p, b = args[0].blocks[0].shape[:2]
+    n = args[3].blocks[0].shape[1]
+    oks, outs, out_lens, keeps = [], [], [], []
+    for d in range(mesh.size):
+        br, bl, cl, rr, rl, _ = (a.blocks[d] for a in args)
+        oks.append(validate_plain(br.reshape(p * b, r_batch), bl.reshape(-1),
+                                  cl.reshape(-1)).reshape(p, b))
+        out, out_len, keep = transform_plain(prog, rr.reshape(p * n, r_rec), rl.reshape(-1))
+        outs.append(out.reshape(p, n, prog.r_out))
+        out_lens.append(out_len.reshape(p, n))
+        keeps.append(keep.reshape(p, n))
+    return oks, outs, out_lens, keeps, _tally(mesh, args[5])
+
+
+def _step_on_cards(mesh: PartitionMesh, prog, args, r_batch: int, r_rec: int):
+    """The fused step's launches over checked shard blocks: one output
+    tensor of each kind per card (the shards' blocks are views of it), one
+    launch per ``card_chunks`` entry on the current stream of its card, and
+    the partial tallies summed on ``devices[0]``. Returns the per-shard
+    (ok, out, out_len, keep) blocks and the tally."""
+    p, b = args[0].blocks[0].shape[:2]
+    n, g = args[3].blocks[0].shape[1], args[5].blocks[0].shape[1]
+    oks, outs, out_lens, keeps = ([None] * mesh.size for _ in range(4))
+    for dev, shards in card_groups(mesh.devices):
+        k = len(shards)
+        ok = torch.empty((k, p, b), dtype=torch.bool, device=dev)
+        out = torch.empty((k, p, n, prog.r_out), dtype=torch.uint8, device=dev)
+        out_len = torch.empty((k, p, n), dtype=torch.int32, device=dev)
+        keep = torch.empty((k, p, n), dtype=torch.bool, device=dev)
+        for i, d in enumerate(shards):
+            oks[d], outs[d], out_lens[d], keeps[d] = ok[i], out[i], out_len[i], keep[i]
+
+    def launch(dev, shards, partial):
+        if partial is None:
+            partial = torch.empty(g, dtype=torch.int32, device=dev)
+        table = (ctypes.c_void_p * (6 * len(shards)))(
+            *[a.blocks[d].data_ptr() for d in shards for a in args])
+        desc, pats = prog.on(dev)
+        first = shards[0]  # the chunk's outputs start at its first shard's views
+        kernels.COPROC_STEP.launch(
+            table, len(shards), p * b, r_batch, kernel_tables_on(dev).data_ptr(),
+            oks[first].data_ptr(), p * n, r_rec, outs[first].data_ptr(),
+            out_lens[first].data_ptr(), keeps[first].data_ptr(), prog.r_out, desc.data_ptr(),
+            prog.n_filters, prog.mapper, prog.n_fields, pats.data_ptr(), p, g,
+            partial.data_ptr(), kernels.stream_handle(dev),
+        )
+        return partial
+
+    tally = _sum_chunks(mesh, card_chunks(mesh.devices, MAX_STEP_SHARDS), g, launch)
+    return oks, outs, out_lens, keeps, tally
+
+
 def make_sharded_coproc_step(mesh: PartitionMesh, spec_json: str, r_batch: int, r_rec: int):
     """The full per-tick device program over the partition axis:
     fn(batch_rows u8 [P, B, r_batch], batch_lens i32 [P, B], claimed u32
     [P, B], rec_rows u8 [P, N, r_rec], rec_lens i32 [P, N], votes u8 [P, G])
     -> (ok [P, B], out [P, N, r_out], out_len [P, N], keep [P, N], tally [G]).
 
-    Per shard, on its stream: the batch validator (K6) over its batches
-    and the payload transform (K3; out_len unmasked, as the JAX package's
-    ``compile_transform`` returns it) over its records; then the vote tally
-    (K7) once, one launch per card on the current streams.
+    Per card, on its current stream: the inputs placed with one copy each
+    (``local_blocks``) and one launch of the fused step (K10) over the
+    card's shards -- the batch validator over their batches, the payload
+    transform over their records (out_len unmasked, as the JAX package's
+    ``compile_transform`` returns it) and the column sums of their votes --
+    then the cards' partial tallies summed on ``devices[0]``. On a CPU mesh
+    every shard runs the plain versions.
     """
-    prog = compile_transform(TransformSpec.from_json(spec_json), int(r_rec))
+    r_batch, r_rec = int(r_batch), int(r_rec)
+    prog = compile_transform(TransformSpec.from_json(spec_json), r_rec)
 
     def step(b_rows, b_lens, claimed, rec_rows, rec_lens, votes):
-        args = shard_to_mesh(mesh, b_rows, b_lens, claimed, rec_rows, rec_lens, votes)
-        oks, outs, out_lens, keeps = [], [], [], []
+        args = [local_blocks(mesh, a) for a in (b_rows, b_lens, claimed, rec_rows, rec_lens, votes)]
         for d in range(mesh.size):
-            br, bl, cl, rr, rl = (a.blocks[d] for a in args[:5])
-            p, b, _ = br.shape
-            n = rr.shape[1]
-            with mesh.shard(d):
-                ok = validate_rows(br.reshape(p * b, r_batch), bl.reshape(-1), cl.reshape(-1))
-                out, out_len, keep = transform(prog, rr.reshape(p * n, r_rec), rl.reshape(-1))
-            oks.append(ok.reshape(p, b))
-            outs.append(out.reshape(p, n, prog.r_out))
-            out_lens.append(out_len.reshape(p, n))
-            keeps.append(keep.reshape(p, n))
-        tally = _tally(mesh, args[5])  # on the current streams, after shard_to_mesh's join
-        if mesh.type == "cuda":
-            kernels.COPROC_STEP.launches += 1
-        mesh.join(*oks, *outs, *out_lens, *keeps)
+            _check_step_blocks([a.blocks[d] for a in args], r_batch, r_rec)
+        on_shards = _step_on_cards if mesh.type == "cuda" else _step_plain_shards
+        oks, outs, out_lens, keeps, tally = on_shards(mesh, prog, args, r_batch, r_rec)
         return (Sharded(mesh, oks), Sharded(mesh, outs), Sharded(mesh, out_lens),
                 Sharded(mesh, keeps), tally)
 

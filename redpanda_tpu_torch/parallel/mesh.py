@@ -5,24 +5,28 @@ The JAX package lays the partition axis of its data-plane arrays over a
 it from one Python process (parallel/mesh.py there). The port's mesh is the
 same thing: ``PartitionMesh`` is an ordered tuple of ``torch.device`` with
 one CUDA stream per shard, and shard d of an array is its d-th block on
-the leading axis, held on ``devices[d]``. Work for shard d is enqueued on
-shard d's stream. The one collective, the vote tally's sum, runs once per
-card over that card's shards (``card_groups``) on the caller's current
-stream, and copies the other cards' partials to ``devices[0]``
-(parallel/collectives.py).
+the leading axis, held on ``devices[d]``. The mesh programs run once per
+card, not once per shard: each card's shard blocks are placed with one copy
+(``local_blocks``) and read by one kernel launch through a table of block
+pointers, on the caller's current stream of that card (``card_groups``,
+``card_chunks``). The one collective, the vote tally's sum, adds the cards'
+partials on ``devices[0]`` (parallel/collectives.py). The sharded CRC checks
+(K8, K9) still enqueue each shard's launch on that shard's own CUDA stream.
 
 A mesh may name one card several times (``devices=[cuda:0] * 4``): a
 *virtual mesh*, the counterpart of the JAX package's virtual CPU devices.
-Its shards share one card's SMs and run on four streams of it, so it runs
-every mesh kernel and every copy, but measures nothing about scaling
-across cards. ``device="cpu"`` gives CPU shards, on which the kernels'
-plain versions run synchronously: the tests' stand-in.
+Its shards share one card (one launch of each per-card program over all
+four shards; K8 and K9 on four streams of it), so it runs every mesh kernel
+and every copy, but measures nothing about scaling across cards.
+``device="cpu"`` gives CPU shards, on which the kernels' plain versions run
+synchronously: the tests' stand-in.
 
 Every function of the mesh modules leaves its results ready on the
-caller's current stream of each device: the shard streams first wait for
-the caller's streams (``fork``), and the caller's streams wait for the
-shard streams at the end (``join``). Work that runs only on the caller's
-current streams (the vote tally over ``local_blocks``) needs neither.
+caller's current stream of each device. Work on the shard streams first
+waits for the caller's streams (``fork``), and the caller's streams wait for
+the shard streams at the end (``join``); work that runs only on the
+caller's current streams (the stacked predicate, the vote tally and the
+coproc step over ``local_blocks``) needs neither.
 """
 
 from __future__ import annotations
@@ -158,6 +162,22 @@ def card_groups(devices) -> tuple[tuple[torch.device, tuple[int, ...]], ...]:
     for d, dev in enumerate(devices):
         groups.setdefault(dev, []).append(d)
     return tuple((dev, tuple(shards)) for dev, shards in groups.items())
+
+
+def card_chunks(devices, cap: int) -> tuple[tuple[torch.device, tuple[int, ...]], ...]:
+    """``card_groups`` with each card's shards cut into runs of at most
+    ``cap``: the launches of a program whose table holds ``cap`` shards.
+    Chunk 0 is always ``devices[0]``'s."""
+    if cap < 1:
+        raise ValueError(f"a launch must take at least one shard, cap {cap}")
+    return tuple((dev, shards[i:i + cap])
+                 for dev, shards in card_groups(devices)
+                 for i in range(0, len(shards), cap))
+
+
+def on_device(dev: torch.device):
+    """``dev`` as the current CUDA device under it (nothing on the CPU)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def _as_tensor(a) -> torch.Tensor:

@@ -329,7 +329,7 @@ def _mesh_kernels_match_plain(mesh, dev):
     step = COL.make_sharded_coproc_step(mesh, spec.to_json(), rows.shape[2], rec.shape[2])
     before = kernels.COPROC_STEP.launches
     ok, out, out_len, keep, tally = step(rows, lens, claimed, rec, rec_lens, votes)
-    assert kernels.COPROC_STEP.launches == before + 1
+    assert kernels.COPROC_STEP.launches == before + cards  # one fused launch per card
     prog = T.compile_transform(spec, rec.shape[2])
     w = COL.coproc_step_plain(prog, *[_t(a, dev) for a in (rows, lens, claimed, rec, rec_lens, votes)])
     w_keep = w[3].cpu().numpy()
@@ -376,12 +376,142 @@ def test_stacked_predicate_matches_plain(card):
     stacked = [np.stack(c) for c in zip(*stacks)]
     before = kernels.PREDICATE_STACKED.launches
     got = np.asarray(plan.predicate_stacked(mesh, stacked))
-    assert kernels.PREDICATE_STACKED.launches == before + 4
+    assert kernels.PREDICATE_STACKED.launches == before + 1  # one launch for the one card
     from redpanda_tpu_torch.coproc.column_plan import predicate_stacked_plain
 
     want = predicate_stacked_plain(plan, [torch.from_numpy(a).to(card) for a in stacked])
     assert (got == want.cpu().numpy()).all()
     assert not got[1].any()
+
+
+def _pool_stacks(plan, rng, n_blocks, n_pad):
+    """Column stacks [n_blocks, n_pad, ...] of random documents (every
+    fourth block empty)."""
+    per = []
+    for b in range(n_blocks):
+        n = 0 if b % 4 == 1 else int(rng.integers(1, n_pad + 1))
+        if n == 0:
+            per.append(plan.zero_device_inputs(n_pad))
+            continue
+        vals = _docs(rng, n)
+        joined = b"".join(vals)
+        offsets = np.cumsum([0] + [len(v) for v in vals[:-1]]).astype(np.int64)
+        sizes = np.array([len(v) for v in vals], np.int32)
+        per.append(plan.extract_device_inputs(joined, offsets, sizes, n_pad))
+    return [np.stack(c) for c in zip(*per)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks,n_pad", [(1, 8), (4, 8192), (4, 8), (500, 8)])
+def test_predicate_blocks_match_plain(card, n_blocks, n_pad):
+    """One launch per chunk of the block table (500 blocks of two column
+    arrays: 240 + 240 + 20), each block equal to the plain version, also
+    for a tree deeper than one stack word (its spill words per block)."""
+    from redpanda_tpu_torch.coproc.column_plan import block_chunks, predicate_stacked_plain
+
+    rng = np.random.default_rng(n_blocks + n_pad)
+    deep = E.field("code") >= -600
+    for k in range(1, 70):  # depth 70: one spill word
+        deep = E.And(E.field("code") >= k - 600, deep) if k % 2 else E.Or(E.field("code") < k, deep)
+    for expr in (E.field("level") == "error", EXPRS[0], deep):
+        plan = plan_spec(T.where(expr))
+        stacks = [torch.from_numpy(a).to(card) for a in _pool_stacks(plan, rng, n_blocks, n_pad)]
+        before = kernels.PREDICATE_STACKED.launches
+        got = plan.predicate_blocks([[t[b] for t in stacks] for b in range(n_blocks)])
+        assert kernels.PREDICATE_STACKED.launches == before + len(
+            block_chunks(n_blocks, len(stacks)))
+        assert torch.equal(got, predicate_stacked_plain(plan, stacks))
+
+
+@pytest.mark.cuda
+def test_stacked_predicate_200_calls_on_fresh_columns(card):
+    """One launch per call on a virtual mesh, each result equal to the
+    plain version of columns made on the card just before the call: a
+    missing stream wait would read stale columns."""
+    from redpanda_tpu_torch.coproc.column_plan import predicate_stacked_plain
+    from redpanda_tpu_torch.parallel import partition_mesh
+
+    mesh = partition_mesh(devices=[card] * 4)
+    plan = plan_spec(T.where(EXPRS[0]))
+    pool = [torch.from_numpy(a).to(card).flatten(0, 1)
+            for a in _pool_stacks(plan, np.random.default_rng(43), 8, 256)]
+    gen = torch.Generator(device=card).manual_seed(9)
+    before = kernels.PREDICATE_STACKED.launches
+    for _ in range(200):
+        perm = torch.randperm(pool[0].shape[0], generator=gen, device=card)[: 4 * 256]
+        stacks = [c[perm].reshape(4, 256, *c.shape[1:]) for c in pool]
+        got = plan.predicate_stacked(mesh, stacks)
+        assert torch.equal(torch.cat(got.blocks), predicate_stacked_plain(plan, stacks))
+    assert kernels.PREDICATE_STACKED.launches == before + 200
+
+
+def _step_plain(step_inputs, prog, dev):
+    from redpanda_tpu_torch.parallel import collectives as COL
+
+    return COL.coproc_step_plain(prog, *[_t(a, dev) if isinstance(a, np.ndarray) else a
+                                         for a in step_inputs])
+
+
+def _assert_step_equal(got, want):
+    ok, out, out_len, keep, tally = (_host(g) for g in got)
+    w_ok, w_out, w_len, w_keep, w_tally = (w.cpu().numpy() for w in want)
+    assert (ok == w_ok).all() and (keep == w_keep).all() and (out_len == w_len).all()
+    assert (out[w_keep] == w_out[w_keep]).all() and (tally == w_tally).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["full", "n_pad_8"])
+def test_coproc_step_kernel_matches_plain(card, shape):
+    """The fused step at chip_smoke.py's full width (64 partitions x 4
+    batches of 16 KiB rows, 64 x 512 records of 1152 B, [64, 256] votes)
+    and at 8 records a shard, one launch a step on one card."""
+    from redpanda_tpu_torch.parallel import collectives as COL
+    from redpanda_tpu_torch.parallel import partition_mesh
+
+    mesh = partition_mesh(devices=[card] * 4)
+    rng = np.random.default_rng(47)
+    if shape == "full":
+        args = _mesh_inputs(rng, p=64, b=4, r=16384, n=512, r_rec=1152, g=256)
+    else:
+        args = _mesh_inputs(rng, p=4, b=3, r=100, n=8, r_rec=96, g=3)
+    r, r_rec = args[0].shape[2], args[3].shape[2]
+    spec = T.filter_field_eq("level", "error") | T.map_project(T.Int("code"), T.Str("msg", 48))
+    step = COL.make_sharded_coproc_step(mesh, spec.to_json(), r, r_rec)
+    dev_args = [_t(a, card) for a in args]
+    before = kernels.COPROC_STEP.launches, kernels.VOTE_TALLY.launches
+    got = step(*dev_args)
+    assert kernels.COPROC_STEP.launches == before[0] + 1
+    assert kernels.VOTE_TALLY.launches == before[1]  # the tally is in the fused launch
+    want = _step_plain(dev_args, T.compile_transform(spec, r_rec), card)
+    _assert_step_equal(got, want)
+    assert not want[0].all() and want[3].any() and not want[3].all()
+
+
+@pytest.mark.cuda
+def test_coproc_step_200_calls_on_fresh_inputs(card):
+    """200 steps, each on batch lengths, record rows and votes made on the
+    card just before it, each equal to the plain version."""
+    from redpanda_tpu_torch.parallel import collectives as COL
+    from redpanda_tpu_torch.parallel import partition_mesh
+
+    mesh = partition_mesh(devices=[card] * 4)
+    args = [_t(a, card) for a in _mesh_inputs(np.random.default_rng(53), p=8, b=3, r=512)]
+    spec = T.filter_field_eq("level", "error") | T.map_project(T.Int("code"), T.Str("msg", 16))
+    step = COL.make_sharded_coproc_step(mesh, spec.to_json(), 512, args[3].shape[2])
+    prog = T.compile_transform(spec, args[3].shape[2])
+    gen = torch.Generator(device=card).manual_seed(11)
+    before = kernels.COPROC_STEP.launches
+    for _ in range(200):
+        fresh = list(args)
+        fresh[1] = torch.randint(0, 513, args[1].shape, generator=gen, device=card,
+                                 dtype=torch.int32)
+        perm = torch.randperm(args[3].shape[0] * args[3].shape[1], generator=gen, device=card)
+        fresh[3] = args[3].flatten(0, 1)[perm].reshape(args[3].shape)
+        fresh[4] = args[4].flatten()[perm].reshape(args[4].shape)
+        fresh[5] = torch.randint(0, 2, args[5].shape, generator=gen, device=card,
+                                 dtype=torch.uint8)
+        _assert_step_equal(step(*fresh), _step_plain(fresh, prog, card))
+    assert kernels.COPROC_STEP.launches == before + 200
 
 
 @pytest.mark.cuda

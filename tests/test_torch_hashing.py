@@ -1,0 +1,65 @@
+"""xxHash in the PyTorch port against the ``xxhash`` package and the JAX package.
+
+The port's ``hashing/xx.py`` is plain Python (the machine with the card has
+no ``xxhash`` package); it must give the package's 64- and 32-bit digests
+for every length class of the algorithm (empty, under one stripe, whole
+stripes and tails, a long input) and for seeds at both ends of the range.
+The engine's script checksum is that xxHash64 of the spec JSON, as the
+reference engine stores it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import xxhash
+
+from redpanda_tpu.coproc.engine import TpuEngine
+from redpanda_tpu.ops.exprs import field
+from redpanda_tpu.ops.transforms import Int, Str, filter_field_eq, map_project, where
+from redpanda_tpu_torch.coproc.engine import TorchEngine
+from redpanda_tpu_torch.hashing import xx
+
+LENGTHS = [*range(65), 100, 1 << 20]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2**64 - 1])
+@pytest.mark.parametrize("bits", [64, 32])
+def test_xxhash_matches_the_xxhash_package(bits, seed):
+    ours = xx.xxhash64 if bits == 64 else xx.xxhash32
+    theirs = xxhash.xxh64_intdigest if bits == 64 else xxhash.xxh32_intdigest
+    rng = np.random.default_rng(bits + seed % 1000)
+    for n in LENGTHS:
+        data = rng.bytes(n)
+        assert ours(data, seed) == theirs(data, seed), (bits, seed, n)
+        assert ours(bytearray(data), seed) == theirs(data, seed)
+    assert ours("héllo, spec", seed) == theirs("héllo, spec".encode(), seed)
+    assert ours(b"abc") == theirs(b"abc")  # the default seed is 0
+
+
+SPECS = {
+    "columnar": where(field("level") == "error") | map_project(Int("code"), Str("msg", 32)),
+    "payload": filter_field_eq("level", "error") | map_project(Int("code"), Str("msg", 32)),
+}
+
+
+def test_script_checksums_match_reference():
+    ref = TpuEngine(row_stride=256, host_workers=0, host_pool_probe=False)
+    eng = TorchEngine(device="cpu", row_stride=256)
+    try:
+        scripts = [(sid, spec.to_json(), ("t",)) for sid, spec in enumerate(SPECS.values(), 1)]
+        scripts.append((3, SPECS["payload"].to_json().encode(), ("t",)))  # spec JSON as bytes
+        assert ref.enable_coprocessors(scripts) == [0, 0, 0]
+        assert eng.enable_coprocessors(scripts) == [0, 0, 0]
+        want, got = ref.scripts, eng.scripts
+        assert sorted(got) == sorted(want) == [1, 2, 3]
+        for sid, spec_json, _ in scripts:
+            assert got[sid].checksum == want[sid].checksum == xxhash.xxh64_intdigest(
+                spec_json.encode() if isinstance(spec_json, str) else spec_json)
+            assert got[sid].input_topics == want[sid].input_topics
+        got.clear()  # a copy: the engine's table is untouched
+        assert sorted(eng.scripts) == [1, 2, 3]
+        eng.disable_coprocessors([2])
+        assert sorted(eng.scripts) == [1, 3]
+    finally:
+        ref.shutdown()
