@@ -53,7 +53,13 @@ Phases, each of which exits non-zero on failure:
       time beside it), the sharded CRC check (K9) over [256, 4, 16384]
       (config 5's append: three claims wrong, a zero-length row, garbage
       past each length), the CRC + vote step (K8) over the same rows as
-      [4, 256, 16384] with [4, 256] votes, the stacked predicate (K2) over
+      [4, 256, 16384] with [4, 256] votes (one launch a call each, and no
+      vote_tally launch for K8, asserted; each call timed beside one launch
+      of its entry point alone, K9's also with the L2 cache flushed), both
+      on the edge set (64 rows of 16384, 8192 and 5000 bytes, split across
+      8, 4 and 2 warps, and of 100, one warp each and unaligned; lengths 0,
+      -3, r + 5 and on every span and round boundary) and K8 over 200
+      calls on inputs made on the card, the stacked predicate (K2) over
       the DOCS x EXPRS table cut into 4 shards with one empty and over the
       bench's 32768 rows range-sharded 4 ways (one launch a call per card
       chunk, asserted; the call timed beside one launch of its kernel
@@ -69,15 +75,17 @@ Phases, each of which exits non-zero on failure:
       t_dispatch beside the single lane's; then one engine with
       mesh_probe=True and its decision;
    c. the raft plane's mesh leg at config 5's shape
-      (RaftDevicePlane(mesh=..., probe=False).validate, 1024 regions) and
-      tally_votes over [4, 256], timed host to host;
+      (RaftDevicePlane(mesh=..., probe=False).validate, 1024 regions: one
+      crc32c_vote launch, asserted) and tally_votes over [4, 256], timed
+      host to host, and the mesh leg and the single-device leg timed in
+      turns on the same append (median of 5 each);
    d. redpanda_tpu_torch.entry.dryrun_multichip(4) on the virtual mesh.
 10. Print the kernels line, the card's name and power limit, and last the
     {"ok": true, "device": ...} line.
 
-Phases 3, 5-8 and 9b-9d, and the K9 and K10 runs of 9a, each set every
-launch count to 0 just before their path and fail if a kernel of that path
-was not launched in it.
+Phases 3, 5-8 and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
+every launch count to 0 just before their path and fail if a kernel of that
+path was not launched in it.
 
 Without a CUDA device it exits 1 before printing any result.
 """
@@ -925,7 +933,7 @@ def phase_mesh_kernels(dev, mesh) -> tuple[dict, dict]:
                          "parity": f"bit-identical over [{D}, {VOTE_GROUPS}] and [{D}, 1] votes "
                                    f"and over {n_calls} calls on fresh votes"}
 
-    # K9 and K8 over config 5's append
+    # K9 and K8 over config 5's append: one launch a call on the one card
     rows, lens, claimed = config5_rows(10)
     n, r = rows.shape
     want_bad_total = 3
@@ -936,49 +944,78 @@ def phase_mesh_kernels(dev, mesh) -> tuple[dict, dict]:
     kernels.reset_launches()  # the sharded CRC check's run starts here
     ok, bad = check(*p9)
     launches.update(path_launches("sharded CRC check", kernels.CRC32C_SHARDED))
+    if launches["crc32c_sharded"] != len(card_groups(mesh.devices)):
+        fail(f"sharded CRC check: {launches['crc32c_sharded']} launches, want one per card")
     w_ok, w_bad = COL.sharded_crc_plain(*p9)
     torch.cuda.synchronize()
     if not (equal(ok, w_ok) and equal(bad, w_bad)) or int(w_bad.sum()) != want_bad_total:
         fail("crc32c_sharded != plain over [256, 4, 16384]")
     valid = int(np.clip(lens, 0, r).sum())
     ms = cuda_ms(lambda: check(*p9), 50)
-    k = n // D  # one shard's block, one launch on the current stream
+    k = n // D  # one shard's block alone: validate_segments, the one-block case
     one_ms = cuda_ms(lambda: validate_segments(rt[:k], lt[:k], ct[:k], RAFT_BATCHES,
                                                kernels.CRC32C_SHARDED), 50)
+    shards9 = [(rt[d * k:(d + 1) * k], lt[d * k:(d + 1) * k], ct[d * k:(d + 1) * k], None)
+               for d in range(D)]
+    raw9, raw9_out = raw_crc_launch(kernels.CRC32C_SHARDED, shards9, r, RAFT_BATCHES,
+                                    RAFT_PARTITIONS, 0, dev)
+    raw9()
+    torch.cuda.synchronize()
+    if not (torch.equal(raw9_out[0], w_ok.view(-1)) and torch.equal(raw9_out[1], w_bad)):
+        fail("rp_crc_blocks called directly != plain over [256, 4, 16384]")
+    launch_ms = cuda_ms(raw9, 200)
+    cold_ms = cuda_ms_cold(raw9, 50, dev)
     plain_ms = cuda_ms(lambda: COL.sharded_crc_plain(*p9), 1)
     b_ms, b_by = bound_ms(valid + 8 * n + n + 4 * RAFT_PARTITIONS, valid)
-    log(f"K9 [{RAFT_PARTITIONS}, {RAFT_BATCHES}, {r}] ({valid} valid B): {ms:.4f} ms over {D} "
-        f"shards (one shard's launch alone {one_ms:.4f} ms), plain {plain_ms:.2f} ms, bound "
-        f"{b_ms * 1e3:.3f} us ({b_by}); bad per partition sums to {int(w_bad.sum())}, the "
-        "zero-length row neither ok nor bad")
+    lookups = 1.25 * valid  # slicing-by-8 and the 496-byte skip (csrc/crc32c.cuh)
+    log(f"K9 [{RAFT_PARTITIONS}, {RAFT_BATCHES}, {r}] ({valid} valid B): {ms:.4f} ms a call over "
+        f"{D} shards ({launches['crc32c_sharded']} launch); its launch alone {launch_ms:.4f} ms "
+        f"with the rows in L2 ({valid / launch_ms / 1e6:.1f} GB/s, {lookups / launch_ms / 1e9:.2f} "
+        f"T table lookups/s), {cold_ms:.4f} ms with L2 flushed before each launch; one shard's "
+        f"block alone {one_ms:.4f} ms; plain {plain_ms:.2f} ms, bound {b_ms * 1e3:.3f} us "
+        f"({b_by}); bad per partition sums to {int(w_bad.sum())}, the zero-length row neither "
+        "ok nor bad")
     out["crc32c_sharded"] = {
         "max_abs_err": max_abs_err([(torch.from_numpy(np.asarray(ok)), w_ok.cpu()),
                                     (torch.from_numpy(np.asarray(bad)), w_bad.cpu())]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "launch_ms": launch_ms,
         "parity": "ok and bad per partition bit-identical over [256, 4, 16384] (three claims "
-                  "wrong, a zero-length row, garbage past each length)"}
+                  "wrong, a zero-length row, garbage past each length), on the edge set and "
+                  "over 200 calls"}
     step8 = COL.make_crc_vote_step(mesh, r)
     p8 = (rt.view(D, n // D, r), lt.view(D, n // D), ct.view(D, n // D), votes)
-    before = kernels.CRC32C_VOTE.launches, kernels.VOTE_TALLY.launches
+    kernels.reset_launches()  # the CRC + vote step's run starts here
     got = step8(*p8)
-    k8_launches = {"crc32c_vote": kernels.CRC32C_VOTE.launches - before[0],
-                   "vote_tally": kernels.VOTE_TALLY.launches - before[1]}
+    k8_launches = {"crc32c_vote": kernels.CRC32C_VOTE.launches,
+                   "vote_tally": kernels.VOTE_TALLY.launches}
+    if k8_launches != {"crc32c_vote": len(card_groups(mesh.devices)), "vote_tally": 0}:
+        fail(f"crc32c_vote step: launches {k8_launches}, want one per card and no vote_tally")
     want = COL.crc_vote_plain(*p8)
     torch.cuda.synchronize()
     if not all(equal(g, w) for g, w in zip(got, want)):
         fail("crc32c_vote step != plain over [4, 256, 16384] with [4, 256] votes")
     ms = cuda_ms(lambda: step8(*p8), 50)
+    shards8 = [blk[:3] + (votes[d:d + 1],) for d, blk in enumerate(shards9)]
+    raw8, raw8_out = raw_crc_launch(kernels.CRC32C_VOTE, shards8, r, n // D, D, VOTE_GROUPS, dev)
+    raw8()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, w.view(-1)) for a, w in zip(raw8_out, want)):
+        fail("rp_crc_blocks with votes called directly != plain over [4, 256, 16384]")
+    launch_ms = cuda_ms(raw8, 200)
     plain_ms = cuda_ms(lambda: COL.crc_vote_plain(*p8), 1)
     b_ms, b_by = bound_ms(valid + 8 * n + n + 4 * D + D * VOTE_GROUPS + 4 * VOTE_GROUPS, valid)
-    log(f"K8 [{D}, {n // D}, {r}] + [{D}, {VOTE_GROUPS}] votes: {ms:.4f} ms (CRC launch per "
-        f"shard + tally per card; launches per call {k8_launches}), plain {plain_ms:.2f} ms, "
-        f"bound {b_ms * 1e3:.3f} us ({b_by})")
+    log(f"K8 [{D}, {n // D}, {r}] + [{D}, {VOTE_GROUPS}] votes: {ms:.4f} ms a call (launches "
+        f"{k8_launches}: the tally rides in the CRC launch), its launch alone {launch_ms:.4f} ms, "
+        f"plain {plain_ms:.2f} ms, bound {b_ms * 1e3:.3f} us ({b_by})")
     out["crc32c_vote"] = {
         "max_abs_err": max_abs_err([(torch.from_numpy(np.asarray(g)) if not hasattr(g, "cpu")
                                      else g.cpu(), w.cpu()) for g, w in zip(got, want)]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "launch_ms": launch_ms,
         "parity": "ok, bad per shard and tally bit-identical over [4, 256, 16384] with [4, 256] "
-                  "votes"}
+                  "votes, on the edge set and over 200 calls"}
+    crc_blocks_edges_and_loop(dev, mesh)
 
     # K2 over DOCS x EXPRS in 4 shards (one empty), then the bench's launch
     vals, exprs = docs_and_exprs()
@@ -1188,6 +1225,138 @@ def raw_step_launch(prog, dev_in, n_shards, r_batch, r_rec, dev):
     return run, (ok, out, out_len, keep, tally)
 
 
+def raw_crc_launch(kernel, blocks, r, seg, n_bad, g, dev):
+    """One launch of rp_crc_blocks over ``blocks`` ((rows, lens, claimed,
+    votes or None) on the card) with the C entry point called directly (no
+    wrapper, not counted): (fn, (ok, bad, tally or nothing))."""
+    import ctypes
+
+    import torch
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.ops.crc32c_device import (
+        kernel_tables_on, round_powers_on, sm_count, span_table_on, split_layout)
+
+    rows = blocks[0][0].shape[0]
+    ok = torch.empty(len(blocks) * rows, dtype=torch.bool, device=dev)
+    bad = torch.empty(n_bad, dtype=torch.int32, device=dev)
+    tally = torch.empty(g, dtype=torch.int32, device=dev)
+    table = (ctypes.c_void_p * (4 * len(blocks)))(
+        *[None if t is None else t.data_ptr() for b in blocks for t in b])
+    wpr, span = split_layout(r, rows * len(blocks), sm_count(dev))
+    rounds = round_powers_on(dev)
+    argv = (table, len(blocks), rows, r, seg, wpr, span, kernel_tables_on(dev).data_ptr(),
+            rounds.data_ptr(), rounds.shape[0], span_table_on(dev, span).data_ptr(),
+            ok.data_ptr(), bad.data_ptr(), n_bad,
+            0 if blocks[0][3] is None else blocks[0][3].shape[0], g,
+            tally.data_ptr() if g else None, kernels.stream_handle(dev))
+    fn = kernel.fn()
+
+    def run():
+        if fn(*argv) != 0:
+            fail("rp_crc_blocks refused its launch")
+
+    return run, (ok, bad, tally) if g else (ok, bad)
+
+
+def cuda_ms_cold(fn, iters: int, dev) -> float:
+    """Mean ms of ``fn`` with the L2 cache flushed before each call (a
+    128 MB write between launches, outside the timed interval)."""
+    import torch
+
+    l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        l2_flush.fill_(1)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def split_edge_rows(r: int, n: int, seed: int):
+    """n rows of width r (random bytes everywhere, garbage past each
+    length) at lengths on and around every span and round boundary of the
+    split CRC kernel, 0, negative and past r, the rest random; three claims
+    wrong."""
+    import numpy as np
+
+    from redpanda_tpu_torch.hashing.crc32c import crc32c_many
+    from redpanda_tpu_torch.ops.crc32c_device import ROUND
+
+    rounds = -(-r // ROUND)
+    spans = sorted({-(-rounds // w) * ROUND for w in (2, 4, 8)})  # every split's spans
+    marks = [0, -3, r + 5, 1, 15, 16, 17, r - 1, r]
+    marks += [j * s + e for s in spans for j in range(1, r // s + 1) for e in (-1, 0, 1)]
+    marks += [k * ROUND + e for k in range(1, r // ROUND + 1) for e in (-1, 0, 1)]
+    marks = [x for x in marks if -3 <= x <= r + 5][:n]
+    rng = np.random.default_rng(seed)
+    lens = np.array(marks + [int(x) for x in rng.integers(0, r + 1, n - len(marks))], np.int32)
+    rows = rng.integers(0, 256, size=(n, r), dtype=np.uint8)
+    claimed = crc32c_many(rows, lens)
+    live = np.flatnonzero(lens > 0)
+    claimed[live[[1, len(live) // 2, -1]]] ^= 0x20
+    return rows, lens, claimed
+
+
+def crc_blocks_edges_and_loop(dev, mesh):
+    """K9 and K8 on the virtual mesh against their plain versions on the
+    edge set (64 rows of 16384, 8192 and 5000 bytes, split across 8, 4 and
+    2 warps, and of 100, unaligned, one warp each) and over 200 K8 calls on
+    inputs permuted and votes drawn on the card just before each call."""
+    import torch
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.parallel import collectives as COL
+
+    D = mesh.size
+    for r in (16384, 8192, 5000, 100):
+        rows, lens, claimed = split_edge_rows(r, 16 * D, seed=r)
+        d, ln, cl = on_card(rows, dev), on_card(lens, dev), on_card(claimed, dev)
+        votes = torch.randint(0, 2, (D, 33), device=dev, dtype=torch.uint8)
+        p9 = (d.view(16, D, r), ln.view(16, D), cl.view(16, D))
+        p8 = (d.view(D, 16, r), ln.view(D, 16), cl.view(D, 16), votes)
+        ok, bad = COL.make_sharded_crc_check(mesh, r)(*p9)
+        got8 = COL.make_crc_vote_step(mesh, r)(*p8)
+        w_ok, w_bad = COL.sharded_crc_plain(*p9)
+        want8 = COL.crc_vote_plain(*p8)
+        torch.cuda.synchronize()
+        if not (equal(ok, w_ok) and equal(bad, w_bad)) or int(w_bad.sum()) != 3:
+            fail(f"crc32c_sharded != plain on the edge set at r={r}")
+        if not all(equal(g, w) for g, w in zip(got8, want8)):
+            fail(f"crc32c_vote != plain on the edge set at r={r}")
+    r, n = 5000, 64
+    rows, lens, claimed = split_edge_rows(r, n, seed=43)
+    d, ln, cl = on_card(rows, dev), on_card(lens, dev), on_card(claimed, dev)
+    base_ok = COL.sharded_crc_plain(d.view(n, 1, r), ln.view(n, 1), cl.view(n, 1))[0].view(n)
+    step = COL.make_crc_vote_step(mesh, r)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    n_calls, n_equal = 200, 0
+    before = kernels.CRC32C_VOTE.launches
+    for _ in range(n_calls):
+        perm = torch.randperm(n, generator=gen, device=dev)
+        votes = torch.randint(0, 2, (D, VOTE_GROUPS), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        lp = ln[perm].view(D, n // D)
+        ok, bad, tally = step(d[perm].view(D, n // D, r), lp, cl[perm].view(D, n // D), votes)
+        w_ok = base_ok[perm].view(D, n // D)
+        w_bad = (~w_ok & (lp > 0)).sum(1, dtype=torch.int32)
+        n_equal += bool(equal(ok, w_ok) and equal(bad, w_bad)
+                        and torch.equal(tally, COL.vote_tally_plain(votes)))
+    per_call = (kernels.CRC32C_VOTE.launches - before) / n_calls
+    if n_equal != n_calls or per_call != 1:
+        fail(f"crc32c_vote over {n_calls} calls on fresh inputs: {n_equal} equal to the plain "
+             f"answer, {per_call:g} launches a call")
+    log(f"K9/K8 edge set (64 rows of 16384, 8192, 5000 and 100 B: 8, 4, 2 and 1 warps a row; "
+        f"lengths 0, -3, r+5 and on every span and round boundary) bit-identical to the plain "
+        f"versions; K8 over "
+        f"{n_calls} calls on inputs made on the card: all equal, {per_call:g} launch a call")
+
+
 def phase_engine_mesh(dev, mesh, engine_run) -> dict:
     from redpanda_tpu_torch import kernels
     from redpanda_tpu_torch.coproc.column_plan import block_chunks, plan_spec
@@ -1282,11 +1451,27 @@ def phase_raft_mesh(dev, mesh) -> dict:
         fail("raft mesh leg: flags differ from the host oracle's")
     if not np.array_equal(tally, votes.astype(np.int32).sum(axis=0)):
         fail("raft mesh leg: tally_votes differs from the numpy sum")
+    if launches["crc32c_vote"] != 1:
+        fail(f"raft mesh leg: {launches['crc32c_vote']} crc32c_vote launches for one append")
+    # the mesh leg beside the single-device leg, in turns, on the same append
+    single = RaftDevicePlane(probe=False, device=dev)
+    single.validate(regions[:64], claimed[:64])
+    times = {"mesh": [], "single": []}
+    for _ in range(5):
+        for name, pl in (("mesh", plane), ("single", single)):
+            t0 = time.perf_counter()
+            flags = pl.validate(regions, claimed)
+            times[name].append(time.perf_counter() - t0)
+            if not np.array_equal(flags, want):
+                fail(f"raft {name} leg: flags differ from the host oracle's")
+    med = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in times.items()}
     log(f"raft mesh leg (virtual mesh of {mesh.size} shards on one card): {n} regions of rows "
         f"16384, {t_dev * 1e3:.3f} ms per append ({n / t_dev:.1f} batches/s incl. pack and "
         f"copies); flags equal to the host oracle's; tally_votes [{mesh.size}, {VOTE_GROUPS}] "
         f"equal to the numpy sum, {t_tally * 1e3:.4f} ms a call host to host (mean of 200); "
         f"launches {launches}")
+    log(f"raft append, median of 5 in turns on the same append: mesh leg {med['mesh']:.3f} ms, "
+        f"single-device leg {med['single']:.3f} ms (ratio {med['mesh'] / med['single']:.3f})")
     return launches
 
 

@@ -36,7 +36,9 @@
 //     csrc/payload_transform.cuh), writing the unmasked out_len, as the JAX
 //     package's compile_transform returns it;
 //   - the last ceil(G / 256) CTAs sum the votes, one thread per column over
-//     every row of every block, coalesced across the columns.
+//     every row of every block, coalesced across the columns (the body of
+//     csrc/vote_tally.cuh, which the vote tally and the CRC + vote step
+//     share).
 // A CTA's dynamic shared memory is the larger of the two first roles'
 // needs. Every row is independent and integer sums are exact, so the
 // result is bit-identical to the plain version in any order.
@@ -46,11 +48,13 @@
 
 #include "crc32c.cuh"
 #include "payload_transform.cuh"
+#include "vote_tally.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
+static_assert(kThreads == rp_vote::kThreads, "a tally CTA is one CTA of this kernel");
 constexpr int kPtrsPerShard = 6;
 constexpr int kMaxPtrs = 480;  // 80 shards: 3840 B of parameters
 constexpr int kMaxValidateCtas = 4096;
@@ -113,14 +117,8 @@ coproc_step_kernel(const __grid_constant__ Table table, int n_blocks, int a_ctas
     return;
   }
   cta -= t_ctas;  // the vote tally (K7) of this launch's shards
-  const int col = cta * kThreads + threadIdx.x;
-  if (col >= g) return;
-  int32_t acc = 0;
-  for (int b = 0; b < n_blocks; ++b) {
-    const uint8_t* __restrict__ votes = slot<uint8_t>(table, b, VOTES);
-    for (int r = 0; r < vote_rows; ++r) acc += (int32_t)votes[(long long)r * g + col];
-  }
-  tally[col] = acc;
+  rp_vote::tally_columns<uint8_t>(table.p + VOTES, kPtrsPerShard, n_blocks, vote_rows, g, cta,
+                                  tally);
 }
 
 }  // namespace
@@ -151,7 +149,7 @@ extern "C" int rp_coproc_step(const void* const* table, int n_blocks, int rows_b
   long long a = (total_b + kWarps - 1) / kWarps;
   if (a > kMaxValidateCtas) a = kMaxValidateCtas;  // the validator strides over the rest
   const long long t = (total_r + wpb - 1) / wpb;
-  const long long v = ((long long)g + kThreads - 1) / kThreads;
+  const long long v = ((long long)g + rp_vote::kThreads - 1) / rp_vote::kThreads;
   if (a + t + v == 0) return 0;
   if (a + t + v > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   size_t smem = (size_t)per_warp * wpb;

@@ -1,6 +1,8 @@
 // CRC-32C of one row by one warp: the device body shared by the batch CRC
-// kernel (csrc/crc32c.cu: K5, K6, K8, K9) and the fused coproc step
-// (csrc/coproc_step.cu: K10).
+// kernel (csrc/crc32c.cu: K5, K6), the fused coproc step
+// (csrc/coproc_step.cu: K10) and the split kernel of the mesh's CRC checks
+// (csrc/crc_blocks.cu: K8, K9), which cuts a long row into spans, one warp
+// each (lane_walk, warp_xor), and joins them (multmodp, sliced).
 //
 // The row is cut into 16-byte blocks and lane k takes blocks k, k+32,
 // k+64, ..., so each round the warp reads 512 contiguous bytes (16-byte
@@ -16,7 +18,11 @@
 // 0, so the XOR is the register of the whole row. The tables
 // (slicing-by-8, the 496-byte skip, the powers) are built on the host
 // (ops/crc32c_device.py kernel_tables) and staged in shared memory per
-// block.
+// block. The split kernel moves a lane's register past its span's end by a
+// carry-less multiply, x^(8m) for m < 512 from the staged powers and
+// x^(8*512*q) from a table in global memory (ops/crc32c_device.py
+// round_powers), and a register over a whole span with a byte-sliced table
+// of that span's advance, as skip does over 496 bytes.
 
 #pragma once
 
@@ -45,11 +51,16 @@ __device__ __forceinline__ uint32_t step8(const uint32_t* t, uint32_t c, uint32_
          t[1 * 256 + ((hi >> 16) & 0xff)] ^ t[hi >> 24];
 }
 
-// The register advanced over kRound - kBlock zero bytes.
-__device__ __forceinline__ uint32_t skip(const uint32_t* t, uint32_t c) {
-  const uint32_t* s = t + kSkipOff;
+// The register advanced over a fixed run of zero bytes, read from its
+// byte-sliced table s (4 x 256 words: a linear map, one lookup a byte).
+__device__ __forceinline__ uint32_t sliced(const uint32_t* s, uint32_t c) {
   return s[c & 0xff] ^ s[256 + ((c >> 8) & 0xff)] ^ s[512 + ((c >> 16) & 0xff)] ^
          s[768 + (c >> 24)];
+}
+
+// The register advanced over kRound - kBlock zero bytes.
+__device__ __forceinline__ uint32_t skip(const uint32_t* t, uint32_t c) {
+  return sliced(t + kSkipOff, c);
 }
 
 // a * b mod P in the reflected representation (bit 31 is x^0).
@@ -70,12 +81,14 @@ __device__ __forceinline__ void load_tables(uint32_t* t, const uint32_t* __restr
   __syncthreads();
 }
 
-// The CRC-32C (init and xorout 0xFFFFFFFF) of src[0, len) by the calling
-// warp; every lane gets it. len is already clipped to [0, r].
-__device__ __forceinline__ uint32_t crc_row(const uint32_t* t, const uint8_t* __restrict__ src,
-                                            int len, int lane) {
+// The calling lane's part of the warp's walk over src[0, len): the
+// register of its own blocks, started from `init` at lane 0 and from 0
+// elsewhere, and in `gap` the zero bytes from its last block's end to len
+// (a lane without a block holds 0, or lane 0's init at len 0).
+__device__ __forceinline__ uint32_t lane_walk(const uint32_t* t, const uint8_t* __restrict__ src,
+                                              int len, int lane, uint32_t init, int& gap) {
   const bool aligned = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
-  uint32_t acc = lane == 0 ? 0xFFFFFFFFu : 0u;
+  uint32_t acc = lane == 0 ? init : 0u;
   int end = 0;  // end of this lane's last block
   for (int p = lane * kBlock; p < len; p += kRound) {
     if (p >= kRound) acc = skip(t, acc);  // the other lanes' 496 bytes
@@ -100,12 +113,26 @@ __device__ __forceinline__ uint32_t crc_row(const uint32_t* t, const uint8_t* __
       end = len;
     }
   }
-  // lanes without a block hold 0, which needs no advance
-  const int gap = len - end;
-  if (gap > 0 && acc != 0) acc = multmodp(t[kPowOff + gap], acc);
+  gap = len - end;
+  return acc;
+}
+
+// The XOR of the warp's 32 lane registers; every lane gets it.
+__device__ __forceinline__ uint32_t warp_xor(uint32_t acc) {
 #pragma unroll
   for (int off = 16; off; off >>= 1) acc ^= __shfl_xor_sync(0xffffffffu, acc, off);
-  return acc ^ 0xFFFFFFFFu;
+  return acc;
+}
+
+// The CRC-32C (init and xorout 0xFFFFFFFF) of src[0, len) by the calling
+// warp; every lane gets it. len is already clipped to [0, r].
+__device__ __forceinline__ uint32_t crc_row(const uint32_t* t, const uint8_t* __restrict__ src,
+                                            int len, int lane) {
+  int gap;
+  uint32_t acc = lane_walk(t, src, len, lane, 0xFFFFFFFFu, gap);
+  // lanes without a block hold 0, which needs no advance
+  if (gap > 0 && acc != 0) acc = multmodp(t[kPowOff + gap], acc);
+  return warp_xor(acc) ^ 0xFFFFFFFFu;
 }
 
 }  // namespace rp_crc

@@ -16,17 +16,18 @@
 //
 // What bounds it on an H100: bytes, and at the shapes the port uses (a few
 // rows by 256 groups, a few KB) the launch latency and the host's enqueue
-// work around it. The design spends one launch per card on it: one thread
-// per column loops over every row of every block; neighbouring threads
-// read neighbouring columns, so each row's read is coalesced. Each thread
-// writes its column once, so the output needs no zeroing and no atomics.
+// work around it. The design spends one launch per card on it; the column
+// sums are the body of csrc/vote_tally.cuh, which the fused coproc step and
+// the CRC + vote step share. The table is a __grid_constant__ parameter, so
+// the body reads the pointers where they lie.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vote_tally.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 64;  // 512 B of pointers, well inside the 4 KB parameter limit
 
 struct BlockTable {
@@ -34,16 +35,9 @@ struct BlockTable {
 };
 
 template <typename T>
-__global__ void tally_blocks_kernel(const BlockTable table, int nblocks, int rows, int g,
-                                    int32_t* __restrict__ out) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= g) return;
-  int32_t acc = 0;
-  for (int b = 0; b < nblocks; ++b) {
-    const T* __restrict__ votes = static_cast<const T*>(table.ptr[b]);
-    for (int r = 0; r < rows; ++r) acc += (int32_t)votes[(long long)r * g + col];
-  }
-  out[col] = acc;
+__global__ void tally_blocks_kernel(const __grid_constant__ BlockTable table, int nblocks, int rows,
+                                    int g, int32_t* __restrict__ out) {
+  rp_vote::tally_columns<T>(table.ptr, 1, nblocks, rows, g, blockIdx.x, out);
 }
 
 }  // namespace
@@ -58,12 +52,12 @@ extern "C" int rp_vote_tally_blocks(const void* const* blocks, int nblocks, int 
   if (g == 0) return 0;
   BlockTable table = {};
   for (int b = 0; b < nblocks; ++b) table.ptr[b] = blocks[b];
-  const int grid = (g + kThreads - 1) / kThreads;
+  const int grid = (g + rp_vote::kThreads - 1) / rp_vote::kThreads;
   if (dtype == 0)
-    tally_blocks_kernel<uint8_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    tally_blocks_kernel<uint8_t><<<grid, rp_vote::kThreads, 0, (cudaStream_t)stream>>>(
         table, nblocks, rows, g, (int32_t*)out);
   else
-    tally_blocks_kernel<int32_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    tally_blocks_kernel<int32_t><<<grid, rp_vote::kThreads, 0, (cudaStream_t)stream>>>(
         table, nblocks, rows, g, (int32_t*)out);
   return (int)cudaGetLastError();
 }

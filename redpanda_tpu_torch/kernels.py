@@ -136,8 +136,8 @@ PAYLOAD_TRANSFORM = Kernel(
     [_P, _L, _P, _I, _I, _P, _L, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P],
 )
 
-# data, stride, lens, n, r, tables, crc_out, claimed, ok_out, bad_out, seg, stream
-_CRC_ARGS = [_P, _L, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P]
+# data, stride, lens, n, r, tables, crc_out, claimed, ok_out, stream
+_CRC_ARGS = [_P, _L, _P, _I, _I, _P, _P, _P, _P, _P]
 
 CRC32C = Kernel(
     "crc32c",
@@ -157,24 +157,31 @@ CRC32C_VALIDATE = Kernel(
     lib="crc32c",
 )
 
-# the validator with a bad-row count per shard (the raft mesh step) ...
+# table (host array of 4 * n_blocks device pointers), n_blocks, rows, r,
+# seg, wpr, span, crc tables, round powers, n_rounds, span table, ok, bad,
+# n_bad, vote_rows, g, tally, stream
+_CRC_BLOCKS_ARGS = [_P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P]
+
+# the split CRC kernel over a table of a card's shard blocks, with a bad-row
+# count per segment: the raft mesh step, with the vote tally in the same
+# launch ...
 CRC32C_VOTE = Kernel(
     "crc32c_vote",
-    "redpanda_tpu_torch/csrc/crc32c.cu",
+    "redpanda_tpu_torch/csrc/crc_blocks.cu",
     "redpanda_tpu/parallel/collectives.py:124",
-    "rp_crc32c",
-    _CRC_ARGS,
-    lib="crc32c",
+    "rp_crc_blocks",
+    _CRC_BLOCKS_ARGS,
+    lib="crc_blocks",
 )
 
-# ... and per partition (the sharded CRC check)
+# ... and the sharded CRC check, a bad count per partition, counted apart
 CRC32C_SHARDED = Kernel(
     "crc32c_sharded",
-    "redpanda_tpu_torch/csrc/crc32c.cu",
+    "redpanda_tpu_torch/csrc/crc_blocks.cu",
     "redpanda_tpu/parallel/collectives.py:155",
-    "rp_crc32c",
-    _CRC_ARGS,
-    lib="crc32c",
+    "rp_crc_blocks",
+    _CRC_BLOCKS_ARGS,
+    lib="crc_blocks",
 )
 
 # the same entry point launched once per card over the blocks of the card's

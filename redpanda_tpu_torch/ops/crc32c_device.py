@@ -18,11 +18,17 @@ the kernel's source for the design).
 
 This is the batched kernel the produce path (ops/crc_backend.py), the raft
 follower plane (raft/device_plane.py) and the recovery scan
-(storage/recovery.py) share.
+(storage/recovery.py) share. ``validate_segments`` (the validator with a
+bad count per segment of rows) is the one-block case of the mesh's split
+kernel (csrc/crc_blocks.cu, ``crc_blocks``), which cuts a long row into
+spans of whole rounds, one warp each, when the launch has too few rows to
+fill the card (``split_layout``), and joins the spans' registers with
+``span_table`` and the powers of ``kernel_tables`` and ``round_powers``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import threading
 
@@ -35,6 +41,12 @@ from redpanda_tpu_torch.hashing.crc32c import TABLE, TABLE8
 
 BLOCK = 16  # bytes a lane takes per round
 ROUND = 32 * BLOCK  # bytes a warp takes per round
+SPAN_ROUNDS = 4  # csrc/crc_blocks.cu: the fewest rounds a span of a split row holds
+SPLIT_WARPS = 8  # the warps of one CTA of that kernel: the most spans a row
+WARPS_PER_SM = 16  # split_layout's aim for a launch's warps an SM
+MAX_ROW = 1 << 24  # the widest row it takes: the reach of round_powers
+MAX_CRC_SHARDS = 120  # its table: four pointers a shard, 480 in all
+POLY = 0x82F63B78  # the reflected Castagnoli polynomial
 
 
 def _advance(states: np.ndarray, nbytes: int) -> np.ndarray:
@@ -61,25 +73,112 @@ def kernel_tables() -> np.ndarray:
     return np.concatenate([TABLE8.reshape(-1), skip, pows]).astype(np.uint32)
 
 
-_on_device: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+def _multmodp(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a * b mod P elementwise in the reflected representation (the
+    kernel's multmodp)."""
+    a, b = np.broadcast_arrays(a.astype(np.uint32), b.astype(np.uint32))
+    p = np.zeros(a.shape, np.uint32)
+    for k in range(32):
+        p ^= np.where(a & np.uint32(0x80000000 >> k), b, np.uint32(0))
+        b = np.where(b & np.uint32(1), (b >> np.uint32(1)) ^ np.uint32(POLY), b >> np.uint32(1))
+    return p
+
+
+@functools.lru_cache(maxsize=1)
+def round_powers() -> np.ndarray:
+    """uint32 [MAX_ROW // ROUND + 1]: x^(8 * ROUND * q) mod P for each q,
+    which with ``kernel_tables``' x^(8n), n < ROUND, moves a register over
+    any distance up to MAX_ROW bytes: the split kernel's lanes move past
+    their span's end with them."""
+    n = MAX_ROW // ROUND + 1
+    out = np.empty(n, np.uint32)
+    out[0] = 0x80000000  # x^0
+    out[1] = _advance(out[:1], ROUND)[0]
+    done = 2
+    while done < n:  # x^(a+b) = x^a * x^b: each pass doubles the known powers
+        step = _multmodp(out[done - 1 : done], out[1:2])[0]  # x^(8 ROUND done)
+        m = min(done, n - done)
+        out[done : done + m] = _multmodp(np.uint32(step), out[:m])
+        done += m
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def span_table(span: int) -> np.ndarray:
+    """uint32 [4 * 256]: the register advance over ``span`` zero bytes, a
+    whole number of rounds (x^(8 span) mod P), byte-sliced as
+    ``kernel_tables``' skip map is for ROUND - BLOCK bytes: the split
+    kernel joins its full spans with it."""
+    if span <= 0 or span % ROUND or span > MAX_ROW:
+        raise ValueError(f"span {span} is not a whole number of rounds up to {MAX_ROW}")
+    b = np.arange(256, dtype=np.uint32)
+    sliced = np.concatenate([b << np.uint32(8 * k) for k in range(4)])
+    return _multmodp(round_powers()[span // ROUND], sliced)
+
+
+def split_layout(r: int, rows: int, sms: int) -> tuple[int, int]:
+    """(warps a row, span bytes) of the split kernel for a launch of
+    ``rows`` rows of width r on a card of ``sms`` SMs: the most of 1, 2, 4
+    and 8 spans of whole rounds that keeps every span at SPAN_ROUNDS rounds
+    or more and the launch at WARPS_PER_SM warps an SM or fewer. Splitting
+    pays while the rows are too few to fill the card and costs once they
+    do (chip_tools/crc_split_ablation.py, PERF.md)."""
+    if not 0 <= r <= MAX_ROW:
+        raise ValueError(f"row width {r} outside [0, {MAX_ROW}]")
+    rounds = max(1, -(-r // ROUND))
+    wpr = 1
+    while (wpr < SPLIT_WARPS and rounds // (2 * wpr) >= SPAN_ROUNDS
+           and rows * 2 * wpr <= WARPS_PER_SM * sms):
+        wpr *= 2
+    return wpr, -(-rounds // wpr) * ROUND
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (1 for the CPU, where the split kernel's
+    launch code is driven only by tests)."""
+    if device.type != "cuda":
+        return 1
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_on_device: dict[torch.device, tuple[torch.Tensor, ...]] = {}
 _on_device_lock = threading.Lock()
 
 
-def _tables_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(kernel tables as int32 bit patterns, the byte table as int64) kept
-    on ``device``."""
+def _tables_on(device: torch.device) -> tuple[torch.Tensor, ...]:
+    """(kernel tables as int32 bit patterns, the byte table as int64, the
+    round powers as int32 bit patterns) kept on ``device``."""
     with _on_device_lock:
         if device not in _on_device:
             _on_device[device] = constants_on(
-                device, kernel_tables().view(np.int32), TABLE.astype(np.int64))
+                device, kernel_tables().view(np.int32), TABLE.astype(np.int64),
+                round_powers().view(np.int32))
         return _on_device[device]
 
 
 def kernel_tables_on(device: torch.device) -> torch.Tensor:
     """The CRC kernels' tables (``kernel_tables``) kept on ``device``: the
-    batch CRC kernel and the fused coproc step (csrc/coproc_step.cu) read
-    them."""
+    batch CRC kernel, the fused coproc step (csrc/coproc_step.cu) and the
+    split kernel (csrc/crc_blocks.cu) read them."""
     return _tables_on(device)[0]
+
+
+def round_powers_on(device: torch.device) -> torch.Tensor:
+    """``round_powers`` kept on ``device``, for the split kernel."""
+    return _tables_on(device)[2]
+
+
+_span_tables: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def span_table_on(device: torch.device, span: int) -> torch.Tensor:
+    """``span_table(span)`` kept on ``device``, for the split kernel."""
+    with _on_device_lock:
+        key = (device, span)
+        if key not in _span_tables:
+            _span_tables[key] = constants_on(device, span_table(span).view(np.int32))[0]
+        return _span_tables[key]
 
 
 def _to_i32(crc: torch.Tensor) -> torch.Tensor:
@@ -133,7 +232,7 @@ def validate_segments_plain(data, lengths, claimed, seg: int):
 
 
 # ------------------------------------------------------------ wrappers
-def _launch(kernel, data, lengths, crc_out, claimed, ok_out, bad_out=None, seg: int = 0) -> None:
+def _launch(kernel, data, lengths, crc_out, claimed, ok_out) -> None:
     n, r = data.shape
     if n == 0:
         return
@@ -142,9 +241,7 @@ def _launch(kernel, data, lengths, crc_out, claimed, ok_out, bad_out=None, seg: 
         data.data_ptr(), data.stride(0), lengths.data_ptr(), n, r, tables.data_ptr(),
         None if crc_out is None else crc_out.data_ptr(),
         None if claimed is None else claimed.data_ptr(),
-        None if ok_out is None else ok_out.data_ptr(),
-        None if bad_out is None else bad_out.data_ptr(), seg,
-        kernels.stream_handle(data.device),
+        None if ok_out is None else ok_out.data_ptr(), kernels.stream_handle(data.device),
     )
 
 
@@ -171,10 +268,41 @@ def validate_rows(data: torch.Tensor, lengths: torch.Tensor, claimed: torch.Tens
     return ok
 
 
+def crc_blocks(kernel, blocks, r: int, seg: int, ok: torch.Tensor, bad: torch.Tensor,
+               tally: torch.Tensor | None = None) -> None:
+    """One launch of ``kernel`` (a row of csrc/crc_blocks.cu's
+    ``rp_crc_blocks``) on the current stream over 1..MAX_CRC_SHARDS checked
+    CUDA blocks of one card, ``(rows u8 [n, r], lengths i32 [n], claimed
+    i32 [n], votes u8 [m, G] or None)`` each: ok [len(blocks) * n] (bool or
+    u8), bad int32 (zeroed by the launch), bad[i // seg] counting the bad
+    rows i, and with ``tally`` (int32 [G]) the column sums of every block's
+    votes. With no rows and no tally nothing is launched: bad is zeroed."""
+    rows0 = blocks[0][0]
+    n = rows0.shape[0]
+    g = 0 if tally is None else tally.shape[0]
+    if n * len(blocks) == 0 and g == 0:
+        bad.zero_()
+        return
+    dev = rows0.device
+    wpr, span = split_layout(r, n * len(blocks), sm_count(dev))
+    rounds = round_powers_on(dev)
+    table = (ctypes.c_void_p * (4 * len(blocks)))(
+        *[None if t is None else t.data_ptr() for blk in blocks for t in blk])
+    votes = blocks[0][3]
+    kernel.launch(
+        table, len(blocks), n, r, seg, wpr, span, kernel_tables_on(dev).data_ptr(),
+        rounds.data_ptr(), rounds.shape[0], span_table_on(dev, span).data_ptr(), ok.data_ptr(),
+        bad.data_ptr(), bad.shape[0],
+        0 if votes is None else votes.shape[0], g, None if tally is None else tally.data_ptr(),
+        kernels.stream_handle(dev),
+    )
+
+
 def validate_segments(data, lengths, claimed, seg: int, kernel):
-    """The validator with a bad count per segment of ``seg`` rows, in one
-    launch of ``kernel`` (the mesh's rows ``crc32c_vote`` and
-    ``crc32c_sharded``): (ok bool [N], bad int32 [ceil(N / seg)])."""
+    """The validator with a bad count per segment of ``seg`` rows: (ok
+    bool [N], bad int32 [ceil(N / seg)]); on the card one launch of
+    ``kernel`` (the mesh's rows ``crc32c_vote`` and ``crc32c_sharded``)
+    over the one block."""
     _check(data, lengths, claimed)
     if seg <= 0:
         raise ValueError(f"segment length {seg} must be positive")
@@ -182,8 +310,8 @@ def validate_segments(data, lengths, claimed, seg: int, kernel):
         return validate_segments_plain(data, lengths, claimed, seg)
     n = data.shape[0]
     ok = torch.empty(n, dtype=torch.bool, device=data.device)
-    bad = torch.zeros(-(-n // seg), dtype=torch.int32, device=data.device)
-    _launch(kernel, data, lengths, None, claimed, ok, bad, seg)
+    bad = torch.empty(-(-n // seg), dtype=torch.int32, device=data.device)
+    crc_blocks(kernel, [(data, lengths, claimed, None)], data.shape[1], seg, ok, bad)
     return ok, bad
 
 

@@ -2,11 +2,10 @@
 checks (K8, K9) and the full per-tick coproc step (K10).
 
 The JAX package runs each as one ``shard_map`` program over the mesh's
-'p' axis (parallel/collectives.py there), one program per device. Here the
-vote tally and the coproc step are one kernel launch per card over the
-blocks of that card's shards, on the caller's current stream of the card,
-and the sharded CRC checks one launch per shard on that shard's stream;
-then the one collective, the tally's sum across cards.
+'p' axis (parallel/collectives.py there), one program per device. Here
+each is one kernel launch per card over the blocks of that card's shards,
+on the caller's current stream of the card; then the one collective, the
+tally's sum across cards.
 
 - ``make_vote_aggregator(mesh)``: the vote tally (csrc/vote_tally.cu) in
   one launch per card, on the caller's current stream of that card, over
@@ -21,9 +20,12 @@ then the one collective, the tally's sum across cards.
   sums are exact, so the tally is bit-identical in any order.
 - ``make_sharded_crc_check(mesh, r)``: the batch validator over each
   shard's [P/D, B, r] rows with a bad count per partition, in one launch
-  of the CRC kernel per shard (csrc/crc32c.cu, row ``crc32c_sharded``).
-- ``make_crc_vote_step(mesh, r)``: the same per shard (row
-  ``crc32c_vote``), plus the vote tally: the raft follower plane's step.
+  of the split CRC kernel per card (per 120 of its shards,
+  ``MAX_CRC_SHARDS``) over a table of its shards' blocks
+  (csrc/crc_blocks.cu, row ``crc32c_sharded``).
+- ``make_crc_vote_step(mesh, r)``: the same (row ``crc32c_vote``) with the
+  column sums of the card's votes in the same launch, the cards' partials
+  summed as the aggregator sums them: the raft follower plane's step.
 - ``make_sharded_coproc_step(mesh, spec_json, r_batch, r_rec)``: the batch
   validator (K6), the payload transform (K3, unpacked) and the vote tally
   (K7) of a card's shards in one launch of the fused step kernel
@@ -32,13 +34,13 @@ then the one collective, the tally's sum across cards.
   aggregator sums them. Each output is one tensor per card, and each
   shard's block a view of it.
 
-Inputs are global numpy arrays or tensors (split over the mesh with
-``shard_to_mesh``, which also makes the shard streams wait for the
-caller's, or with ``local_blocks``) or ``Sharded`` arrays; outputs sharded
-over 'p' are ``Sharded`` and the replicated tally is one int32 tensor on
-``mesh.devices[0]``. Each ``*_plain`` function is the same computation in
-plain PyTorch on whole tensors, built from the kernels' plain versions.
-On a CPU mesh every shard runs the plain versions.
+Inputs are global numpy arrays or tensors (placed over the mesh with
+``local_blocks``: one copy per card on the caller's current stream) or
+``Sharded`` arrays; outputs sharded over 'p' are ``Sharded`` (each shard's
+block a view of one tensor per card) and the replicated tally is one int32
+tensor on ``mesh.devices[0]``. Each ``*_plain`` function is the same
+computation in plain PyTorch on whole tensors, built from the kernels'
+plain versions. On a CPU mesh every shard runs the plain versions.
 """
 
 from __future__ import annotations
@@ -48,7 +50,12 @@ import ctypes
 import torch
 
 from redpanda_tpu_torch import kernels
-from redpanda_tpu_torch.ops.crc32c_device import kernel_tables_on, validate_plain, validate_segments
+from redpanda_tpu_torch.ops.crc32c_device import (
+    MAX_CRC_SHARDS,
+    crc_blocks,
+    kernel_tables_on,
+    validate_plain,
+)
 from redpanda_tpu_torch.ops.transforms import TransformSpec, compile_transform, transform_plain
 from redpanda_tpu_torch.parallel.mesh import (
     PartitionMesh,
@@ -57,7 +64,6 @@ from redpanda_tpu_torch.parallel.mesh import (
     card_groups,
     local_blocks,
     on_device,
-    shard_to_mesh,
 )
 
 
@@ -200,36 +206,90 @@ def _check_crc_blocks(rows: torch.Tensor, lens: torch.Tensor, claimed: torch.Ten
         raise ValueError("lens and claimed must be [P, B] like rows")
 
 
-def _crc_shards(mesh, rows, lens, claimed, r: int, kernel):
-    """Per shard: one launch of the validator with a bad count per
-    partition (segments of B rows)."""
-    oks, bads = [], []
+def _check_blocks(blocks, dtypes, dev: torch.device) -> None:
+    for t, dtype in zip(blocks, dtypes):
+        if t.dtype != dtype or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"block {tuple(t.shape)} {t.dtype} on {t.device}: expected a "
+                             f"contiguous {dtype} block on {dev}")
+
+
+def _check_crc_args(mesh: PartitionMesh, args, r: int) -> None:
+    """Every shard's blocks: rows u8 [p, B, r], lengths and claimed CRCs
+    i32 [p, B] and, with a fourth argument, votes u8 [m, G], contiguous and
+    on the shard's device."""
     for d in range(mesh.size):
-        rb, lb, cb = rows.blocks[d], lens.blocks[d], claimed.blocks[d]
-        _check_crc_blocks(rb, lb, cb, r)
-        p, b, _ = rb.shape
-        with mesh.shard(d):
-            if b == 0:
-                ok = torch.zeros(0, dtype=torch.bool, device=rb.device)
-                bad = torch.zeros(p, dtype=torch.int32, device=rb.device)
-            else:
-                ok, bad = validate_segments(
-                    rb.reshape(p * b, r), lb.reshape(-1), cb.reshape(-1), b, kernel)
-        oks.append(ok.reshape(p, b))
-        bads.append(bad)
-    return oks, bads
+        blocks = [a.blocks[d] for a in args]
+        _check_crc_blocks(*blocks[:3], r)
+        if len(blocks) > 3 and blocks[3].dim() != 2:
+            raise ValueError(f"votes must be [rows, G], got {tuple(blocks[3].shape)}")
+        _check_blocks(blocks, (torch.uint8, torch.int32, torch.int32, torch.uint8),
+                      blocks[0].device)
+
+
+def _crc_plain_shards(mesh: PartitionMesh, args):
+    """K8/K9 on a CPU mesh: the plain versions shard by shard, and the
+    tally (with votes) as the aggregator sums it."""
+    oks, bads = zip(*(sharded_crc_plain(*(a.blocks[d] for a in args[:3]))
+                      for d in range(mesh.size)))
+    return list(oks), list(bads), _tally(mesh, args[3]) if len(args) > 3 else None
+
+
+def _crc_on_cards(mesh: PartitionMesh, args, r: int, kernel):
+    """The split CRC kernel's launches over checked shard blocks: one ok
+    and one bad tensor per card (the shards' blocks are views of them), one
+    launch of ``kernel`` per ``card_chunks`` entry on the current stream of
+    its card and, with votes, the cards' partial tallies summed on
+    ``devices[0]``. Returns the per-shard ok and bad blocks and the tally
+    (None without votes)."""
+    rows, lens, claimed = args[:3]
+    votes = args[3] if len(args) > 3 else None
+    p, b = rows.blocks[0].shape[:2]
+    oks, bads = [None] * mesh.size, [None] * mesh.size
+    per_card, where = {}, {}
+    for dev, shards in card_groups(mesh.devices):
+        per_card[dev] = (torch.empty((len(shards), p, b), dtype=torch.bool, device=dev),
+                         torch.empty((len(shards), p), dtype=torch.int32, device=dev))
+        for i, d in enumerate(shards):
+            oks[d], bads[d], where[d] = per_card[dev][0][i], per_card[dev][1][i], i
+
+    def launch(dev, shards, partial):
+        if votes is not None and partial is None:
+            partial = torch.empty(votes.blocks[0].shape[1], dtype=torch.int32, device=dev)
+        blocks = [(rows.blocks[d].view(p * b, r), lens.blocks[d].view(-1),
+                   claimed.blocks[d].view(-1), None if votes is None else votes.blocks[d])
+                  for d in shards]
+        ok, bad = per_card[dev]
+        lo = where[shards[0]]  # a chunk is a run of its card's shards
+        crc_blocks(kernel, blocks, r, max(b, 1), ok[lo : lo + len(shards)],
+                   bad[lo : lo + len(shards)].view(-1), tally=partial)
+        return partial
+
+    chunks = card_chunks(mesh.devices, MAX_CRC_SHARDS)
+    if votes is not None:
+        return oks, bads, _sum_chunks(mesh, chunks, votes.blocks[0].shape[1], launch)
+    for dev, shards in chunks:
+        with on_device(dev):
+            launch(dev, shards, None)
+    return oks, bads, None
+
+
+def _crc_step(mesh: PartitionMesh, arrays, r: int, kernel):
+    args = [local_blocks(mesh, a) for a in arrays]
+    _check_crc_args(mesh, args, r)
+    if mesh.type == "cuda":
+        return _crc_on_cards(mesh, args, r, kernel)
+    return _crc_plain_shards(mesh, args)
 
 
 def make_sharded_crc_check(mesh: PartitionMesh, r: int):
     """fn(rows u8 [P, B, r], lens i32 [P, B], claimed u32 [P, B]) ->
     (ok bool [P, B], bad int32 [P]) as ``Sharded`` arrays: every batch of
-    every partition validated on the shard that owns the partition, no
-    traffic between shards."""
+    every partition validated on the card that owns the partition, in one
+    launch per card, no traffic between cards."""
+    r = int(r)
 
     def check(rows, lens, claimed):
-        rows, lens, claimed = shard_to_mesh(mesh, rows, lens, claimed)
-        oks, bads = _crc_shards(mesh, rows, lens, claimed, r, kernels.CRC32C_SHARDED)
-        mesh.join(*oks, *bads)
+        oks, bads, _ = _crc_step(mesh, (rows, lens, claimed), r, kernels.CRC32C_SHARDED)
         return Sharded(mesh, oks), Sharded(mesh, bads)
 
     return check
@@ -238,14 +298,13 @@ def make_sharded_crc_check(mesh: PartitionMesh, r: int):
 def make_crc_vote_step(mesh: PartitionMesh, r: int):
     """The raft step (BASELINE config 5): fn(rows u8 [D, B, r], lens i32
     [D, B], claimed u32 [D, B], votes u8 [D, G]) -> (ok bool [D, B], bad
-    int32 [D], tally int32 [G]): the batch validator with a bad count on
-    each shard, and the vote tally across the mesh."""
+    int32 [D], tally int32 [G]): the batch validator with a bad count per
+    row of ``rows`` and the column sums of the votes in one launch per
+    card, and the cards' partial tallies summed on ``devices[0]``."""
+    r = int(r)
 
     def step(rows, lens, claimed, votes):
-        rows, lens, claimed, votes = shard_to_mesh(mesh, rows, lens, claimed, votes)
-        oks, bads = _crc_shards(mesh, rows, lens, claimed, r, kernels.CRC32C_VOTE)
-        tally = _tally(mesh, votes)  # on the current streams, after shard_to_mesh's join
-        mesh.join(*oks, *bads)
+        oks, bads, tally = _crc_step(mesh, (rows, lens, claimed, votes), r, kernels.CRC32C_VOTE)
         return Sharded(mesh, oks), Sharded(mesh, bads), tally
 
     return step
@@ -281,11 +340,8 @@ def _check_step_blocks(blocks, r_batch: int, r_rec: int) -> None:
         raise ValueError("record lengths must be [P, N] like the record rows")
     if v.dim() != 2 or v.shape[0] != p:
         raise ValueError(f"votes must be [{p}, G], got {tuple(v.shape)}")
-    for t, dtype in zip(blocks, (torch.uint8, torch.int32, torch.int32, torch.uint8,
-                                 torch.int32, torch.uint8)):
-        if t.dtype != dtype or not t.is_contiguous() or t.device != br.device:
-            raise ValueError(f"step block {tuple(t.shape)} {t.dtype} on {t.device}: expected "
-                             f"a contiguous {dtype} block on {br.device}")
+    _check_blocks(blocks, (torch.uint8, torch.int32, torch.int32, torch.uint8, torch.int32,
+                           torch.uint8), br.device)
 
 
 def _step_plain_shards(mesh: PartitionMesh, prog, args, r_batch: int, r_rec: int):

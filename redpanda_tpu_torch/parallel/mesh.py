@@ -10,14 +10,16 @@ card, not once per shard: each card's shard blocks are placed with one copy
 (``local_blocks``) and read by one kernel launch through a table of block
 pointers, on the caller's current stream of that card (``card_groups``,
 ``card_chunks``). The one collective, the vote tally's sum, adds the cards'
-partials on ``devices[0]`` (parallel/collectives.py). The sharded CRC checks
-(K8, K9) still enqueue each shard's launch on that shard's own CUDA stream.
+partials on ``devices[0]`` (parallel/collectives.py). The shard streams
+serve ``shard_to_mesh`` and the engine's mesh lane, which makes a card's
+first shard stream current for that card's work (coproc/engine.py); the
+mesh programs run on whatever stream is current.
 
 A mesh may name one card several times (``devices=[cuda:0] * 4``): a
 *virtual mesh*, the counterpart of the JAX package's virtual CPU devices.
 Its shards share one card (one launch of each per-card program over all
-four shards; K8 and K9 on four streams of it), so it runs every mesh kernel
-and every copy, but measures nothing about scaling across cards.
+four shards), so it runs every mesh kernel and every copy, but measures
+nothing about scaling across cards.
 ``device="cpu"`` gives CPU shards, on which the kernels' plain versions run
 synchronously: the tests' stand-in.
 
@@ -25,8 +27,8 @@ Every function of the mesh modules leaves its results ready on the
 caller's current stream of each device. Work on the shard streams first
 waits for the caller's streams (``fork``), and the caller's streams wait for
 the shard streams at the end (``join``); work that runs only on the
-caller's current streams (the stacked predicate, the vote tally and the
-coproc step over ``local_blocks``) needs neither.
+caller's current streams (every mesh program, over ``local_blocks``) needs
+neither.
 """
 
 from __future__ import annotations

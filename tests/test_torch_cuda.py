@@ -315,13 +315,19 @@ def _mesh_kernels_match_plain(mesh, dev):
     assert COL.tally_copies == before[1] + 2 * (cards - 1)
     args = [_t(a, dev) for a in (rows, lens, claimed)]
     want_ok, want_bad = COL.sharded_crc_plain(*args)
+    before = kernels.CRC32C_SHARDED.launches
     ok, bad = COL.make_sharded_crc_check(mesh, rows.shape[2])(rows, lens, claimed)
+    assert kernels.CRC32C_SHARDED.launches == before + cards  # one launch per card
     assert torch.equal(torch.from_numpy(np.asarray(ok)), want_ok.cpu())
     assert torch.equal(torch.from_numpy(np.asarray(bad)), want_bad.cpu())
     assert int(want_bad.sum()) == 3
     v = votes[: mesh.size]
     step = COL.make_crc_vote_step(mesh, rows.shape[2])
+    before = kernels.CRC32C_VOTE.launches, kernels.VOTE_TALLY.launches
     got = step(rows[: mesh.size], lens[: mesh.size], claimed[: mesh.size], v)
+    # one launch per card, the tally in it; the partials' sum across cards
+    assert kernels.CRC32C_VOTE.launches == before[0] + cards
+    assert kernels.VOTE_TALLY.launches == before[1] + (0 if cards == 1 else 1)
     want = COL.crc_vote_plain(*[_t(a[: mesh.size], dev) for a in (rows, lens, claimed, v)])
     for g, w in zip(got, want):
         assert (_host(g) == w.cpu().numpy()).all()
@@ -514,6 +520,113 @@ def test_coproc_step_200_calls_on_fresh_inputs(card):
     assert kernels.COPROC_STEP.launches == before + 200
 
 
+# ------------------------------------------------------------------ K8/K9 (split CRC kernel)
+def _split_rows(rng, r, n):
+    """n rows of width r (random bytes everywhere, garbage past each
+    length) at lengths on and around every round and span boundary of the
+    split kernel, 0, negative and past r, the rest random; three claims
+    wrong."""
+    from redpanda_tpu_torch.hashing.crc32c import crc32c_many
+    from redpanda_tpu_torch.ops.crc32c_device import ROUND
+
+    rounds = -(-r // ROUND)
+    spans = sorted({-(-rounds // w) * ROUND for w in (2, 4, 8)})  # every split's spans
+    marks = [0, -3, r + 5, 1, 15, 16, 17, r - 1, r]
+    marks += [j * s + e for s in spans for j in range(1, r // s + 1) for e in (-1, 0, 1)]
+    marks += [k * ROUND + e for k in range(1, r // ROUND + 1) for e in (-1, 0, 1)]
+    marks = [x for x in marks if -3 <= x <= r + 5][:n]
+    lens = np.array(marks + [int(x) for x in rng.integers(0, r + 1, n - len(marks))], np.int32)
+    rows = rng.integers(0, 256, size=(n, r), dtype=np.uint8)
+    claimed = crc32c_many(rows, lens)
+    live = np.flatnonzero(lens > 0)
+    claimed[live[[1, len(live) // 2, -1]]] ^= 0x20
+    return rows, lens, claimed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [100, 2048, 5000, 8192, 16384])
+def test_crc_blocks_match_plain_on_edge_rows(card, r):
+    """K9 over [16, 4, r] and K8 over [4, 16, r] with [4, 33] votes on a
+    virtual mesh of four shards, one launch a call and no tally launch, and
+    validate_segments' one-block case: all equal to the plain versions at
+    the edge lengths (widths that are not multiples of 16 give unaligned
+    rows; 5000, 8192 and 16384 are split across 2, 4 and 8 warps)."""
+    from redpanda_tpu_torch.ops import crc32c_device as C
+    from redpanda_tpu_torch.parallel import collectives as COL
+    from redpanda_tpu_torch.parallel import partition_mesh
+
+    mesh = partition_mesh(devices=[card] * 4)
+    rng = np.random.default_rng(r)
+    rows, lens, claimed = _split_rows(rng, r, 64)
+    d, ln, cl = _t(rows, card), _t(lens, card), _t(claimed, card)
+    votes = _t(rng.integers(0, 2, (4, 33)).astype(np.uint8), card)
+    p9 = (d.view(16, 4, r), ln.view(16, 4), cl.view(16, 4))
+    p8 = (d.view(4, 16, r), ln.view(4, 16), cl.view(4, 16), votes)
+    before = [k.launches for k in (kernels.CRC32C_SHARDED, kernels.CRC32C_VOTE, kernels.VOTE_TALLY)]
+    ok, bad = COL.make_sharded_crc_check(mesh, r)(*p9)
+    got8 = COL.make_crc_vote_step(mesh, r)(*p8)
+    after = [k.launches for k in (kernels.CRC32C_SHARDED, kernels.CRC32C_VOTE, kernels.VOTE_TALLY)]
+    assert after == [before[0] + 1, before[1] + 1, before[2]]
+    w_ok, w_bad = COL.sharded_crc_plain(*p9)
+    assert (_host(ok) == w_ok.cpu().numpy()).all() and (_host(bad) == w_bad.cpu().numpy()).all()
+    for g, w in zip(got8, COL.crc_vote_plain(*p8)):
+        assert (_host(g) == w.cpu().numpy()).all()
+    assert int(w_bad.sum()) == 3 and not w_ok.all()
+    seg_ok, seg_bad = C.validate_segments(d, ln, cl, 7, kernels.CRC32C_SHARDED)
+    w_ok, w_bad = C.validate_segments_plain(d, ln, cl, 7)
+    assert torch.equal(seg_ok, w_ok) and torch.equal(seg_bad, w_bad)
+
+
+@pytest.mark.cuda
+def test_crc_blocks_match_plain_at_full_width(card):
+    """Config 5's append as K9 [256, 4, 16384] and K8 [4, 256, 16384] with
+    [4, 256] votes on a virtual mesh, each equal to the plain version."""
+    from redpanda_tpu_torch.parallel import collectives as COL
+    from redpanda_tpu_torch.parallel import partition_mesh
+
+    mesh = partition_mesh(devices=[card] * 4)
+    rng = np.random.default_rng(41)
+    rows, lens, claimed = _split_rows(rng, 16384, 1024)
+    d, ln, cl = _t(rows, card), _t(lens, card), _t(claimed, card)
+    votes = _t(rng.integers(0, 2, (4, 256)).astype(np.uint8), card)
+    p9 = (d.view(256, 4, 16384), ln.view(256, 4), cl.view(256, 4))
+    ok, bad = COL.make_sharded_crc_check(mesh, 16384)(*p9)
+    w_ok, w_bad = COL.sharded_crc_plain(*p9)
+    assert (_host(ok) == w_ok.cpu().numpy()).all() and (_host(bad) == w_bad.cpu().numpy()).all()
+    p8 = (d.view(4, 256, 16384), ln.view(4, 256), cl.view(4, 256), votes)
+    for g, w in zip(COL.make_crc_vote_step(mesh, 16384)(*p8), COL.crc_vote_plain(*p8)):
+        assert (_host(g) == w.cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+def test_crc_blocks_200_calls_on_fresh_inputs(card):
+    """200 calls of K8 on a virtual mesh, each on rows, lengths and claims
+    permuted and votes drawn on the card just before it, each equal to the
+    plain answer permuted the same way (the plain version runs once)."""
+    from redpanda_tpu_torch.parallel import collectives as COL
+    from redpanda_tpu_torch.parallel import partition_mesh
+
+    mesh = partition_mesh(devices=[card] * 4)
+    r, n = 5000, 64
+    rows, lens, claimed = _split_rows(np.random.default_rng(43), r, n)
+    d, ln, cl = _t(rows, card), _t(lens, card), _t(claimed, card)
+    base_ok = COL.sharded_crc_plain(d.view(n, 1, r), ln.view(n, 1), cl.view(n, 1))[0].view(n)
+    step = COL.make_crc_vote_step(mesh, r)
+    gen = torch.Generator(device=card).manual_seed(17)
+    before = kernels.CRC32C_VOTE.launches
+    for _ in range(200):
+        perm = torch.randperm(n, generator=gen, device=card)
+        votes = torch.randint(0, 2, (4, 256), generator=gen, device=card, dtype=torch.uint8)
+        lp = ln[perm]
+        ok, bad, tally = step(d[perm].view(4, 16, r), lp.view(4, 16), cl[perm].view(4, 16), votes)
+        w_ok = base_ok[perm].view(4, 16)
+        assert torch.equal(torch.from_numpy(_host(ok)), w_ok.cpu())
+        w_bad = (~w_ok & (lp.view(4, 16) > 0)).sum(1, dtype=torch.int32)
+        assert torch.equal(torch.from_numpy(_host(bad)), w_bad.cpu())
+        assert torch.equal(tally, COL.vote_tally_plain(votes))
+    assert kernels.CRC32C_VOTE.launches == before + 200
+
+
 @pytest.mark.cuda
 def test_engine_mesh_lane_and_raft_mesh_leg_on_the_card(card):
     from redpanda_tpu_torch import entry
@@ -546,9 +659,11 @@ def test_engine_mesh_lane_and_raft_mesh_leg_on_the_card(card):
     claimed = np.array([crc32c(x) for x in regions], np.uint32)
     claimed[[0, 50]] ^= 1
     plane = RaftDevicePlane(mesh=mesh, probe=False, device=card)
-    before = kernels.CRC32C_VOTE.launches
+    before = kernels.CRC32C_VOTE.launches, kernels.VOTE_TALLY.launches
     assert (plane.validate(regions, claimed) == _host_validate(regions, claimed)).all()
-    assert kernels.CRC32C_VOTE.launches == before + 4
+    # one launch for the card's four shards, the (empty) tally in it
+    assert kernels.CRC32C_VOTE.launches == before[0] + 1
+    assert kernels.VOTE_TALLY.launches == before[1]
     votes = rng.integers(0, 2, (4, 256)).astype(np.uint8)
     assert (plane.tally_votes(votes) == votes.astype(np.int32).sum(0)).all()
     entry.dryrun_multichip(4, devices=[card] * 4)

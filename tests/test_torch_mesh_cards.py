@@ -216,9 +216,10 @@ def test_coproc_step_checks_its_blocks():
 
 # ------------------------------------------------------------------ the build
 def test_kernel_builds_are_named_by_their_headers(tmp_path, monkeypatch):
-    """The fused step shares the CRC and transform device bodies through
-    headers in csrc/; a kernel's library is named by a hash of its source
-    and every header it includes, so a changed header never loads a stale
+    """The fused step shares the CRC, transform and tally device bodies
+    through headers in csrc/, as the split CRC kernel shares the CRC and
+    tally bodies; a kernel's library is named by a hash of its source and
+    every header it includes, so a changed header never loads a stale
     library."""
     import os
     import sys
@@ -227,8 +228,11 @@ def test_kernel_builds_are_named_by_their_headers(tmp_path, monkeypatch):
 
     names = {k.name: sorted(os.path.basename(f) for f in kernels.source_files(
         os.path.join(kernels.CSRC, os.path.basename(k.source)))) for k in kernels.KERNELS}
-    assert names["coproc_step"] == ["coproc_step.cu", "crc32c.cuh", "payload_transform.cuh"]
-    assert names["crc32c_vote"] == ["crc32c.cu", "crc32c.cuh"]
+    assert names["coproc_step"] == ["coproc_step.cu", "crc32c.cuh", "payload_transform.cuh",
+                                    "vote_tally.cuh"]
+    assert names["crc32c_vote"] == ["crc32c.cuh", "crc_blocks.cu", "vote_tally.cuh"]
+    assert names["crc32c"] == ["crc32c.cu", "crc32c.cuh"]
+    assert names["vote_tally"] == ["vote_tally.cu", "vote_tally.cuh"]
     assert names["payload_transform"] == ["payload_transform.cu", "payload_transform.cuh"]
     assert names["predicate_stacked"] == ["predicate.cu"]
 
