@@ -10,8 +10,15 @@ Phases, each of which exits non-zero on failure:
 2. Hold each kernel against its plain PyTorch version on the same CUDA
    tensors, bit for bit: the predicate (K1) over the DOCS x EXPRS table,
    a tree deeper than one stack word, and the bench's 32768 rows; the
-   payload transform (K3/K4) over the bench's staged rows in both output
-   layouts. Print kernel ms (CUDA events), plain ms and the bound.
+   payload transform (K3/K4) over the hand-made edge rows of
+   ops/transforms.py edge_cases with their specs and over the bench's rows,
+   packed (stride 1160) with the buffer at every offset mod 16 and
+   unpacked, then over the bench's staged rows in both output layouts for
+   the projection and the uppercase spec. Print kernel ms (CUDA events: the
+   call, and one launch of the C entry point alone), plain ms and the
+   bound (the launch's device time comes in phase 10).
+   Then redpanda_tpu_torch.entry.entry()'s record pipeline (K3's path,
+   counted apart as payload_record) against the CPU run.
 3. Drive TorchEngine(device="cuda") the way bench.py drives the engine:
    64 partitions x 32 records x ~1 KB JSON, row_stride 1152, GROUP 16
    ticks fused per launch, DEPTH 3 launches in flight, 160 ticks, for the
@@ -20,10 +27,12 @@ Phases, each of which exits non-zero on failure:
    byte-identical to TorchEngine(device="cpu") on the same requests, and
    every kernel's launch count over this phase must be > 0. Print
    record_batches/s, stage times and H2D/D2H bytes and ms.
-4. CRC-32C (K5, K6): both modes of the CRC kernel against the plain
-   version over edge lengths (0, 1, 7, 8, 63, 64, 65, r-1, r, r+5, -3 and
-   random, random bytes past each length), bit for bit; kernel ms at the
-   raft shape (K5) and the produce shape (K6).
+4. CRC-32C (K5, K6: the split CRC kernel over one block) against the
+   plain versions at r = 100, 2048, 4097 and 16384 over 256, 1024 and 8192
+   rows (64 and 512 more of 16384: 1, 2, 4 and 8 warps a row), aligned and
+   one byte off, at edge and random lengths (random bytes past each), bit
+   for bit; the call and the launch alone at the raft shape (K5) and the
+   produce shape (K6).
 5. Produce path (BASELINE config 1, bench.py run_config1_crc_validate):
    1024 one-record batches of 1 KiB values, r = 2048, through
    CrcBackend("device") with one corrupted claimed CRC and through
@@ -80,7 +89,10 @@ Phases, each of which exits non-zero on failure:
       host to host, and the mesh leg and the single-device leg timed in
       turns on the same append (median of 5 each);
    d. redpanda_tpu_torch.entry.dryrun_multichip(4) on the virtual mesh.
-10. Print the kernels line, the card's name and power limit, and last the
+10. torch.profiler's device time of one K3, K4, K5 and K6 launch each
+    (rows in L2, and the L2 cache flushed), after every path, so that no
+    path is timed behind a profiler session.
+11. Print the kernels line, the card's name and power limit, and last the
     {"ok": true, "device": ...} line.
 
 Phases 3, 5-8 and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
@@ -329,7 +341,152 @@ def phase_predicate(dev) -> dict:
                       f"tree and the bench shape (n={n})"}
 
 
-def phase_payload(dev) -> dict:
+# torch.profiler sessions run after every path (phase_device_times), so that
+# no path of this script is timed behind one: (label, the dict that takes
+# the device times, a launch, the kernel's name)
+PROFILE_LATER = []
+
+
+def device_ms(fn, kernel_name: str, flush=None) -> float:
+    """torch.profiler's device time of one call of ``fn`` (mean over 40),
+    for the kernel whose name holds ``kernel_name``; with ``flush`` (a
+    tensor on the card) the L2 cache is flushed before each call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then delivers no kernel record
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(40):
+                if flush is not None:
+                    flush.fill_(1)
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if kernel_name in e.key]
+        if ev:
+            return ev[0].device_time_total / 1e3 / ev[0].count
+    fail(f"the profiler saw no {kernel_name} time")
+
+
+def phase_device_times(dev) -> None:
+    """The device time of each launch PROFILE_LATER holds, with the rows in
+    L2 and with the L2 cache flushed before each launch (a 128 MB write)."""
+    import torch
+
+    l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    for label, target, run, name in PROFILE_LATER:
+        target["device_ms"] = device_ms(run, name)
+        target["device_l2_flushed_ms"] = device_ms(run, name, l2_flush)
+        log(f"{label}: one launch {target['device_ms']:.4f} ms of device time by torch.profiler "
+            f"({target['device_l2_flushed_ms']:.4f} with L2 flushed)")
+
+
+def raw_payload_launch(prog, src, lens, dev):
+    """One launch of rp_payload_transform over ``src`` (packed when lens is
+    None) with the C entry point called directly (no wrapper, not counted):
+    (fn, its outputs)."""
+    import torch
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.ops.pipeline import OUT_META
+
+    n = src.shape[0]
+    desc, pats = prog.on(dev)
+    if lens is None:
+        outs = (torch.empty((n, prog.r_out + OUT_META), dtype=torch.uint8, device=dev),)
+        ptrs = (outs[0].data_ptr(), outs[0].stride(0), None, None)
+    else:
+        outs = (torch.empty((n, prog.r_out), dtype=torch.uint8, device=dev),
+                torch.empty(n, dtype=torch.int32, device=dev),
+                torch.empty(n, dtype=torch.bool, device=dev))
+        ptrs = (outs[0].data_ptr(), outs[0].stride(0), outs[1].data_ptr(), outs[2].data_ptr())
+    argv = (src.data_ptr(), src.stride(0), None if lens is None else lens.data_ptr(), n,
+            prog.r_in, *ptrs, prog.r_out, 1, desc.data_ptr(), prog.n_filters, prog.mapper,
+            prog.n_fields, pats.data_ptr(), kernels.stream_handle(dev))
+    fn = kernels.PAYLOAD_TRANSFORM.fn()
+
+    def run():
+        if fn(*argv) != 0:
+            fail("rp_payload_transform refused its launch")
+
+    run.tensors = (src, lens, outs, desc, pats)  # alive while the launch may run
+    return run, outs
+
+
+def staged_at(data, lens, offset: int, dev):
+    """data u8 [n, r] and lens i32 [n] staged as the engine stages them
+    ([n, r + IN_META]: the row, its LE32 length, 4 zero bytes) in a view
+    whose first byte lies ``offset`` bytes past a 16-byte boundary and whose
+    last byte ends the buffer's bytes the view covers."""
+    import torch
+
+    from redpanda_tpu_torch.ops.pipeline import IN_META
+
+    n, r = data.shape
+    buf = torch.zeros(n * (r + IN_META) + offset, dtype=torch.uint8, device=dev)
+    staged = buf[offset:].view(n, r + IN_META)
+    staged[:, :r] = data
+    staged[:, r : r + 4] = lens.view(torch.uint8).reshape(n, 4)
+    return staged
+
+
+def payload_edges(dev) -> str:
+    """The payload kernel against its plain version on the hand-made edge
+    rows (ops/transforms.py edge_cases at r = 1152: window edges at 31/32/33
+    and 127/128/129, matches ending at the length and at r, with and without
+    the nonnum rule, lengths 0 and past r, Int and Str at their limits),
+    packed with the staging buffer at every offset mod 16 (stride 1160) and
+    unpacked at offsets 0 and 3, each view ending where its buffer ends;
+    and the bench's first 2048 staged rows at every offset mod 16."""
+    import torch
+
+    from redpanda_tpu_torch.coproc import batch_codec
+    from redpanda_tpu_torch.coproc.engine import pack_staged
+    from redpanda_tpu_torch.ops.pipeline import (
+        IN_META, packed_plain, record_plain, run_packed, run_record)
+    from redpanda_tpu_torch.ops.transforms import compile_transform, edge_cases
+
+    data_np, lens_np, specs = edge_cases(ROW_STRIDE)
+    data, lens = torch.from_numpy(data_np).to(dev), torch.from_numpy(lens_np).to(dev)
+    ex = batch_codec.explode_batches([b for it in build_request(False).items for b in it.batches])
+    b_staged = torch.empty((len(ex.sizes), ROW_STRIDE + IN_META), dtype=torch.uint8)
+    pack_staged(ex, ROW_STRIDE, b_staged.numpy())
+    b_rows = b_staged[:, :ROW_STRIDE].contiguous().to(dev)
+    b_lens = b_staged[:, ROW_STRIDE : ROW_STRIDE + 4].contiguous().view(torch.int32).reshape(-1)
+    b_lens = b_lens.to(dev)
+    cases = 0
+    for si, spec in enumerate(specs + [payload_spec()]):
+        prog = compile_transform(spec, ROW_STRIDE)
+        sets = [("edge", data, lens)] + ([("bench", b_rows, b_lens)] if si == len(specs) else [])
+        for name, d, ln in sets:
+            for off in range(16):
+                staged = staged_at(d, ln, off, dev)
+                got, want = run_packed(prog, staged), packed_plain(prog, staged)
+                kept = want[:, prog.r_out + 4].bool()
+                if not (torch.equal(got[:, prog.r_out:], want[:, prog.r_out:])
+                        and torch.equal(got[kept, : prog.r_out], want[kept, : prog.r_out])):
+                    fail(f"payload kernel != plain on the {name} rows (spec {si}, offset {off})")
+                cases += 1
+            for off in (0, 3):
+                buf = torch.zeros(d.numel() + off, dtype=torch.uint8, device=dev)
+                dd = buf[off:].view(d.shape)
+                dd.copy_(d)
+                g_out, g_len, g_keep = run_record(prog, dd, ln)
+                w_out, w_len, w_keep = record_plain(prog, dd, ln)
+                if not (torch.equal(g_keep, w_keep) and torch.equal(g_len, w_len)
+                        and torch.equal(g_out[w_keep], w_out[w_keep])):
+                    fail(f"payload kernel != plain on the {name} rows, unpacked (spec {si}, "
+                         f"offset {off})")
+                cases += 1
+    torch.cuda.synchronize()
+    msg = (f"{len(lens_np)} edge rows x {len(specs)} edge specs and the bench's first "
+           f"{b_rows.shape[0]} rows, packed at every offset mod 16 and unpacked at 0 and 3")
+    log(f"K3/K4 edge sets: {cases} cases bit-identical to the plain version ({msg})")
+    return msg
+
+
+def phase_payload(dev) -> tuple[dict, dict]:
     import torch
 
     from redpanda_tpu_torch.coproc import batch_codec
@@ -339,7 +496,8 @@ def phase_payload(dev) -> dict:
     from redpanda_tpu_torch.ops.transforms import (
         compile_transform, filter_contains, map_uppercase)
 
-    out = {}
+    edges = payload_edges(dev)
+    k4, k3 = {}, {}
     specs = {"project": payload_spec(), "uppercase": filter_contains(b"warn") | map_uppercase()}
     for short in (False, True):
         req = build_request(short_msgs=short)
@@ -368,24 +526,67 @@ def phase_payload(dev) -> dict:
                 fail(f"payload kernel != plain (unpacked, {name}, short={short})")
             log(f"K3/K4 parity ({name}, {'short' if short else 'bench'} msgs): "
                 f"{int(keep.sum())} of {n_pad} rows kept, bit-identical in both layouts")
-            if name == "project" and not short:
-                ms = cuda_ms(lambda: run_packed(prog, staged), 50)
-                plain_ms = cuda_ms(lambda: packed_plain(prog, staged), 3)
-                nbytes = staged.nbytes + n_pad * (prog.r_out + OUT_META)
-                b_ms, b_by = bound_ms(nbytes, staged.nbytes)
-                pinned = staged_np.pin_memory()
-                h2d_ms = cuda_ms(lambda: staged.copy_(pinned, non_blocking=True), 10)
-                log(f"K3/K4 bench shape: {n_pad} x {ROW_STRIDE + IN_META} B staged, kernel "
-                    f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms * 1e3:.2f} us "
-                    f"({b_by}, {nbytes} B); staged H2D from pinned memory {h2d_ms:.3f} ms")
-                # compared: the meta columns of every row, the output of kept rows
-                err = max_abs_err([(got[:, prog.r_out:], want[:, prog.r_out:]),
-                                   (got[keep, : prog.r_out], want[keep, : prog.r_out])])
-                out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": b_ms, "bound_by": b_by, "h2d_ms": h2d_ms,
-                       "parity": "bit-identical (meta of every row, output of kept rows) for "
-                                 "both specs in both layouts, bench and short messages"}
-    return out
+            if short:
+                continue
+            # K4 (packed) and K3 (unpacked): the call and one launch alone
+            # (events); the launch's device time comes at the end
+            tp, tu = (k4, k3) if name == "project" else ({}, {})
+            for kid, t, call, src, ln in (
+                    ("K4", tp, lambda: run_packed(prog, staged), staged, None),
+                    ("K3", tu, lambda: run_record(prog, data, lens), data, lens)):
+                run, _ = raw_payload_launch(prog, src, ln, dev)
+                t.update(ms=cuda_ms(call, 50), launch_ms=cuda_ms(run, 50))
+                PROFILE_LATER.append((f"{kid} bench shape ({name} spec)", t, run, "payload_kernel"))
+            log(f"K4 bench shape ({name} spec): {n_pad} x {ROW_STRIDE + IN_META} B staged: call "
+                f"{tp['ms']:.4f} ms, launch alone {tp['launch_ms']:.4f} ms")
+            log(f"K3 bench shape ({name} spec): {n_pad} x {ROW_STRIDE} B rows: call "
+                f"{tu['ms']:.4f} ms, launch alone {tu['launch_ms']:.4f} ms")
+            if name != "project":
+                continue
+            plain_ms = cuda_ms(lambda: packed_plain(prog, staged), 3)
+            plain_rec_ms = cuda_ms(lambda: record_plain(prog, data, lens), 3)
+            nbytes = staged.nbytes + n_pad * (prog.r_out + OUT_META)
+            b_ms, b_by = bound_ms(nbytes, staged.nbytes)
+            rec_bytes = data.nbytes + lens.nbytes + n_pad * (prog.r_out + 5)
+            b3_ms, b3_by = bound_ms(rec_bytes, data.nbytes)
+            pinned = staged_np.pin_memory()
+            h2d_ms = cuda_ms(lambda: staged.copy_(pinned, non_blocking=True), 10)
+            log(f"K3/K4 plain {plain_rec_ms:.3f} / {plain_ms:.3f} ms, bound "
+                f"{b3_ms * 1e3:.2f} / {b_ms * 1e3:.2f} us ({b_by}, {rec_bytes} / {nbytes} B); "
+                f"staged H2D from pinned memory {h2d_ms:.3f} ms")
+            # compared: the meta columns of every row, the output of kept rows
+            k4.update(max_abs_err=max_abs_err([
+                (got[:, prog.r_out:], want[:, prog.r_out:]),
+                (got[keep, : prog.r_out], want[keep, : prog.r_out])]),
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, h2d_ms=h2d_ms)
+            k3.update(max_abs_err=max_abs_err([(g_keep, w_keep), (g_len, w_len),
+                                               (g_out[w_keep], w_out[w_keep])]),
+                      plain_ms=plain_rec_ms, bound_ms=b3_ms, bound_by=b3_by)
+    parity = ("bit-identical (meta of every row, output of kept rows) for both specs in both "
+              f"layouts, bench and short messages, and on {edges}")
+    k4["parity"] = k3["parity"] = parity
+    return k4, k3
+
+
+def phase_payload_entry(dev) -> dict:
+    """The graft entry's flagship program (redpanda_tpu_torch.entry.entry):
+    the record pipeline, K3's path, against its plain version."""
+    import torch
+
+    from redpanda_tpu_torch import entry, kernels
+
+    fn, args = entry.entry(dev)
+    cpu_fn, cpu_args = entry.entry("cpu")
+    kernels.reset_launches()  # the entry's path starts here
+    got = fn(*args)
+    launches = path_launches("entry", kernels.PAYLOAD_RECORD)  # and ends here
+    want = cpu_fn(*cpu_args)
+    keep = want[2]
+    if not (torch.equal(got[2].cpu(), keep) and torch.equal(got[1].cpu(), want[1])
+            and torch.equal(got[0].cpu()[keep], want[0][keep])):
+        fail("entry(): the record pipeline differs from its plain version")
+    log(f"entry(): the record pipeline on the card equals the CPU run; launches {launches}")
+    return launches
 
 
 def reply_bytes(reply):
@@ -474,18 +675,6 @@ def phase_engine(dev) -> dict:
 
 
 # ------------------------------------------------------------------ CRC / LZ4 inputs
-def crc_edge_rows(r: int, seed: int, n_random: int):
-    """Rows of width r, random bytes everywhere (garbage past each length),
-    at the edge lengths and random ones."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    lens = [0, 1, 7, 8, 63, 64, 65, r - 1, r, r + 5, -3]
-    lens += [int(x) for x in rng.integers(0, r + 1, n_random)]
-    data = rng.integers(0, 256, size=(len(lens), r), dtype=np.uint8)
-    return data, np.array(lens, np.int32)
-
-
 def produce_regions():
     """bench.py run_config1_crc_validate: 64 one-record batches of 1 KiB
     values, 16 times over: 1024 Kafka-CRC regions and their claimed CRCs."""
@@ -537,56 +726,107 @@ def crc_bound(lens, n_in_arrays: int, out_bytes_per_row: int, r: int) -> tuple[f
 
 
 # ------------------------------------------------------------------ CRC phases
-def phase_crc_kernels(dev) -> dict:
+def raw_crc_rows_launch(kernel, data, lens, claimed, dev):
+    """One launch of rp_crc_rows (rp_crc_blocks over one block) over (data,
+    lens): the CRCs (K5) or, with claimed, the ok flags (K6), the C entry
+    point called directly (no wrapper, not counted): (fn, its output)."""
+    import torch
+
+    from redpanda_tpu_torch.ops.crc32c_device import _layout_args
+
+    n, r = data.shape
+    out = torch.empty(n, dtype=torch.int32 if claimed is None else torch.bool, device=dev)
+    crc_out, ok = (out.data_ptr(), None) if claimed is None else (None, out.data_ptr())
+    argv = (data.data_ptr(), lens.data_ptr(), None if claimed is None else claimed.data_ptr(), n,
+            r, *_layout_args(dev, r, n), crc_out, ok,
+            torch.cuda.current_stream(dev).cuda_stream)
+    fn = kernel.fn()
+
+    def run():
+        if fn(*argv) != 0:
+            fail("rp_crc_rows refused its launch")
+
+    run.tensors = (data, lens, claimed, out)  # alive while the launch may run
+    return run, out
+
+
+def crc_split_cases(dev) -> str:
+    """K5 and K6 against their plain versions at r = 100, 2048, 4097 and
+    16384 over 256, 1024 and 8192 rows (and 64 and 512 of 16384: every span
+    count split_layout picks), on rows at a 16-byte boundary and one byte
+    past it; lengths at the edges (0, negative, past r, round and span
+    boundaries) and random, every third claim wrong."""
     import numpy as np
     import torch
 
     from redpanda_tpu_torch.hashing.crc32c import crc32c_many
     from redpanda_tpu_torch.ops import crc32c_device as C
 
-    out = {}
-    for r, n_random in ((100, 200), (2048, 1013), (16384, 1013)):
-        data, lens = crc_edge_rows(r, seed=r, n_random=n_random)
-        d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lens).to(dev)
-        got, want = C.crc32c_rows(d, ln), C.crc_plain(d, ln)
-        claimed = want.clone()
-        claimed[::3] ^= 0x100
-        ok, ok_want = C.validate_rows(d, ln, claimed), C.validate_plain(d, ln, claimed)
-        odd = d[:, 1:].contiguous()  # rows that are not 16-byte aligned
-        odd_got, odd_want = C.crc32c_rows(odd, ln), C.crc_plain(odd, ln)
-        torch.cuda.synchronize()
-        if not (torch.equal(got, want) and torch.equal(odd_got, odd_want)):
-            fail(f"crc32c kernel != plain at r={r}")
-        if not torch.equal(ok, ok_want):
-            fail(f"crc32c_validate kernel != plain at r={r}")
-        if not np.array_equal(C.as_u32(got), crc32c_many(data, lens)):
-            fail(f"crc32c kernel != host crc32c_many at r={r}")
-        log(f"K5/K6 parity at r={r}: {len(lens)} rows at edge and random lengths, "
-            f"{int(ok.sum())} ok, bit-identical to the plain version")
-        if r == 16384:
-            out["crc32c"] = {"max_abs_err": max_abs_err([(got, want), (odd_got, odd_want)])}
-        if r == 2048:
-            out["crc32c_validate"] = {"max_abs_err": max_abs_err([(ok, ok_want)])}
+    gen = torch.Generator(device=dev).manual_seed(23)
+    layouts = set()
+    for r in (100, 2048, 4097, 16384):
+        for n in (256, 1024, 8192) + ((64, 512) if r == 16384 else ()):
+            edge = torch.tensor([0, -3, r + 5, r, r - 1, 1, 15, 16, 17, 511, 512, 513, 2048,
+                                 2049, 4096, 8192], dtype=torch.int32, device=dev)
+            lens = torch.randint(0, r + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+            lens[: len(edge)] = edge
+            buf = torch.randint(0, 256, (n * r + 1,), generator=gen, device=dev,
+                                dtype=torch.uint8)
+            for off in (0, 1):
+                d = buf[off : off + n * r].view(n, r)
+                want = C.crc_plain(d, lens)
+                claimed = want.clone()
+                claimed[::3] ^= 0x100
+                got, ok = C.crc32c_rows(d, lens), C.validate_rows(d, lens, claimed)
+                if not (torch.equal(got, want)
+                        and torch.equal(ok, C.validate_plain(d, lens, claimed))):
+                    fail(f"crc32c / crc32c_validate != plain at r={r}, {n} rows, offset {off}")
+            if n == 256:
+                host = crc32c_many(d.cpu().numpy(), lens.cpu().numpy())
+                if not np.array_equal(C.as_u32(got), host):
+                    fail(f"crc32c kernel != host crc32c_many at r={r}")
+            layouts.add(C.split_layout(r, n, C.sm_count(dev))[0])
+    torch.cuda.synchronize()
+    msg = (f"r = 100, 2048, 4097 and 16384 over 256, 1024 and 8192 rows (and 64 and 512 of "
+           f"16384), "
+           f"aligned and one byte off, {sorted(layouts)} warps a row")
+    log(f"K5/K6 split cases bit-identical to the plain version: {msg}")
+    if layouts != {1, 2, 4, 8}:
+        fail(f"the CRC cases ran {sorted(layouts)} warps a row, not every split")
+    return msg
 
-    # timing at the paths' shapes: K5 at the raft append, K6 at the produce path
-    regions = [b.crc_region() for b in random_batches(1024, RAFT_RECORDS, RAFT_VALUE, 1)]
+
+def phase_crc_kernels(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.ops import crc32c_device as C
     from redpanda_tpu_torch.ops.packing import pack_rows
 
+    cases = crc_split_cases(dev)
+    out = {}
+    # K5 at the raft append's shape, K6 at the produce path's
+    regions = [b.crc_region() for b in random_batches(1024, RAFT_RECORDS, RAFT_VALUE, 1)]
     rows, lens = pack_rows(regions, 16384)
     d, ln = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
     got, want = C.crc32c_rows(d, ln), C.crc_plain(d, ln)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         fail("crc32c kernel != plain at the raft shape")
-    out["crc32c"]["max_abs_err"] = max(out["crc32c"]["max_abs_err"], max_abs_err([(got, want)]))
-    out["crc32c"]["parity"] = ("bit-identical at r=100, 2048 and 16384 (edge lengths, "
-                               "unaligned rows) and at the raft shape 1024 x 16384")
-    ms = cuda_ms(lambda: C.crc32c_rows(d, ln), 100)
+    run, _ = raw_crc_rows_launch(kernels.CRC32C, d, ln, None, dev)
+    t = {"ms": cuda_ms(lambda: C.crc32c_rows(d, ln), 100), "launch_ms": cuda_ms(run, 100)}
     plain_ms = cuda_ms(lambda: C.crc_plain(d, ln), 1)
     b_ms, b_by = crc_bound(lens, 1, 4, 16384)
-    log(f"K5 raft shape: 1024 x 16384, {int(lens.sum())} valid B: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.2f} ms, bound {b_ms * 1e3:.3f} us ({b_by})")
-    out["crc32c"].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"K5 raft shape: 1024 x 16384, {int(lens.sum())} valid B, "
+        f"{C.split_layout(16384, 1024, C.sm_count(dev))[0]} warps a row: call {t['ms']:.4f} ms, "
+        f"launch alone {t['launch_ms']:.4f}; plain {plain_ms:.2f} ms, bound "
+        f"{b_ms * 1e3:.3f} us ({b_by})")
+    out["crc32c"] = {"max_abs_err": max_abs_err([(got, want)]), "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "parity": f"bit-identical at the raft shape 1024 x 16384 and at {cases}",
+                     **t}
+    PROFILE_LATER.append(("K5 raft shape", out["crc32c"], run, "crc_blocks_kernel"))
     regions, claimed = produce_regions()
     rows, lens = pack_rows(regions, 2048)
     d, ln = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
@@ -595,16 +835,18 @@ def phase_crc_kernels(dev) -> dict:
     torch.cuda.synchronize()
     if not torch.equal(ok, ok_want):
         fail("crc32c_validate kernel != plain at the produce shape")
-    v = out["crc32c_validate"]
-    v["max_abs_err"] = max(v["max_abs_err"], max_abs_err([(ok, ok_want)]))
-    v["parity"] = ("bit-identical at r=100, 2048 and 16384 (edge lengths, every third claim "
-                   "wrong) and at the produce shape 1024 x 2048")
-    ms = cuda_ms(lambda: C.validate_rows(d, ln, cl), 100)
+    run, _ = raw_crc_rows_launch(kernels.CRC32C_VALIDATE, d, ln, cl, dev)
+    t = {"ms": cuda_ms(lambda: C.validate_rows(d, ln, cl), 100), "launch_ms": cuda_ms(run, 100)}
     plain_ms = cuda_ms(lambda: C.validate_plain(d, ln, cl), 1)
     b_ms, b_by = crc_bound(lens, 2, 1, 2048)
-    log(f"K6 produce shape: 1024 x 2048, {int(lens.sum())} valid B: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.2f} ms, bound {b_ms * 1e3:.3f} us ({b_by})")
-    out["crc32c_validate"].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"K6 produce shape: 1024 x 2048, {int(lens.sum())} valid B: call {t['ms']:.4f} ms, "
+        f"launch alone {t['launch_ms']:.4f}; plain {plain_ms:.2f} ms, bound "
+        f"{b_ms * 1e3:.3f} us ({b_by})")
+    out["crc32c_validate"] = {"max_abs_err": max_abs_err([(ok, ok_want)]), "plain_ms": plain_ms,
+                              "bound_ms": b_ms, "bound_by": b_by,
+                              "parity": f"bit-identical at the produce shape 1024 x 2048 and at "
+                                        f"{cases}", **t}
+    PROFILE_LATER.append(("K6 produce shape", out["crc32c_validate"], run, "crc_blocks_kernel"))
     return out
 
 
@@ -1246,7 +1488,7 @@ def raw_crc_launch(kernel, blocks, r, seg, n_bad, g, dev):
     wpr, span = split_layout(r, rows * len(blocks), sm_count(dev))
     rounds = round_powers_on(dev)
     argv = (table, len(blocks), rows, r, seg, wpr, span, kernel_tables_on(dev).data_ptr(),
-            rounds.data_ptr(), rounds.shape[0], span_table_on(dev, span).data_ptr(),
+            rounds.data_ptr(), rounds.shape[0], span_table_on(dev, span).data_ptr(), None,
             ok.data_ptr(), bad.data_ptr(), n_bad,
             0 if blocks[0][3] is None else blocks[0][3].shape[0], g,
             tally.data_ptr() if g else None, kernels.stream_handle(dev))
@@ -1500,6 +1742,7 @@ def main() -> int:
     from redpanda_tpu_torch.compression import codecs
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     zstd = ("zstandard" if codecs.zstandard is not None
             else "libzstd via ctypes" if codecs.zstd_available() else "none (output degrades to gzip)")
@@ -1511,8 +1754,10 @@ def main() -> int:
     for k in kernels.KERNELS:
         ptxas = [ln.strip() for ln in k.build_log().splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {k.name}: {' | '.join(ptxas)}")
-    measured = {"predicate": phase_predicate(dev), "payload_transform": phase_payload(dev)}
+    measured = {"predicate": phase_predicate(dev)}
+    measured["payload_transform"], measured["payload_record"] = phase_payload(dev)
     launches, engine_run = phase_engine(dev)
+    launches.update(phase_payload_entry(dev))
     measured.update(phase_crc_kernels(dev))
     launches.update(phase_produce(dev))
     crc_paths = [phase_raft(dev), phase_recovery(dev)]
@@ -1529,6 +1774,7 @@ def main() -> int:
     engine_launches = phase_engine_mesh(dev, mesh, engine_run)
     raft_launches = phase_raft_mesh(dev, mesh)
     dry_launches = phase_dryrun(dev)
+    phase_device_times(dev)
     launches["predicate_stacked"] = engine_launches["predicate_stacked"]
     launches["crc32c_vote"] = raft_launches["crc32c_vote"]
     launches["crc32c_sharded"] = mesh_launches["crc32c_sharded"]
@@ -1543,9 +1789,11 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m.get("library_ms"), "parity": m["parity"],
         }
-        if "launch_ms" in m:
-            row["launch_ms"] = m["launch_ms"]
+        for extra in ("launch_ms", "device_ms"):
+            if extra in m:
+                row[extra] = m[extra]
         line.append(row)
+    log(f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": line}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

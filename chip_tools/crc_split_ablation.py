@@ -162,7 +162,7 @@ def main() -> int:
     wpr, span = split_layout(r, n, sm_count(dev))
     rounds = round_powers_on(dev)
     argv = (table, blocks, k, r, seg, wpr, span, kernel_tables_on(dev).data_ptr(),
-            rounds.data_ptr(), rounds.shape[0], span_table_on(dev, span).data_ptr(),
+            rounds.data_ptr(), rounds.shape[0], span_table_on(dev, span).data_ptr(), None,
             ok.data_ptr(), bad.data_ptr(), n // seg, 0, 0, None,
             torch.cuda.current_stream(dev).cuda_stream)
     l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -211,8 +211,8 @@ def main() -> int:
         for lw in (1, 2, 4, 8):
             lspan = -(-(-(-r // lw)) // 512) * 512
             largv = (tab, 1, rows_n, r, seg, lw, lspan) + argv[7:10] + (
-                span_table_on(dev, lspan).data_ptr(), okk.data_ptr(), bb.data_ptr(),
-                rows_n // seg) + argv[14:]
+                span_table_on(dev, lspan).data_ptr(), None, okk.data_ptr(), bb.data_ptr(),
+                rows_n // seg) + argv[15:]
             fn(*largv)
             torch.cuda.synchronize()
             if int(bb.sum()) != 0 or not bool(okk.all()):

@@ -111,7 +111,7 @@ coproc_step_kernel(const __grid_constant__ Table table, int n_blocks, int a_ctas
     uint8_t* row = smem + warp * per_warp;
     rp_payload::transform_row(slot<uint8_t>(table, b, R_ROWS) + (long long)k * r_rec,
                               slot<int32_t>(table, b, R_LENS)[k], row,
-                              row + rp_payload::align16(r_rec), r_rec, out + i * r_out,
+                              row + rp_payload::row_bytes(r_rec), r_rec, out + i * r_out,
                               out_len + i, keep + i, r_out, /*mask_len=*/0, desc, n_filters,
                               mapper, n_fields, pats, lane);
     return;

@@ -1,8 +1,7 @@
-// CRC-32C of one row by one warp: the device body shared by the batch CRC
-// kernel (csrc/crc32c.cu: K5, K6), the fused coproc step
-// (csrc/coproc_step.cu: K10) and the split kernel of the mesh's CRC checks
-// (csrc/crc_blocks.cu: K8, K9), which cuts a long row into spans, one warp
-// each (lane_walk, warp_xor), and joins them (multmodp, sliced).
+// CRC-32C of one row by one warp: the device body shared by the fused
+// coproc step (csrc/coproc_step.cu: K10) and the split CRC kernel
+// (csrc/crc_blocks.cu: K5, K6, K8, K9), which cuts a long row into spans,
+// one warp each (lane_walk, warp_xor), and joins them (multmodp, sliced).
 //
 // The row is cut into 16-byte blocks and lane k takes blocks k, k+32,
 // k+64, ..., so each round the warp reads 512 contiguous bytes (16-byte

@@ -1,26 +1,38 @@
-// The sharded CRC check (K9) and the CRC + vote step (K8) of the partition
-// mesh on Hopper: one launch per card over a table of its shards' blocks.
+// The split CRC-32C kernel on Hopper: the batch CRC (K5), the batch
+// validator (K6), the sharded CRC check (K9) and the CRC + vote step (K8)
+// of the partition mesh, one launch per card over a table of its blocks.
 //
-// Replaces the JAX programs redpanda_tpu/parallel/collectives.py:155
+// Replaces the JAX programs redpanda_tpu/ops/crc32c_device.py:84
+// (make_crc_fn.crc_fn: the CRC-32C, init and xorout 0xFFFFFFFF, of each
+// row's first clip(len, 0, r) bytes), redpanda_tpu/ops/pipeline.py:53
+// (make_batch_validator.validate: ok = crc == claimed && len > 0, the raw
+// length), redpanda_tpu/parallel/collectives.py:155
 // (make_sharded_crc_check._local: per device, the batch validator over its
 // [P/D, B, r] rows and bad = sum(~ok & (lens > 0)) over each partition's B
 // rows) and :124 (make_crc_vote_step._local: the same, and the psum of the
-// [., G] votes). The JAX programs are one shard_map each, one program per
-// device; here each is one launch per card (parallel/collectives.py), on
-// the caller's current stream, over every shard block that card holds. The
-// batch validator with a bad count per segment of rows
-// (ops/crc32c_device.py validate_segments) is the one-block case.
+// [., G] votes). K5 and K6 are the one-block case (ops/crc32c_device.py
+// crc32c_rows, validate_rows), launched through rp_crc_rows, which takes
+// the block's pointers as arguments instead of a host table (the table and
+// its arguments cost their calls about 10 us of the host's time a launch);
+// so is the validator with a bad count per segment of rows
+// (validate_segments). The JAX mesh programs are one
+// shard_map each, one program per device, and here each is one launch per
+// card (parallel/collectives.py), on the caller's current stream, over
+// every shard block that card holds. Bytes past a row's length are never
+// read.
 //
 // The launch reads its inputs through a table of block pointers passed by
-// value: four a shard (rows u8 [rows, r], lengths i32 [rows], claimed CRCs
-// i32 [rows], votes u8 [vote_rows, G]), 480 in all (3840 B, inside the
-// classic 4 KB parameter space with the other arguments), so a launch takes
-// at most 120 shards and the wrapper cuts a card's shards into chunks of
-// that many. The outputs are contiguous over the launch's shards in table
-// order: ok u8 [n_blocks * rows]; bad int32 [n_bad], bad[i / seg] += 1 for
-// every row i of length > 0 whose ok is false (zeroed here first, on the
-// launch's stream; one atomicAdd per bad row, and bad rows are rare); and
-// for K8 the int32 [G] column sums of all the launch's votes.
+// value: four a shard (rows u8 [rows, r] at a stride of r, lengths i32
+// [rows], claimed CRCs i32 [rows] or none, votes u8 [vote_rows, G]), 480 in
+// all (3840 B, inside the classic 4 KB parameter space with the other
+// arguments), so a launch takes at most 120 shards and the wrapper cuts a
+// card's shards into chunks of that many. The outputs are contiguous over
+// the launch's shards in table order, each optional: crc u32 [n_blocks *
+// rows]; ok u8 [n_blocks * rows], with the claims; bad int32 [n_bad],
+// bad[i / seg] += 1 for every row i of length > 0 whose ok is false (zeroed
+// here first, on the launch's stream; one atomicAdd per bad row, and bad
+// rows are rare); and for K8 the int32 [G] column sums of all the launch's
+// votes.
 //
 // What bounds it on an H100: each valid byte is read once and costs about
 // 1.25 table lookups in shared memory (slicing-by-8 and the 496-byte skip,
@@ -28,10 +40,10 @@
 // SMs' shared-memory ports are the two limits; at the port's shapes the
 // chain of dependent steps a row takes (staging, loads, lookups, the
 // joins' carry-less multiplies) weighs more than either (PERF.md,
-// chip_tools/crc_split_ablation.py). A warp per row, as the batch kernel
-// has it, gives a shard of config 5's append (256 rows of 16 KB) 256
-// warps, ~2 of the 64 an SM holds, each walking its row in 32 dependent
-// rounds: the card stays nearly empty. The design fills it:
+// chip_tools/crc_split_ablation.py). A warp per row gives a shard of
+// config 5's append (256 rows of 16 KB) 256 warps, ~2 of the 64 an SM
+// holds, each walking its row in 32 dependent rounds: the card stays
+// nearly empty. The design fills it:
 //   - when the launch's rows are too few to fill the card, each row is cut
 //     into `wpr` spans of whole rounds (2, 4 or 8, each span 2 KB or more)
 //     that the warps of one CTA share; each warp builds its span's register
@@ -41,8 +53,8 @@
 //     bytes in that multiply (x^(8 (gap + L)) mod P: CRC is linear over
 //     GF(2)); the warps' registers meet in shared memory, and one thread
 //     joins them by Horner's rule, over each full span with four lookups
-//     in a byte-sliced table of the span's advance; it compares the CRC
-//     with the claim, writes ok and counts a bad row. A multiply costs
+//     in a byte-sliced table of the span's advance; it writes the CRC,
+//     compares it with the claim, writes ok and counts a bad row. A multiply costs
 //     ~200 instructions, as much as a span's own walk of four rounds, so
 //     the lanes do all of them in parallel before the join, one or two
 //     each;
@@ -80,12 +92,16 @@ constexpr int kSpanTable = 4 * 256;  // words of the byte-sliced advance over on
 
 enum Slot : int { ROWS = 0, LENS, CLAIMED, VOTES };
 
+// The table of a launch's block pointers, passed by value: kMaxPtrs for
+// the mesh's launches, one shard's four for a launch over one block (K5,
+// K6, validate_segments), whose parameters are then 3.8 KB smaller.
+template <int kPtrs>
 struct Table {
-  const void* p[kMaxPtrs];
+  const void* p[kPtrs];
 };
 
-template <typename T>
-__device__ __forceinline__ const T* slot(const Table& t, long long block, int s) {
+template <typename T, int kPtrs>
+__device__ __forceinline__ const T* slot(const Table<kPtrs>& t, long long block, int s) {
   return static_cast<const T*>(t.p[block * kPtrsPerShard + s]);
 }
 
@@ -118,10 +134,12 @@ __device__ __forceinline__ void stage_tables(uint32_t* t, uint32_t* ts,
   __syncthreads();
 }
 
+template <int kPtrs>
 __global__ void __launch_bounds__(kThreads)
-crc_blocks_kernel(const __grid_constant__ Table table, int n_blocks, int rows, int r, int seg,
-                  int wpr, int span, int crc_ctas, const uint32_t* __restrict__ crc_tables,
-                  const uint32_t* __restrict__ rounds, const uint32_t* __restrict__ span_table,
+crc_blocks_kernel(const __grid_constant__ Table<kPtrs> table, int n_blocks, int rows, int r,
+                  int seg, int wpr, int span, int crc_ctas,
+                  const uint32_t* __restrict__ crc_tables, const uint32_t* __restrict__ rounds,
+                  const uint32_t* __restrict__ span_table, uint32_t* __restrict__ crc_out,
                   uint8_t* __restrict__ ok, int32_t* __restrict__ bad, int vote_rows, int g,
                   int32_t* __restrict__ tally) {
   __shared__ __align__(16) uint32_t t[rp_crc::kTables];
@@ -185,15 +203,20 @@ crc_blocks_kernel(const __grid_constant__ Table table, int n_blocks, int rows, i
       }
     }
     if (live && j == 0 && lane == 0) {
-      const bool good = (reg ^ 0xFFFFFFFFu) == slot<uint32_t>(table, b, CLAIMED)[k] && raw > 0;
-      ok[i] = good ? 1 : 0;
-      if (raw > 0 && !good) atomicAdd(&bad[i / seg], 1);
+      const uint32_t crc = reg ^ 0xFFFFFFFFu;
+      if (crc_out != nullptr) crc_out[i] = crc;
+      if (ok != nullptr) {
+        const bool good = crc == slot<uint32_t>(table, b, CLAIMED)[k] && raw > 0;
+        ok[i] = good ? 1 : 0;
+        if (bad != nullptr && raw > 0 && !good) atomicAdd(&bad[i / seg], 1);
+      }
     }
     if (wpr > 1) __syncthreads();  // `part` is the next row's
   }
 }
 
 // CTAs of the kernel that fit on the current device at once (cached).
+template <int kPtrs>
 int resident_ctas(int* out) {
   static std::atomic<int> cache[kMaxDevices];
   int dev = 0;
@@ -203,58 +226,93 @@ int resident_ctas(int* out) {
   int sms = 0, per_sm = 0;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, crc_blocks_kernel, kThreads, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, crc_blocks_kernel<kPtrs>, kThreads,
+                                                      0);
   if (e != cudaSuccess) return (int)e;
   *out = sms * (per_sm > 0 ? per_sm : 1);
   if (dev >= 0 && dev < kMaxDevices) cache[dev].store(*out);
   return 0;
 }
 
-}  // namespace
-
-// The check over n_blocks shards (1..120) of one card: `table` is a host
-// array of 4 * n_blocks device pointers, shard b's at [4 b, 4 b + 4): rows
-// u8 [rows, r], lengths i32 [rows], claimed CRCs u32 [rows] and votes u8
-// [vote_rows, g] (read only when g > 0). Writes ok u8 [n_blocks * rows],
-// bad i32 [n_bad] (every bad index (n_blocks * rows - 1) / seg at most lies
-// inside) and, when g > 0, tally i32 [g]. Rows are cut into wpr spans of
-// `span` bytes (ops/crc32c_device.py split_layout); crc_tables are the CRC
-// kernels' tables (kernel_tables), rounds the n_rounds powers x^(8*512*q)
-// (round_powers), which must cover r, and span_table the byte-sliced
-// advance over `span` zero bytes (span_table; read only when wpr > 1).
-extern "C" int rp_crc_blocks(const void* const* table, int n_blocks, int rows, int r, int seg,
-                             int wpr, int span, const void* crc_tables, const void* rounds,
-                             int n_rounds, const void* span_table, void* ok, void* bad,
-                             int n_bad, int vote_rows, int g, void* tally, void* stream) {
-  if (n_blocks < 1 || n_blocks * kPtrsPerShard > kMaxPtrs || rows < 0 || r < 0 || seg < 1 ||
-      (wpr != 1 && wpr != 2 && wpr != 4 && wpr != 8) || span < rp_crc::kRound ||
-      span % rp_crc::kRound != 0 || (long long)wpr * span < r || n_rounds <= r / rp_crc::kRound ||
-      (wpr > 1 && span_table == nullptr) || n_bad < 0 || vote_rows < 0 || g < 0 ||
-      (g > 0 && tally == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const long long total = (long long)n_blocks * rows;
-  if (total > 0 && n_bad <= (total - 1) / seg) return (int)cudaErrorInvalidValue;
-  if (n_bad > 0) {
-    const cudaError_t e =
-        cudaMemsetAsync(bad, 0, sizeof(int32_t) * (size_t)n_bad, (cudaStream_t)stream);
-    if (e != cudaSuccess) return (int)e;
-  }
+// One launch over the table's n_blocks (<= kPtrs / 4) blocks: a persistent
+// grid of CRC CTAs, then the tally's.
+template <int kPtrs>
+int launch(const void* const* table, int n_blocks, long long total, int rows, int r, int seg,
+           int wpr, int span, const void* crc_tables, const void* rounds, const void* span_table,
+           void* crc_out, void* ok, void* bad, int vote_rows, int g, void* tally, void* stream) {
   const int per_cta = kWarps / wpr;
   long long crc_ctas = (total + per_cta - 1) / per_cta;
   if (crc_ctas > 0) {
     int cap = 0;
-    const int e = resident_ctas(&cap);
+    const int e = resident_ctas<kPtrs>(&cap);
     if (e != 0) return e;
     if (crc_ctas > cap) crc_ctas = cap;  // the CTAs walk the rest
   }
   const long long v = ((long long)g + kThreads - 1) / kThreads;
   if (crc_ctas + v == 0) return 0;
   if (crc_ctas + v > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  Table tab = {};
+  Table<kPtrs> tab = {};
   for (int k = 0; k < n_blocks * kPtrsPerShard; ++k) tab.p[k] = table[k];
-  crc_blocks_kernel<<<(unsigned)(crc_ctas + v), kThreads, 0, (cudaStream_t)stream>>>(
+  crc_blocks_kernel<kPtrs><<<(unsigned)(crc_ctas + v), kThreads, 0, (cudaStream_t)stream>>>(
       tab, n_blocks, rows, r, seg, wpr, span, (int)crc_ctas, (const uint32_t*)crc_tables,
-      (const uint32_t*)rounds, (const uint32_t*)span_table, (uint8_t*)ok, (int32_t*)bad,
-      vote_rows, g, (int32_t*)tally);
+      (const uint32_t*)rounds, (const uint32_t*)span_table, (uint32_t*)crc_out, (uint8_t*)ok,
+      (int32_t*)bad, vote_rows, g, (int32_t*)tally);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The check over n_blocks shards (1..120) of one card: `table` is a host
+// array of 4 * n_blocks device pointers, shard b's at [4 b, 4 b + 4): rows
+// u8 [rows, r] at a stride of r, lengths i32 [rows], claimed CRCs u32
+// [rows] (null when ok is null, and only then) and votes u8 [vote_rows, g]
+// (read only when g > 0). Writes, each when given: crc_out u32 [n_blocks *
+// rows], the CRCs; ok u8 [n_blocks * rows]; bad i32 [n_bad] (with ok;
+// every bad index (n_blocks * rows - 1) / seg at most lies inside); and,
+// when g > 0, tally i32 [g]. At least one of crc_out and ok. Rows are cut
+// into wpr spans of `span` bytes (ops/crc32c_device.py split_layout);
+// crc_tables are the CRC tables (kernel_tables), rounds the n_rounds powers
+// x^(8*512*q) (round_powers), which must cover r when wpr > 1, and
+// span_table the byte-sliced advance over `span` zero bytes (span_table;
+// read only when wpr > 1).
+extern "C" int rp_crc_blocks(const void* const* table, int n_blocks, int rows, int r, int seg,
+                             int wpr, int span, const void* crc_tables, const void* rounds,
+                             int n_rounds, const void* span_table, void* crc_out, void* ok,
+                             void* bad, int n_bad, int vote_rows, int g, void* tally,
+                             void* stream) {
+  if (n_blocks < 1 || n_blocks * kPtrsPerShard > kMaxPtrs || rows < 0 || r < 0 || seg < 1 ||
+      (wpr != 1 && wpr != 2 && wpr != 4 && wpr != 8) || span < rp_crc::kRound ||
+      span % rp_crc::kRound != 0 || (long long)wpr * span < r ||
+      (wpr > 1 && (n_rounds <= r / rp_crc::kRound || span_table == nullptr)) ||
+      (crc_out == nullptr && ok == nullptr) || (bad != nullptr && ok == nullptr) || n_bad < 0 ||
+      vote_rows < 0 || g < 0 || (g > 0 && tally == nullptr))
+    return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < n_blocks; ++k)  // the claims and ok come as a pair
+    if ((table[k * kPtrsPerShard + CLAIMED] == nullptr) != (ok == nullptr))
+      return (int)cudaErrorInvalidValue;
+  const long long total = (long long)n_blocks * rows;
+  if (bad != nullptr && total > 0 && n_bad <= (total - 1) / seg) return (int)cudaErrorInvalidValue;
+  if (bad != nullptr && n_bad > 0) {
+    const cudaError_t e =
+        cudaMemsetAsync(bad, 0, sizeof(int32_t) * (size_t)n_bad, (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return n_blocks == 1
+             ? launch<kPtrsPerShard>(table, n_blocks, total, rows, r, seg, wpr, span, crc_tables,
+                                     rounds, span_table, crc_out, ok, bad, vote_rows, g, tally,
+                                     stream)
+             : launch<kMaxPtrs>(table, n_blocks, total, rows, r, seg, wpr, span, crc_tables,
+                                rounds, span_table, crc_out, ok, bad, vote_rows, g, tally, stream);
+}
+
+// The one-block case (K5, K6): rp_crc_blocks over the block (rows u8
+// [rows, r] at a stride of r, lengths, claimed CRCs or null) without a
+// host table of its pointers, and without a bad count or votes.
+extern "C" int rp_crc_rows(const void* rows_p, const void* lens, const void* claimed, int rows,
+                           int r, int wpr, int span, const void* crc_tables, const void* rounds,
+                           int n_rounds, const void* span_table, void* crc_out, void* ok,
+                           void* stream) {
+  const void* table[kPtrsPerShard] = {rows_p, lens, claimed, nullptr};
+  return rp_crc_blocks(table, 1, rows, r, 1, wpr, span, crc_tables, rounds, n_rounds, span_table,
+                       crc_out, ok, nullptr, 0, 0, 0, nullptr, stream);
 }

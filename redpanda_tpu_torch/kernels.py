@@ -82,6 +82,8 @@ class Kernel:
 
     def fn(self):
         """The bound C entry point, building the library on first use."""
+        if self._fn is not None:
+            return self._fn
         with self._lock:
             if self._fn is None:
                 src = os.path.join(CSRC, os.path.basename(self.source))
@@ -126,45 +128,62 @@ PREDICATE = Kernel(
     _PREDICATE_ARGS,
 )
 
+# in, in_stride, lens, n, r_in, out, out_stride, out_len, keep, r_out,
+# mask_len, desc, n_filters, mapper, n_fields, patterns, stream
+_PAYLOAD_ARGS = [_P, _L, _P, _I, _I, _P, _L, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P]
+
+# the payload transform in the packed layout (the engine's pipeline) ...
 PAYLOAD_TRANSFORM = Kernel(
     "payload_transform",
     "redpanda_tpu_torch/csrc/payload_transform.cu",
     "redpanda_tpu/ops/pipeline.py:73",
     "rp_payload_transform",
-    # in, in_stride, lens, n, r_in, out, out_stride, out_len, keep, r_out,
-    # mask_len, desc, n_filters, mapper, n_fields, patterns, stream
-    [_P, _L, _P, _I, _I, _P, _L, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P],
+    _PAYLOAD_ARGS,
 )
 
-# data, stride, lens, n, r, tables, crc_out, claimed, ok_out, stream
-_CRC_ARGS = [_P, _L, _P, _I, _I, _P, _P, _P, _P, _P]
-
-CRC32C = Kernel(
-    "crc32c",
-    "redpanda_tpu_torch/csrc/crc32c.cu",
-    "redpanda_tpu/ops/crc32c_device.py:84",
-    "rp_crc32c",
-    _CRC_ARGS,
-)
-
-# the same kernel in its validator mode (claimed -> ok), counted apart
-CRC32C_VALIDATE = Kernel(
-    "crc32c_validate",
-    "redpanda_tpu_torch/csrc/crc32c.cu",
-    "redpanda_tpu/ops/pipeline.py:53",
-    "rp_crc32c",
-    _CRC_ARGS,
-    lib="crc32c",
+# ... and in the unpacked one (lengths, out, out_len and keep as arrays),
+# counted apart
+PAYLOAD_RECORD = Kernel(
+    "payload_record",
+    "redpanda_tpu_torch/csrc/payload_transform.cu",
+    "redpanda_tpu/ops/transforms.py:378",
+    "rp_payload_transform",
+    _PAYLOAD_ARGS,
+    lib="payload_transform",
 )
 
 # table (host array of 4 * n_blocks device pointers), n_blocks, rows, r,
-# seg, wpr, span, crc tables, round powers, n_rounds, span table, ok, bad,
-# n_bad, vote_rows, g, tally, stream
-_CRC_BLOCKS_ARGS = [_P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P]
+# seg, wpr, span, crc tables, round powers, n_rounds, span table, crc_out,
+# ok, bad, n_bad, vote_rows, g, tally, stream
+_CRC_BLOCKS_ARGS = [_P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P]
 
-# the split CRC kernel over a table of a card's shard blocks, with a bad-row
-# count per segment: the raft mesh step, with the vote tally in the same
-# launch ...
+# rows, lengths, claimed, rows, r, wpr, span, crc tables, round powers,
+# n_rounds, span table, crc_out, ok, stream: rp_crc_blocks over one block
+_CRC_ROWS_ARGS = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P]
+
+# The split CRC kernel (csrc/crc_blocks.cu) serves four JAX programs,
+# counted apart: the batch CRC over one block of rows (crc_out) ...
+CRC32C = Kernel(
+    "crc32c",
+    "redpanda_tpu_torch/csrc/crc_blocks.cu",
+    "redpanda_tpu/ops/crc32c_device.py:84",
+    "rp_crc_rows",
+    _CRC_ROWS_ARGS,
+    lib="crc_blocks",
+)
+
+# ... the batch validator over one block (claimed -> ok) ...
+CRC32C_VALIDATE = Kernel(
+    "crc32c_validate",
+    "redpanda_tpu_torch/csrc/crc_blocks.cu",
+    "redpanda_tpu/ops/pipeline.py:53",
+    "rp_crc_rows",
+    _CRC_ROWS_ARGS,
+    lib="crc_blocks",
+)
+
+# ... over a table of a card's shard blocks, with a bad-row count per
+# segment: the raft mesh step, with the vote tally in the same launch ...
 CRC32C_VOTE = Kernel(
     "crc32c_vote",
     "redpanda_tpu_torch/csrc/crc_blocks.cu",
@@ -228,7 +247,7 @@ COPROC_STEP = Kernel(
 )
 
 KERNELS = (
-    PREDICATE, PAYLOAD_TRANSFORM, CRC32C, CRC32C_VALIDATE, LZ4_BLOCK,
+    PREDICATE, PAYLOAD_TRANSFORM, PAYLOAD_RECORD, CRC32C, CRC32C_VALIDATE, LZ4_BLOCK,
     PREDICATE_STACKED, VOTE_TALLY, CRC32C_VOTE, CRC32C_SHARDED, COPROC_STEP,
 )
 

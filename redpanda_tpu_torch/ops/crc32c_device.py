@@ -3,9 +3,10 @@
 ``crc32c_rows(data u8 [N, r], lengths i32 [N])`` is the CRC-32C of each
 row's first clip(len, 0, r) bytes; ``validate_rows(data, lengths,
 claimed)`` is ok[i] = crc[i] == claimed[i] and len[i] > 0 (the raw length)
-in the same launch. On CUDA tensors both launch the hand-written kernel
-(csrc/crc32c.cu); on CPU tensors they run the plain PyTorch version, a
-lockstep table walk over all rows like ``hashing.crc32c.crc32c_many``.
+in the same launch. On CUDA tensors both launch the split CRC kernel
+(csrc/crc_blocks.cu, ``crc_blocks``) over one block; on CPU tensors they
+run the plain PyTorch version, a lockstep table walk over all rows like
+``hashing.crc32c.crc32c_many``.
 Inside the port a CRC travels as the int32 bit pattern of its uint32 value
 (torch has no usable uint32 arithmetic); the numpy entry points
 (``make_crc_fn``, ``crc32c_device``) hand out uint32 as the JAX functions
@@ -16,14 +17,15 @@ over the 496 bytes a lane skips between its 16-byte blocks, and the
 powers x^(8n) mod P that advance a lane's register to the row's end (see
 the kernel's source for the design).
 
-This is the batched kernel the produce path (ops/crc_backend.py), the raft
-follower plane (raft/device_plane.py) and the recovery scan
-(storage/recovery.py) share. ``validate_segments`` (the validator with a
-bad count per segment of rows) is the one-block case of the mesh's split
-kernel (csrc/crc_blocks.cu, ``crc_blocks``), which cuts a long row into
-spans of whole rounds, one warp each, when the launch has too few rows to
-fill the card (``split_layout``), and joins the spans' registers with
-``span_table`` and the powers of ``kernel_tables`` and ``round_powers``.
+The produce path (ops/crc_backend.py), the raft follower plane
+(raft/device_plane.py) and the recovery scan (storage/recovery.py) share
+these. They, ``validate_segments`` (the validator with a bad count per
+segment of rows) and the mesh's CRC checks (parallel/collectives.py) all
+launch the one split kernel, which cuts a long row into spans of whole
+rounds, one warp each, when the launch has too few rows to fill the card
+(``split_layout``), and joins the spans' registers with ``span_table`` and
+the powers of ``kernel_tables`` and ``round_powers``; with many rows each
+row keeps one warp.
 """
 
 from __future__ import annotations
@@ -159,8 +161,8 @@ def _tables_on(device: torch.device) -> tuple[torch.Tensor, ...]:
 
 def kernel_tables_on(device: torch.device) -> torch.Tensor:
     """The CRC kernels' tables (``kernel_tables``) kept on ``device``: the
-    batch CRC kernel, the fused coproc step (csrc/coproc_step.cu) and the
-    split kernel (csrc/crc_blocks.cu) read them."""
+    split kernel (csrc/crc_blocks.cu) and the fused coproc step
+    (csrc/coproc_step.cu) read them."""
     return _tables_on(device)[0]
 
 
@@ -232,28 +234,35 @@ def validate_segments_plain(data, lengths, claimed, seg: int):
 
 
 # ------------------------------------------------------------ wrappers
-def _launch(kernel, data, lengths, crc_out, claimed, ok_out) -> None:
-    n, r = data.shape
-    if n == 0:
-        return
-    tables = kernel_tables_on(data.device)
-    kernel.launch(
-        data.data_ptr(), data.stride(0), lengths.data_ptr(), n, r, tables.data_ptr(),
-        None if crc_out is None else crc_out.data_ptr(),
-        None if claimed is None else claimed.data_ptr(),
-        None if ok_out is None else ok_out.data_ptr(), kernels.stream_handle(data.device),
-    )
-
-
 def crc32c_rows(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """CRC-32C (K5) of each row of data u8 [N, r] at lengths i32 [N]:
     int32 bit patterns [N]. CPU tensors run the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the split kernel over the one block."""
     _check(data, lengths, None)
     if data.device.type == "cpu":
         return crc_plain(data, lengths)
+    return _crc_rows_launch(data, lengths)
+
+
+def _one_block(kernel, data, lengths, claimed, crc_out, ok) -> None:
+    """One launch of the split kernel's one-block entry point
+    (``rp_crc_rows``) over checked rows, contiguous: at a stride of r, as
+    the kernel reads them."""
+    n, r = data.shape
+    if n == 0:
+        return
+    dev = data.device
+    kernel.launch(
+        data.data_ptr(), lengths.data_ptr(), None if claimed is None else claimed.data_ptr(), n,
+        r, *_layout_args(dev, r, n), None if crc_out is None else crc_out.data_ptr(),
+        None if ok is None else ok.data_ptr(), kernels.stream_handle(dev),
+    )
+
+
+def _crc_rows_launch(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """K5's launch over checked rows."""
     out = torch.empty(data.shape[0], dtype=torch.int32, device=data.device)
-    _launch(kernels.CRC32C, data, lengths, out, None, None)
+    _one_block(kernels.CRC32C, data, lengths, None, out, None)
     return out
 
 
@@ -263,20 +272,52 @@ def validate_rows(data: torch.Tensor, lengths: torch.Tensor, claimed: torch.Tens
     _check(data, lengths, claimed)
     if data.device.type == "cpu":
         return validate_plain(data, lengths, claimed)
+    return _validate_rows_launch(data, lengths, claimed)
+
+
+def _validate_rows_launch(data, lengths, claimed) -> torch.Tensor:
+    """K6's launch over checked rows (at a stride of r)."""
     ok = torch.empty(data.shape[0], dtype=torch.bool, device=data.device)
-    _launch(kernels.CRC32C_VALIDATE, data, lengths, None, claimed, ok)
+    _one_block(kernels.CRC32C_VALIDATE, data, lengths, claimed, None, ok)
     return ok
+
+
+@functools.lru_cache(maxsize=None)
+def _constant_ptrs(device: torch.device) -> tuple[int, int, int]:
+    """(CRC tables, round powers, their count) of tensors kept on
+    ``device`` for good."""
+    rounds = round_powers_on(device)
+    return kernel_tables_on(device).data_ptr(), rounds.data_ptr(), rounds.shape[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _span_table_ptr(device: torch.device, span: int) -> int:
+    return span_table_on(device, span).data_ptr()
+
+
+def _layout_args(device: torch.device, r: int, rows: int) -> tuple:
+    """The split kernel's layout arguments for a launch of ``rows`` rows of
+    width r on ``device``: (wpr, span, CRC tables, round powers, n_rounds,
+    span table or None). A row wider than MAX_ROW keeps one warp, which
+    reads neither the powers nor a span table."""
+    if r > MAX_ROW:
+        wpr, span = 1, -(-r // ROUND) * ROUND
+    else:
+        wpr, span = split_layout(r, rows, sm_count(device))
+    return (wpr, span, *_constant_ptrs(device),
+            _span_table_ptr(device, span) if wpr > 1 else None)
 
 
 def crc_blocks(kernel, blocks, r: int, seg: int, ok: torch.Tensor, bad: torch.Tensor,
                tally: torch.Tensor | None = None) -> None:
     """One launch of ``kernel`` (a row of csrc/crc_blocks.cu's
     ``rp_crc_blocks``) on the current stream over 1..MAX_CRC_SHARDS checked
-    CUDA blocks of one card, ``(rows u8 [n, r], lengths i32 [n], claimed
-    i32 [n], votes u8 [m, G] or None)`` each: ok [len(blocks) * n] (bool or
-    u8), bad int32 (zeroed by the launch), bad[i // seg] counting the bad
-    rows i, and with ``tally`` (int32 [G]) the column sums of every block's
-    votes. With no rows and no tally nothing is launched: bad is zeroed."""
+    CUDA blocks of one card, ``(rows u8 [n, r] at stride r, lengths i32
+    [n], claimed i32 [n], votes u8 [m, G] or None)`` each: ok [len(blocks)
+    * n] (bool or u8), bad int32 (zeroed by the launch), bad[i // seg]
+    counting the bad rows i, and with ``tally`` (int32 [G]) the column sums
+    of every block's votes. With no rows and no tally nothing is launched:
+    bad is zeroed."""
     rows0 = blocks[0][0]
     n = rows0.shape[0]
     g = 0 if tally is None else tally.shape[0]
@@ -284,17 +325,13 @@ def crc_blocks(kernel, blocks, r: int, seg: int, ok: torch.Tensor, bad: torch.Te
         bad.zero_()
         return
     dev = rows0.device
-    wpr, span = split_layout(r, n * len(blocks), sm_count(dev))
-    rounds = round_powers_on(dev)
     table = (ctypes.c_void_p * (4 * len(blocks)))(
         *[None if t is None else t.data_ptr() for blk in blocks for t in blk])
     votes = blocks[0][3]
     kernel.launch(
-        table, len(blocks), n, r, seg, wpr, span, kernel_tables_on(dev).data_ptr(),
-        rounds.data_ptr(), rounds.shape[0], span_table_on(dev, span).data_ptr(), ok.data_ptr(),
-        bad.data_ptr(), bad.shape[0],
-        0 if votes is None else votes.shape[0], g, None if tally is None else tally.data_ptr(),
-        kernels.stream_handle(dev),
+        table, len(blocks), n, r, seg, *_layout_args(dev, r, n * len(blocks)), None,
+        ok.data_ptr(), bad.data_ptr(), bad.shape[0], 0 if votes is None else votes.shape[0], g,
+        None if tally is None else tally.data_ptr(), kernels.stream_handle(dev),
     )
 
 

@@ -487,14 +487,16 @@ def _check_lengths(data: torch.Tensor, lengths: torch.Tensor, r_in: int) -> None
 
 def launch_payload_kernel(prog: TransformProgram, src, lens, out, out_len, keep, mask_len: bool):
     """One launch of the payload kernel on the current stream. ``lens`` None
-    reads each row's LE32 length from its meta columns at r_in; ``out_len``
-    None writes the packed meta (masked LE32 out_len, keep byte, 3 zero
-    bytes) into ``out`` at r_out."""
+    reads each row's LE32 length from its meta columns at r_in and writes
+    the packed meta (masked LE32 out_len, keep byte, 3 zero bytes) into
+    ``out`` at r_out (counted as ``payload_transform``, K4); else lengths,
+    out_len and keep are arrays (counted as ``payload_record``, K3)."""
     n = src.shape[0]
     if n == 0:
         return
     desc, pats = prog.on(src.device)
-    kernels.PAYLOAD_TRANSFORM.launch(
+    kernel = kernels.PAYLOAD_TRANSFORM if lens is None else kernels.PAYLOAD_RECORD
+    kernel.launch(
         src.data_ptr(), src.stride(0), None if lens is None else lens.data_ptr(),
         n, prog.r_in, out.data_ptr(), out.stride(0),
         None if out_len is None else out_len.data_ptr(),
@@ -519,3 +521,71 @@ def transform(prog: TransformProgram, data: torch.Tensor, lengths: torch.Tensor)
     keep = torch.empty(n, dtype=torch.bool, device=data.device)
     launch_payload_kernel(prog, data, lengths, out, out_len, keep, mask_len=False)
     return out, out_len, keep
+
+
+def edge_cases(r: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray, list[TransformSpec]]:
+    """Hand-made rows at the payload kernel's edges for rows of r (>= 600)
+    bytes, and the specs that probe them: (rows u8 [n, r], lengths i32 [n],
+    specs). They are test data for the kernel and its plain version:
+      - for patterns of 1, 2, 4, 6 and 9 bytes ('"code":42', whose filter
+        requires a non-number after it), a match whose start is 0, 1, 31,
+        32, 33, 127, 128, 129, 255, 256, 511, 512, 513 or r - l (the window
+        edges of a scan of 32, of 128 and of 512 starts, and a match that
+        ends at r): alone, after a
+        prefix of it that breaks off, ending exactly at the length, one byte
+        past the length, with a length past r, and followed by a digit --
+        inside the record, as its last byte, and then again later;
+      - rows of length 0 and of negative length;
+      - JSON-like rows with '"code":' and '"msg":"' at those starts: numbers
+        of 1 to 10 digits, signed or a lone sign, ended by ',' or by '_', 12
+        digits (no terminator in the window), and strings that close at, or
+        past, the projection's width.
+    Bytes the rows do not set are '_' (not a number character)."""
+    if r < 600:
+        raise ValueError("edge rows need r >= 600")
+    rng = np.random.default_rng(seed)
+    starts = (0, 1, 31, 32, 33, 127, 128, 129, 255, 256, 511, 512, 513)
+    pats = (b"q", b"ab", b"warn", b"needle", b'"code":42')
+    rows: list[tuple[bytes, int]] = []
+
+    def row(parts: dict[int, bytes], n: int) -> None:
+        b = bytearray(b"_" * r)
+        for at, p in parts.items():
+            b[at : at + len(p)] = p[: max(0, r - at)]
+        rows.append((bytes(b), n))
+
+    for pat in pats:
+        l = len(pat)
+        for s in starts + (r - l,):
+            row({s: pat}, r)  # alone (at r - l it ends at r)
+            if s >= 8:
+                row({s - 8: pat[:-1], s: pat}, r)  # a prefix that breaks off first
+            row({s: pat, s + l: b"5"}, s + l)  # ends exactly at the length
+            row({s: pat}, s + l - 1)  # one byte past the length
+            row({s: pat}, r + 7)  # a length past r
+            if s + l < r:
+                row({s: pat, s + l: b"7"}, r)  # a digit follows
+                row({s: pat, s + l: b"5"}, s + l + 1)  # the digit is the record's last byte
+                later = min(s + 40, r - l)
+                row({s: pat, s + l: b".", later: pat}, r)  # a number char, then a later match
+    row({0: b"warn"}, 0)
+    row({0: b"warn"}, -3)
+    for s in starts:
+        for digits in (b"7", b"-42", b"123456789", b"-123456789", b"1234567890", b"12", b"-"):
+            term = b"" if digits == b"12" else b","  # "12" is ended by the '_' after it
+            body = b'"code":' + digits + term
+            msg = b'"msg":"' + bytes(rng.integers(97, 123, int(rng.integers(0, 20)), np.uint8))
+            row({s: body, s + len(body) + 2: msg + b'"'}, r)
+        row({s: b'"code":1,"msg":"' + b"x" * 16 + b'"'}, r)  # closes at the width
+        row({s: b'"code":1,"msg":"' + b"x" * 17 + b'"'}, r)  # closes past it
+        row({s: b'"code":000000000000,'}, r)  # twelve digits: no terminator in the window
+    data = np.frombuffer(b"".join(b for b, _ in rows), np.uint8).reshape(len(rows), r).copy()
+    lens = np.array([n for _, n in rows], np.int32)
+    specs = [filter_contains(p) for p in pats[:4]] + [
+        filter_field_eq("code", 42),
+        filter_contains(b"needle", negate=True),
+        filter_contains(b"ab") | map_uppercase(),
+        map_project(Int("code"), Str("msg", 16)),
+        filter_contains(b"_") | map_project(Str("msg", 4), Int("code")),
+    ]
+    return data, lens, specs

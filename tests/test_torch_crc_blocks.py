@@ -23,6 +23,8 @@ import pytest
 import torch
 
 from redpanda_tpu import parallel as RPAR
+from redpanda_tpu.ops import pipeline as RP
+from redpanda_tpu.ops.crc32c_device import make_crc_fn as jax_make_crc_fn
 from redpanda_tpu_torch import kernels
 from redpanda_tpu_torch.hashing.crc32c import crc32c, crc32c_many, crc32c_update
 from redpanda_tpu_torch.ops import crc32c_device as C
@@ -112,41 +114,65 @@ def test_crc_checks_reject_blocks_of_another_kind():
 # ------------------------------------------------------------------ the launch code
 def _host_entry(calls):
     """A host stand-in of rp_crc_blocks over host pointers: the plain
-    versions per block, with the entry point's bad zeroing, segment index
-    and column sums; records each call's (n_blocks, rows, seg, n_bad)."""
+    versions per block, with the entry point's optional outputs (the CRCs,
+    ok with the claims, bad with ok), bad zeroing, segment index and column
+    sums; records each call's (n_blocks, rows, seg, n_bad)."""
 
     def view(ptr, dtype, count):
         ctype = {np.uint8: ctypes.c_uint8, np.int32: ctypes.c_int32}[dtype]
         return np.ctypeslib.as_array((ctype * max(count, 1)).from_address(ptr))[:count]
 
     def entry(table, n_blocks, rows, r, seg, wpr, span, crc_tables, rounds, n_rounds,
-              span_table, ok, bad, n_bad, vote_rows, g, tally, stream):
+              span_table, crc_out, ok, bad, n_bad, vote_rows, g, tally, stream):
         # sm_count of a CPU device is 1
         assert (wpr, span) == C.split_layout(r, n_blocks * rows, 1)
         assert n_rounds == len(C.round_powers())
-        assert np.array_equal(view(span_table, np.int32, 1024).view(np.uint32),
-                              C.span_table(span))
+        if wpr > 1:
+            assert np.array_equal(view(span_table, np.int32, 1024).view(np.uint32),
+                                  C.span_table(span))
+        else:  # one warp a row joins no spans
+            assert span_table is None
+        assert crc_out or ok, "no output"
+        assert bool(bad) <= bool(ok), "bad without ok"
         calls.append((n_blocks, rows, seg, n_bad))
-        bad_out = view(bad, np.int32, n_bad)
-        bad_out[:] = 0
-        ok_out = view(ok, np.uint8, n_blocks * rows)
+        if bad:
+            bad_out = view(bad, np.int32, n_bad)
+            bad_out[:] = 0
         sums = np.zeros(g, np.int64)
         for k in range(n_blocks):
             rp, lp, cp, vp = table[4 * k : 4 * k + 4]
+            assert bool(cp) == bool(ok), "claims and ok come as a pair"
             if rows:
                 data = torch.from_numpy(view(rp, np.uint8, rows * r).reshape(rows, r).copy())
                 ln = torch.from_numpy(view(lp, np.int32, rows).copy())
-                cl = torch.from_numpy(view(cp, np.int32, rows).copy())
-                got = C.validate_plain(data, ln, cl).numpy()
-                ok_out[k * rows : (k + 1) * rows] = got
-                for i in np.flatnonzero(~got & (ln.numpy() > 0)):
-                    bad_out[(k * rows + i) // seg] += 1
+                if crc_out:
+                    view(crc_out, np.int32, n_blocks * rows)[k * rows : (k + 1) * rows] = (
+                        C.crc_plain(data, ln).numpy())
+                if ok:
+                    cl = torch.from_numpy(view(cp, np.int32, rows).copy())
+                    got = C.validate_plain(data, ln, cl).numpy()
+                    view(ok, np.uint8, n_blocks * rows)[k * rows : (k + 1) * rows] = got
+                    for i in np.flatnonzero(~got & (ln.numpy() > 0)) if bad else ():
+                        bad_out[(k * rows + i) // seg] += 1
             if g:
                 votes = view(vp, np.uint8, vote_rows * g).reshape(vote_rows, g)
                 sums += votes.sum(0, dtype=np.int64)
         if g:
             view(tally, np.int32, g)[:] = sums
         return 0
+
+    return entry
+
+
+def _host_rows_entry(calls):
+    """A host stand-in of rp_crc_rows, the one-block entry: the block's
+    pointers as a table for the stand-in of rp_crc_blocks."""
+    blocks_entry = _host_entry(calls)
+
+    def entry(rows_p, lens, claimed, rows, r, wpr, span, crc_tables, rounds, n_rounds,
+              span_table, crc_out, ok, stream):
+        return blocks_entry([rows_p, lens, claimed, None], 1, rows, r, 1, wpr, span, crc_tables,
+                            rounds, n_rounds, span_table, crc_out, ok, None, 0, 0, 0, None, stream)
 
     return entry
 
@@ -205,6 +231,57 @@ def test_segments_and_empty_batches_on_host_pointers(monkeypatch):
     oks, bads, _ = COL._crc_on_cards(mesh, empty, R, kernels.CRC32C_SHARDED)
     assert len(calls) == 1 and all(b.tolist() == [0] * 4 for b in bads)
     assert [tuple(o.shape) for o in oks] == [(4, 0)] * 2
+
+
+@pytest.mark.parametrize("r,rows", [(100, 17), (1300, 17), (4097, 1), (4097, 17)])
+def test_batch_crc_and_validator_launch_code_match_plain_and_reference(r, rows, monkeypatch):
+    """K5 and K6 on the card are the split kernel's one-block case: their
+    launch code (``_crc_rows_launch``, ``_validate_rows_launch``) run on CPU
+    rows at a base that is not 16-byte aligned, with the one-block entry
+    point replaced by the host stand-in, gives the plain versions' and the JAX
+    programs' answers at the edge lengths (0, negative, past r, on round
+    boundaries); one launch each, counted on its own row, the CRCs through
+    crc_out alone and ok through the claims alone (4097 B over one row is
+    split in two spans)."""
+    calls = []
+    for k in (kernels.CRC32C, kernels.CRC32C_VALIDATE):
+        monkeypatch.setattr(k, "_fn", _host_rows_entry(calls))
+    monkeypatch.setattr(kernels, "stream_handle", lambda dev: None)
+    rng = np.random.default_rng(r + rows)
+    edge = [0, -3, r + 5, r, r - 1, 1, 511, 512, 513]
+    lens = np.array((edge + [int(x) for x in rng.integers(0, r + 1, rows)])[:rows], np.int32)
+    data = rng.integers(0, 256, size=(rows, r), dtype=np.uint8)
+    buf = torch.zeros(rows * r + 3, dtype=torch.uint8)
+    d = buf[3:].view(rows, r)
+    d.copy_(torch.from_numpy(data))
+    ln = torch.from_numpy(lens)
+    before = kernels.CRC32C.launches, kernels.CRC32C_VALIDATE.launches
+    crc = C._crc_rows_launch(d, ln)
+    assert torch.equal(crc, C.crc_plain(d, ln))
+    np.testing.assert_array_equal(crc.numpy().view(np.uint32), np.asarray(jax_make_crc_fn(r)(data, lens)))
+    claimed = crc.clone()
+    claimed[::3] ^= 0x40
+    ok = C._validate_rows_launch(d, ln, claimed)
+    assert torch.equal(ok, C.validate_plain(d, ln, claimed))
+    ref = RP.make_batch_validator(r)(data, lens, claimed.numpy().view(np.uint32))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ref))
+    assert (kernels.CRC32C.launches, kernels.CRC32C_VALIDATE.launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+    assert calls == [(1, rows, 1, 0)] * 2
+
+
+def test_rows_wider_than_the_powers_keep_one_warp():
+    """The layout arguments of a launch: split_layout's below MAX_ROW, with
+    the span table only for a split row; one warp a row, without powers or
+    span table, above it (where split_layout refuses)."""
+    cpu = torch.device("cpu")
+    wpr, span, _, _, n_rounds, table = C._layout_args(cpu, C.MAX_ROW + 1, 1)
+    assert (wpr, span, table) == (1, C.MAX_ROW + C.ROUND, None)
+    assert n_rounds == len(C.round_powers())
+    for r, rows in ((16384, 1), (16384, 64), (2048, 1)):
+        args = C._layout_args(cpu, r, rows)
+        assert args[:2] == C.split_layout(r, rows, 1)
+        assert (args[5] is None) == (args[0] == 1)
 
 
 # ------------------------------------------------------------------ the cap

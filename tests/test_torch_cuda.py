@@ -110,6 +110,72 @@ def test_payload_kernel_matches_plain(card, idx):
     assert torch.equal(got[kept, : prog.r_out], want[kept, : prog.r_out])
 
 
+def _staged_at(d, ln, offset, dev):
+    """Rows staged as the engine stages them (row, LE32 length, 4 zero
+    bytes: stride r + 8) in a view offset bytes past a 16-byte boundary
+    that ends where its buffer's bytes end."""
+    n, r = d.shape
+    buf = torch.zeros(n * (r + IN_META) + offset, dtype=torch.uint8, device=dev)
+    staged = buf[offset:].view(n, r + IN_META)
+    staged[:, :r] = d
+    staged[:, r : r + 4] = ln.view(torch.uint8).reshape(n, 4)
+    return staged
+
+
+def _assert_payload_matches(prog, d, ln, dev):
+    """Packed at every offset mod 16 and unpacked at offsets 0 and 3: the
+    kernel equals the plain version (meta of every row, out of kept rows)."""
+    from redpanda_tpu_torch.ops.pipeline import record_plain, run_record
+
+    for off in range(16):
+        staged = _staged_at(d, ln, off, dev)
+        got, want = run_packed(prog, staged), packed_plain(prog, staged)
+        kept = want[:, prog.r_out + 4].bool()
+        assert torch.equal(got[:, prog.r_out:], want[:, prog.r_out:]), off
+        assert torch.equal(got[kept, : prog.r_out], want[kept, : prog.r_out]), off
+    for off in (0, 3):
+        buf = torch.zeros(d.numel() + off, dtype=torch.uint8, device=dev)
+        dd = buf[off:].view(d.shape)
+        dd.copy_(d)
+        out, out_len, keep = run_record(prog, dd, ln)
+        w_out, w_len, w_keep = record_plain(prog, dd, ln)
+        assert torch.equal(keep, w_keep) and torch.equal(out_len, w_len), off
+        assert torch.equal(out[w_keep], w_out[w_keep]), off
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx", range(9))
+def test_payload_kernel_matches_plain_on_edge_rows(card, idx):
+    """The hand-made edge rows (ops/transforms.py edge_cases at r = 1152:
+    first valid starts at 31/32/33 and 127/128/129, matches ending at the
+    length and at r, with and without the nonnum rule, lengths 0, negative
+    and past r, Int and Str fields at their limits) with each edge spec."""
+    data, lens, specs = T.edge_cases(1152)
+    prog = T.compile_transform(specs[idx], 1152)
+    _assert_payload_matches(prog, torch.from_numpy(data).to(card),
+                            torch.from_numpy(lens).to(card), card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [96, 1152, 1155])
+def test_payload_kernel_at_every_alignment(card, r):
+    """JSON rows (bytes past each length random) staged at stride r + 8 in
+    buffers at every offset mod 16, for every spec: rows at every alignment,
+    the last one ending where the buffer ends."""
+    rng = np.random.default_rng(r)
+    vals = _docs(rng, 613)
+    data = rng.integers(0, 256, size=(len(vals), r), dtype=np.uint8)
+    lens = np.zeros(len(vals), np.int32)
+    for i, v in enumerate(vals):
+        m = min(len(v), r)
+        data[i, :m] = np.frombuffer(v[:m], np.uint8)
+        lens[i] = m
+    lens[:3] = [0, -3, r + 9]
+    d, ln = torch.from_numpy(data).to(card), torch.from_numpy(lens).to(card)
+    for spec in SPECS:
+        _assert_payload_matches(T.compile_transform(spec, r), d, ln, card)
+
+
 @pytest.mark.cuda
 def test_engine_on_card_matches_cpu_engine(card):
     rng = np.random.default_rng(4)
@@ -161,6 +227,34 @@ def test_crc_kernel_matches_plain(card, r):
     # rows that are not 16-byte aligned take the byte loads
     odd = torch.from_numpy(data[:, 1:].copy()).to(card)
     assert torch.equal(C.crc32c_rows(odd, ln), C.crc_plain(odd, ln))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n", [(100, 256), (100, 8192), (2048, 1024), (4097, 256),
+                                 (4097, 1024), (4097, 8192), (16384, 64), (16384, 256),
+                                 (16384, 512), (16384, 1024), (16384, 8192)])
+def test_crc_kernel_matches_plain_on_split_layouts(card, r, n):
+    """K5 and K6 are the split kernel's one-block case: at every span count
+    split_layout picks (1, 2, 4, 8 warps a row), on rows at a 16-byte
+    boundary and one byte past it, at edge and random lengths, each one
+    launch counted on its own row."""
+    from redpanda_tpu_torch.ops import crc32c_device as C
+
+    gen = torch.Generator(device=card).manual_seed(r + n)
+    lens = torch.randint(0, r + 1, (n,), generator=gen, device=card, dtype=torch.int32)
+    edge = [0, -3, r + 5, r, r - 1, 1, 15, 16, 17, 511, 512, 513, 2048, 2049, 4096, 8192]
+    lens[: len(edge)] = torch.tensor(edge, dtype=torch.int32, device=card)
+    buf = torch.randint(0, 256, (n * r + 1,), generator=gen, device=card, dtype=torch.uint8)
+    for off in (0, 1):
+        d = buf[off : off + n * r].view(n, r)
+        want = C.crc_plain(d, lens)
+        claimed = want.clone()
+        claimed[::3] ^= 0x100
+        before = kernels.CRC32C.launches, kernels.CRC32C_VALIDATE.launches
+        assert torch.equal(C.crc32c_rows(d, lens), want)
+        assert torch.equal(C.validate_rows(d, lens, claimed), C.validate_plain(d, lens, claimed))
+        after = kernels.CRC32C.launches, kernels.CRC32C_VALIDATE.launches
+        assert after == (before[0] + 1, before[1] + 1)
 
 
 # ------------------------------------------------------------------ LZ4 (K11)

@@ -146,6 +146,26 @@ def test_pipelines_match_jax(name):
     np.testing.assert_array_equal(out.numpy()[want_keep], want_out[want_keep])
 
 
+@pytest.mark.parametrize("idx", range(9))
+def test_edge_cases_plain_matches_jax(idx):
+    """The payload kernel's edge rows (``edge_cases`` at the engine's row
+    of 1152 B: matches at the window edges of the old and the new scan,
+    ending at the length and at r, numbers after them, lengths 0, negative
+    and past r, Int and Str fields at their limits), through the JAX
+    program and the plain version with each of the edge specs."""
+    data, lens, specs = T.edge_cases(1152)
+    assert len(specs) == 9 and data.shape == (len(lens), 1152)
+    spec = specs[idx]
+    want_out, want_len, want_keep = map(np.asarray, RT.compile_transform(
+        RT.TransformSpec.from_json(spec.to_json()), 1152)(data, lens))
+    prog = T.compile_transform(spec, 1152)
+    out, out_len, keep = T.transform(prog, torch.from_numpy(data), torch.from_numpy(lens))
+    np.testing.assert_array_equal(keep.numpy(), want_keep)
+    np.testing.assert_array_equal(out_len.numpy(), want_len)
+    np.testing.assert_array_equal(out.numpy()[want_keep], want_out[want_keep])
+    assert want_keep.any() and not want_keep.all()
+
+
 def test_program_descriptor_and_validation():
     spec = T.filter_field_eq("level", "error") | T.map_project(T.Int("code"), T.Str("msg", 16))
     prog = T.compile_transform(spec, 128)
