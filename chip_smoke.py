@@ -26,7 +26,26 @@ Phases, each of which exits non-zero on failure:
    messages so that records survive the projection. Every reply must be
    byte-identical to TorchEngine(device="cpu") on the same requests, and
    every kernel's launch count over this phase must be > 0. Print
-   record_batches/s, stage times and H2D/D2H bytes and ms.
+   record_batches/s, stage times and H2D/D2H bytes and ms, and the parse
+   ladder the engine's probe chose; the payload spec runs the
+   pointer-table staging lane (t_explode_ptrs). Then, each lane with its
+   own engine, counts set to 0 before it and read after it, and every
+   reply compared with the CPU engine's:
+   a. the columnar spec with the structural ladder pinned
+      (structural_probe=False) and with the staged ladder pinned
+      (structural_parse=False), in turns (structural, staged, staged,
+      structural): rates and stage seconds of each;
+   b. the passthrough spec where(level == "error") through gather framing
+      (n_frame_gather > 0, no padded framing);
+   c. the column cache (device_column_cache_mb=32): one cold launch per
+      workload, then hit launches only, which must copy 0 bytes up and
+      launch K1; its rate is the repeat-window rate, not the engine's;
+      and the payload lane's host staging at the bench launch, joined
+      blob against pointer table;
+   d. the data policy's device leg (PolicyEngine, row_stride 2048) over a
+      fetch of the 64 partitions x 32 records, equal to
+      PolicyEngine(device="cpu")'s device leg and to its host evaluator,
+      K4 launched; and a failing K4 launch raising from transform_batches.
 4. CRC-32C (K5, K6: the split CRC kernel over one block) against the
    plain versions at r = 100, 2048, 4097 and 16384 over 256, 1024 and 8192
    rows (64 and 512 more of 16384: 1, 2, 4 and 8 warps a row), aligned and
@@ -167,6 +186,13 @@ def build_request(short_msgs: bool, seed: int = 0):
         batch = RecordBatch.build(recs, base_offset=0, first_timestamp=1_000_000)
         items.append(ProcessBatchItem(1, NTP.kafka("bench", p), [batch]))
     return ProcessBatchRequest(items)
+
+
+def passthrough_spec():
+    from redpanda_tpu_torch.ops.exprs import field
+    from redpanda_tpu_torch.ops.transforms import where
+
+    return where(field("level") == "error")
 
 
 def columnar_spec():
@@ -663,6 +689,11 @@ def phase_engine(dev) -> dict:
                     "(sum of CUDA-event stream intervals)")
                 if any(k.startswith("n_failures") for k in st):
                     fail(f"{sname}: engine failures {st}")
+                if sname == "columnar":
+                    log(f"engine columnar: the parse probe chose {st['parse_path']} "
+                        f"({json.dumps(st.get('parse_probe'))})")
+                elif not st.get("t_explode_ptrs"):
+                    fail("payload: the pointer-table staging lane did not run")
             else:
                 log(f"engine {sname} short_msgs: {rate:.1f} record_batches/s, "
                     f"{kept} output batches per tick, replies byte-identical to the CPU engine")
@@ -672,6 +703,191 @@ def phase_engine(dev) -> dict:
     log(f"engine parity: every reply of both specs byte-identical to TorchEngine(cpu); "
         f"main-path launches {launches}")
     return launches, {"want": want, "work": work, "rates": results, "dispatch": dispatch}
+
+
+def lane_stats(st: dict) -> str:
+    return json.dumps({k: round(v, 6) for k, v in sorted(st.items())
+                       if k.startswith(("t_", "n_", "bytes_"))})
+
+
+def drive_lane(name, eng, work, want, n_ticks_of) -> tuple[dict, dict]:
+    """Every workload through ``eng``, replies compared with the CPU
+    engine's; (rate per workload, stats after the bench workload)."""
+    rates, st = {}, None
+    for wname, req in work.items():
+        replies, rates[wname] = run_stream(eng, req, n_ticks_of(wname))
+        for k, rep in enumerate(replies):
+            if reply_bytes(rep) != want[wname][k % GROUP]:
+                fail(f"{name} lane {wname}: CUDA reply {k} differs from the CPU engine's")
+        if wname == "bench":
+            st = eng.stats()
+    failures = {k: v for k, v in eng.stats().items() if k.startswith("n_failures")}
+    if failures:
+        fail(f"{name} lane: engine failures {failures}")
+    return rates, st
+
+
+def phase_host_ladder(dev, engine_run) -> dict:
+    """Phase 3a-3c: the host ladder's lanes, each pinned on its own engine."""
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+
+    work = engine_run["work"]
+    cpu = TorchEngine(device="cpu", row_stride=ROW_STRIDE)
+    cpu.enable_coprocessors([(1, passthrough_spec().to_json(), ("bench",))])
+    want = {"columnar": {w: engine_run["want"]["columnar", w] for w in work},
+            "passthrough": {w: [reply_bytes(t.result()) for t in cpu.submit_group([r] * GROUP)]
+                            for w, r in work.items()}}
+    n_ticks_of = lambda w: TICKS if w == "bench" else 2 * GROUP  # noqa: E731
+    pinned = {"structural": dict(structural_probe=False), "staged": dict(structural_parse=False)}
+    # the two pinned ladders in turns (ABBA): the host's spread is wider
+    # than their difference in one pass
+    lanes = [(f"{k} #{i}", "columnar", pinned[k])
+             for i, k in ((1, "structural"), (1, "staged"), (2, "staged"), (2, "structural"))]
+    lanes.append(("gather-framed passthrough", "passthrough", {}))
+    launches = {}
+    for name, sname, kw in lanes:
+        spec = columnar_spec() if sname == "columnar" else passthrough_spec()
+        eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, **kw)
+        if eng.enable_coprocessors([(1, spec.to_json(), ("bench",))]) != [0]:
+            fail(f"enable the {name} lane")
+        run_stream(eng, work["bench"], GROUP + 1)  # warm-up
+        eng.reset_stats()
+        kernels.reset_launches()  # this lane's path starts here
+        rates, st = drive_lane(name, eng, work, want[sname], n_ticks_of)
+        launches[name] = path_launches(f"{name} lane", kernels.PREDICATE)["predicate"]
+        if name.startswith("structural") and not (
+                st.get("t_explode_find2") and st.get("t_fused_extract")
+                and "t_extract_pred" not in st):
+            fail(f"structural lane: not the fused ladder {lane_stats(st)}")
+        if name.startswith("staged") and not (st.get("t_explode_find")
+                                              and "t_explode_find2" not in st):
+            fail(f"staged lane: not the staged ladder {lane_stats(st)}")
+        if name.endswith("passthrough") and not (st.get("n_frame_gather")
+                                                 and "n_frame_padded" not in st):
+            fail(f"passthrough lane: not gather-framed {lane_stats(st)}")
+        eng.shutdown()
+        busy = (st.get("t_dev_h2d", 0) + st.get("t_dev_kernel", 0)
+                + st.get("t_dev_d2h", 0)) * rates["bench"] / (TICKS * P)
+        log(f"engine {name} lane ({sname} spec, parse path {st['parse_path']}): bench "
+            f"{rates['bench']:.1f} record_batches/s over {TICKS} ticks, short_msgs "
+            f"{rates['short_msgs']:.1f}; replies byte-identical to TorchEngine(cpu); "
+            f"K1 launches {launches[name]}; streams busy {busy:.2%} of the wall")
+        log(f"engine {name} lane bench stages: {lane_stats(st)}")
+    launches["colcache"] = phase_colcache(dev, work, want["columnar"], n_ticks_of)
+    staging_ms(work["bench"])
+    return launches
+
+
+def staging_ms(req) -> None:
+    """The payload lane's host staging at the bench launch (GROUP x 64
+    batches): the joined-blob explode + pack beside the pointer-table one
+    the engine runs, each into a fresh pinned staging tensor as the engine
+    packs, best of 5 each, in turns."""
+    import torch
+
+    from redpanda_tpu_torch.coproc import batch_codec
+    from redpanda_tpu_torch.coproc.engine import _bucket_rows, pack_staged, pack_staged_ptrs
+    from redpanda_tpu_torch.ops.pipeline import IN_META
+
+    batches = [b for it in req.items for b in it.batches] * GROUP
+    shape = (_bucket_rows(len(batches) * RECORDS_PER_BATCH), ROW_STRIDE + IN_META)
+
+    def pinned():
+        return torch.empty(shape, dtype=torch.uint8, pin_memory=True).numpy()
+
+    lanes = {
+        "joined blob": lambda: pack_staged(batch_codec.explode_batches(batches), ROW_STRIDE,
+                                           pinned()),
+        "pointer table": lambda: pack_staged_ptrs(batch_codec.explode_ptrs(batches), ROW_STRIDE,
+                                                  pinned()),
+    }
+    best = {k: float("inf") for k in lanes}
+    for _ in range(5):
+        for k, f in lanes.items():
+            t0 = time.perf_counter()
+            f()
+            best[k] = min(best[k], (time.perf_counter() - t0) * 1e3)
+    log("payload staging at the bench launch (explode + pack into pinned memory, host, "
+        "best of 5): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in best.items()))
+
+
+def phase_colcache(dev, work, want, n_ticks_of) -> int:
+    """Phase 3c: hit launches of the column cache copy nothing up."""
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+
+    eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, device_column_cache_mb=32)
+    eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))])
+    for wname, req in work.items():  # one cold launch per window fills the cache
+        replies, _ = run_stream(eng, req, GROUP)
+        if any(reply_bytes(r) != want[wname][k] for k, r in enumerate(replies)):
+            fail(f"colcache cold launch {wname}: a reply differs from the CPU engine's")
+    cold = eng.stats()
+    eng.reset_stats()
+    kernels.reset_launches()  # the hit launches start here
+    rates, st = drive_lane("colcache", eng, work, want, n_ticks_of)
+    n = path_launches("colcache hit lane", kernels.PREDICATE)["predicate"]
+    end = eng.stats()
+    eng.shutdown()
+    if end.get("bytes_h2d", 0) != 0 or "n_colcache_miss" in end or end["n_colcache_hit"] != n:
+        fail(f"colcache: hit launches copied up or missed {lane_stats(end)}")
+    cc = end["colcache"]
+    log(f"engine colcache lane (device_column_cache_mb=32; every launch after the first of a "
+        f"window is a hit: a repeat-window rate, not the engine's): bench "
+        f"{rates['bench']:.1f} record_batches/s, short_msgs {rates['short_msgs']:.1f}; "
+        f"replies byte-identical to TorchEngine(cpu); {n} hit launches, K1 launched {n} times, "
+        f"bytes_h2d {end.get('bytes_h2d', 0):.0f} (cold launches: "
+        f"{cold.get('bytes_h2d', 0):.0f}); {cc['entries']} entries, {cc['bytes']} B held")
+    log(f"engine colcache lane bench stages: {lane_stats(st)}")
+    return n
+
+
+def phase_policy(dev) -> int:
+    """Phase 3d: the data policy's device leg over a fetch of the bench's
+    partitions."""
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.policy import PolicyEngine
+
+    spec = payload_spec().to_json()
+    launches, kept = 0, 0
+    for wname, short in (("bench", False), ("short_msgs", True)):
+        batches = [b for it in build_request(short_msgs=short).items for b in it.batches]
+        eng = PolicyEngine(device=dev)  # 2048 records: the device leg by its own rule
+        eng.transform_batches(spec, batches)  # warm-up
+        kernels.reset_launches()  # the policy's device leg starts here
+        t0 = time.perf_counter()
+        got = eng.transform_batches(spec, batches)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches += path_launches("policy device leg",
+                                  kernels.PAYLOAD_TRANSFORM)["payload_transform"]
+        got = [b.encode_internal() for b in got]
+        for leg in ("device", "host"):
+            ref = PolicyEngine(device="cpu", force_engine=leg).transform_batches(spec, batches)
+            if got != [b.encode_internal() for b in ref]:
+                fail(f"policy {wname}: the card's view differs from the CPU {leg} leg's")
+        kept += len(got)
+        log(f"policy device leg {wname}: {len(batches)} batches, "
+            f"{sum(b.header.record_count for b in batches)} records at row_stride 2048 in "
+            f"{ms:.3f} ms host to host; view equal to the CPU device leg's and the host "
+            f"evaluator's ({len(got)} batches)")
+    if not kept:
+        fail("policy: no view batch to compare")
+
+    def failing(*args):
+        raise RuntimeError("injected K4 launch failure")
+
+    kernels.PAYLOAD_TRANSFORM.launch = failing  # shadows the method on this one kernel
+    try:
+        PolicyEngine(device=dev, force_engine="device").transform_batches(spec, batches)
+    except RuntimeError as exc:
+        log(f"policy: a failing K4 launch raises from transform_batches ({exc})")
+    else:
+        fail("policy: a failing K4 launch did not raise")
+    finally:
+        del kernels.PAYLOAD_TRANSFORM.launch
+    return launches
 
 
 # ------------------------------------------------------------------ CRC / LZ4 inputs
@@ -1757,6 +1973,9 @@ def main() -> int:
     measured = {"predicate": phase_predicate(dev)}
     measured["payload_transform"], measured["payload_record"] = phase_payload(dev)
     launches, engine_run = phase_engine(dev)
+    lane_launches = phase_host_ladder(dev, engine_run)
+    launches["predicate"] += sum(lane_launches.values())
+    launches["payload_transform"] += phase_policy(dev)
     launches.update(phase_payload_entry(dev))
     measured.update(phase_crc_kernels(dev))
     launches.update(phase_produce(dev))

@@ -63,6 +63,9 @@ class DevCol:
 # num -> (f32, i32, flags), exists -> (present,)
 _COL_ARITY = {"str": 2, "num": 3, "exists": 1}
 
+# DevCol kind -> rp_extract_cols2 desc kind code
+_PRED_KIND = {"num": 0, "str": 1, "exists": 2}
+
 
 class FindCache:
     """The span tables of the fused explode + find pass (one native JSON
@@ -239,6 +242,23 @@ class ColumnarPlan:
             else:
                 seen.setdefault(f.key)
         return [p for p in seen if "." not in p]
+
+    @property
+    def byte_identity(self) -> bool:
+        """True when the output bytes are the input value bytes (a pure
+        filter): the harvest may then frame straight from the joined blob
+        through (offset, len); a projection assembles new bytes."""
+        return self.passthrough
+
+    def build_find_cache(self, joined, offsets, sizes) -> FindCache | None:
+        """The split ladder's span tables: one rp_find_multi walk per record
+        locating every top-level path (None when the plan has none)."""
+        paths = self.flat_paths()
+        if not paths:
+            return None
+        lib = native.lib()
+        tables = lib.find_multi(joined, offsets, sizes, paths)
+        return FindCache(lib, joined, offsets, paths, *tables)
 
     def make_cache_from_tables(self, exploded, paths, types, vs, ve) -> FindCache:
         """Adopt the span tables the fused explode_find pass produced;
@@ -461,6 +481,40 @@ class ColumnarPlan:
                 return None
         return descs
 
+    # ------------------------------------------------------ structural fused
+    def structural_eligible(self) -> bool:
+        """Whether the structural-index fused ladder can serve this plan:
+        every predicate path is a top-level single segment and the
+        projection, if any, is expressible as fused Int/Float/Str descs.
+        Anything else (nested paths, Substr, Concat) keeps the staged
+        ladder."""
+        col_of = {p: i for i, p in enumerate(self.flat_paths())}
+        if not col_of or any(c.path not in col_of for c in self.dev_cols):
+            return False
+        return self.passthrough or self._proj_desc_rows(col_of) is not None
+
+    def extract_fused(self, sp, n_pad: int):
+        """One record-major native crossing (rp_extract_cols2) off the
+        structural parse's span tables: every predicate column, padded to
+        ``n_pad``, and for projection plans the packed output rows. Returns
+        (cols in _bind_slots order, proj_data | None, proj_ok | None), the
+        shapes extract_device_inputs and extract_projection give."""
+        col_of = {p: i for i, p in enumerate(self.flat_paths())}
+        pred = np.asarray(
+            [(_PRED_KIND[c.kind], col_of[c.path], c.w, 0) for c in self.dev_cols],
+            dtype=np.int32,
+        ).reshape(-1, 4)
+        proj_descs = None
+        if not self.passthrough:
+            proj_descs = np.asarray(self._proj_desc_rows(col_of), dtype=np.int32)
+        cols, rows, ok = native.lib().extract_cols2(
+            sp.payloads, sp.counts, sp.val_off, sp.val_len,
+            sp.types, sp.vs, sp.ve, pred, n_pad, proj_descs, self.r_out,
+        )
+        if self.passthrough:
+            return cols, None, None
+        return cols, [("rows", rows)], ok
+
     def assemble_rows(self, data, n: int) -> tuple[np.ndarray, np.ndarray]:
         """Projection columns -> ([n, r_out] u8 rows, [n] i32 lens)."""
         lens = np.full(n, self.r_out, dtype=np.int32)
@@ -504,6 +558,8 @@ class ColumnarPlan:
 class PayloadPlan:
     spec: TransformSpec
     mode = "payload"
+    # device-transformed rows: never a view into the input blob
+    byte_identity = False
 
 
 @dataclass
@@ -513,6 +569,12 @@ class HostPlan:
     spec: TransformSpec
     kind: str  # identity | uppercase
     mode = "host"
+
+    @property
+    def byte_identity(self) -> bool:
+        # identity emits the input value bytes untouched (its keep rule,
+        # drop empty values, needs only the sizes); uppercase mutates them
+        return self.kind == "identity"
 
 
 def plan_spec(spec: TransformSpec):

@@ -16,6 +16,24 @@ package's (coproc/engine.py):
     (csrc/payload_transform.cu) returns packed output rows.
   * **host plans** (identity, uppercase) have no device stage.
 
+The host ladder before and after the device is the JAX engine's
+single-device one (its host-stage pool is not ported):
+
+  * columnar plans parse either with the staged ladder (one native explode
+    + find over the joined blob, then one gather per column) or with the
+    structural-index ladder (``rp_explode_find2`` over a table of payload
+    pointers, then one fused extraction crossing, ``rp_extract_cols2``);
+    which one is a measured per-engine decision (``_parse_path``);
+  * the column cache (coproc/colcache.py, off by default) keeps a launch's
+    columns -- on a card, the tensors they were copied into -- keyed by the
+    batch window's content, so a repeat launch skips the host ladder and
+    the copy up;
+  * payload plans stage from a pointer table: each batch's records are
+    packed straight from its payload into the pinned staging tensor;
+  * byte-identity plans (columnar passthrough, identity) frame their output
+    straight from the joined blob (gather framing); framing buffers come
+    from the engine's arena.
+
 Device work runs on the engine's own CUDA stream, never synchronously: the
 inputs are packed into pinned host memory, copied up, the kernel runs, the
 result is copied down into pinned memory, and one CUDA event marks the end.
@@ -52,9 +70,8 @@ import numpy as np
 import torch
 
 from redpanda_tpu_torch import native
-from redpanda_tpu_torch.coproc import batch_codec
 from redpanda_tpu_torch import kernels
-from redpanda_tpu_torch.coproc import meshrunner
+from redpanda_tpu_torch.coproc import batch_codec, colcache, host_pool, meshrunner
 from redpanda_tpu_torch.coproc.column_plan import ColumnarPlan, PayloadPlan, plan_spec
 from redpanda_tpu_torch.device import resolve_device
 from redpanda_tpu_torch.hashing.xx import xxhash64
@@ -176,26 +193,62 @@ class _Launch:
         self.exploded = None
         self.proj_data = None
         self.proj_ok: np.ndarray | None = None
+        # the resolved columnar keep mask: the fetch consumes ``pending``, so
+        # a framing retry after a failure must find the mask, not "no
+        # predicate" (which would keep every record)
+        self._keep: np.ndarray | None = None
         self._framed = None
         # tickets of one submit_group share this launch and may harvest
         # from different threads
         self._lock = threading.Lock()
 
     def framed(self) -> list[tuple[bytes, int]]:
+        """Per-range (payload, kept), framed launch-wide in one native
+        crossing the first time any ticket harvests. Byte-identity plans
+        take the zero-copy gather path: kept records frame straight from
+        the joined blob through the (offset, len) columns the explode stage
+        produced, so the padded row matrix is never built. The bytes are
+        the same either way."""
         with self._lock:
             if self._framed is None:
-                mode = self.plan.mode
-                if mode == "payload":
-                    out, out_len, keep = self._mat_payload()
-                elif mode == "columnar":
-                    out, out_len, keep = self._mat_columnar()
+                eng = self.engine
+                gv = self._gather_view()
+                if gv is not None:
+                    ex, keep = gv
+                    t0 = time.perf_counter()
+                    self._framed = batch_codec.frame_ranges_gather(
+                        ex.joined, ex.offsets, ex.sizes, keep, self.ranges, arena=eng._arena
+                    )
+                    eng._stat("t_frame_gather", t0)
+                    eng._stat_add("n_frame_gather", 1)
                 else:
-                    out, out_len, keep = self._mat_host()
-                t0 = time.perf_counter()
-                self._framed = batch_codec.frame_ranges(out, out_len, keep, self.ranges)
-                self.engine._stat("t_rebuild", t0)
+                    mode = self.plan.mode
+                    if mode == "payload":
+                        out, out_len, keep = self._mat_payload()
+                    elif mode == "columnar":
+                        out, out_len, keep = self._mat_columnar()
+                    else:
+                        out, out_len, keep = self._mat_host()
+                    t0 = time.perf_counter()
+                    self._framed = batch_codec.frame_ranges(
+                        out, out_len, keep, self.ranges, arena=eng._arena
+                    )
+                    eng._stat("t_rebuild", t0)
+                    eng._stat_add("n_frame_padded", 1)
                 self.exploded = self.proj_data = None
             return self._framed
+
+    def _gather_view(self):
+        """(exploded, keep) when this launch's output bytes are (offset, len)
+        views into the joined blob -- a byte-identity plan (columnar
+        passthrough, host identity) with the exploded table in hand -- else
+        None (the padded path)."""
+        ex = self.exploded
+        if not self.engine._gather_frame or not self.plan.byte_identity or ex is None:
+            return None
+        if self.plan.mode == "columnar":
+            return ex, self._keep_columnar()
+        return ex, ex.sizes > 0  # identity's rule: drop empty values
 
     def _fetch(self) -> np.ndarray:
         t0 = time.perf_counter()
@@ -211,6 +264,20 @@ class _Launch:
         n = len(self.fits)
         return out[:n], out_len[:n], keep[:n] & self.fits
 
+    def _keep_columnar(self) -> np.ndarray:
+        """The predicate's keep bits (fetched once) and the projection's ok."""
+        if self._keep is None:
+            keep = np.ones(self.n, dtype=bool)
+            if self.pending is not None:
+                bits = self._fetch()
+                if self.mesh_rows is None:
+                    keep = np.unpackbits(bits)[: self.n].astype(bool)
+                else:  # [D, n_blk/8]: each shard's bits, trimmed to its records
+                    keep = np.concatenate([np.unpackbits(b)[:k] for b, k in
+                                           zip(bits, self.mesh_rows)]).astype(bool)
+            self._keep = keep & self.proj_ok
+        return self._keep
+
     def _mat_columnar(self):
         n = self.n
         if n == 0:
@@ -219,15 +286,7 @@ class _Launch:
                 np.zeros(0, np.int32),
                 np.zeros(0, bool),
             )
-        keep = np.ones(n, dtype=bool)
-        if self.pending is not None:
-            bits = self._fetch()
-            if self.mesh_rows is None:
-                keep = np.unpackbits(bits)[:n].astype(bool)
-            else:  # [D, n_blk/8]: each shard's bits, trimmed to its records
-                keep = np.concatenate([np.unpackbits(b)[:k] for b, k in
-                                       zip(bits, self.mesh_rows)]).astype(bool)
-        keep &= self.proj_ok
+        keep = self._keep_columnar()
         t0 = time.perf_counter()
         plan: ColumnarPlan = self.plan
         if plan.passthrough:
@@ -261,6 +320,10 @@ def _pack_values(ex, stride: int):
     native.lib().pack_rows_into(ex.joined, ex.offsets, sizes, rows)
     return rows, sizes
 
+
+# The parse-path probe: a launch under this many records does not pin the
+# ladder (it is not representative of steady state).
+_PROBE_MIN_ROWS = 1024
 
 # Per-slot dispositions inside a Ticket.
 _UNKNOWN, _EMPTY, _DEREGISTERED, _LAUNCHED = range(4)
@@ -335,6 +398,23 @@ class TorchEngine:
     columnar plans the mesh lane; a mesh of one shard is the single lane.
     ``mesh_probe=False`` pins the mesh lane; True measures mesh against
     single on the first representative launch (``stats()["mesh"]``).
+
+    The host ladder's knobs are the JAX engine's, with its defaults:
+
+    * ``gather_frame`` (True): byte-identity plans frame their output
+      straight from the joined blob (``n_frame_gather``) instead of a
+      padded row matrix (``n_frame_padded``);
+    * ``structural_parse`` (None, meaning on) and ``structural_probe``
+      (True): columnar plans the fused lane can express parse with the
+      structural-index ladder when the first representative launch
+      (``_PROBE_MIN_ROWS`` records) measures it faster than the staged
+      one (``stats()["parse_path"]``, ``["parse_probe"]``);
+      ``structural_parse=False`` pins staged, ``structural_probe=False``
+      pins structural;
+    * ``device_column_cache_mb`` (None, meaning 0: uncached): a byte
+      budget for the column cache (coproc/colcache.py), whose hits skip
+      the host ladder and, on a card, the copy up
+      (``stats()["colcache"]``).
     """
 
     def __init__(
@@ -347,6 +427,10 @@ class TorchEngine:
         mesh: PartitionMesh | None = None,
         mesh_devices: int | None = None,
         mesh_probe: bool = True,
+        gather_frame: bool = True,
+        structural_parse: bool | None = None,
+        structural_probe: bool = True,
+        device_column_cache_mb: int | None = None,
     ):
         self.device = resolve_device(device)
         self._stream = None
@@ -367,6 +451,22 @@ class TorchEngine:
         self._programs: dict = {}  # payload script_id -> TransformProgram
         self._stats: dict[str, float] = defaultdict(float)
         self._stats_lock = threading.Lock()
+        self._gather_frame = bool(gather_frame)
+        self._arena = batch_codec.Arena()
+        # the parse ladder: a measured per-engine decision unless pinned
+        self._structural_enabled = True if structural_parse is None else bool(structural_parse)
+        self._parse_decision: str | None = None
+        if not self._structural_enabled:
+            self._parse_decision = "staged"
+        elif not structural_probe:
+            self._parse_decision = "structural"
+        self._parse_probe: dict | None = None
+        self._parse_decision_lock = threading.Lock()
+        # serializes calibration runs only; never held while the decision
+        # is read or published
+        self._parse_probe_run_lock = threading.Lock()
+        cache_mb = 0 if device_column_cache_mb is None else max(0, int(device_column_cache_mb))
+        self._colcache = colcache.DeviceColumnCache(cache_mb << 20) if cache_mb else None
 
     # ------------------------------------------------------------ control
     def enable_coprocessors(self, scripts) -> list[EnableResponseCode]:
@@ -413,6 +513,7 @@ class TorchEngine:
                 del self._handles[sid]
                 self._plans.pop(sid, None)
                 self._programs.pop(sid, None)
+                self.invalidate_columns(sid)
                 out.append(DisableResponseCode.success)
             else:
                 out.append(DisableResponseCode.script_id_does_not_exist)
@@ -436,18 +537,48 @@ class TorchEngine:
                 if stream is not None:
                     stream.synchronize()
 
+    # ------------------------------------------------------------ colcache
+    def invalidate_columns(self, script_id: int | None = None) -> int:
+        """Drop cached columns (every script's when script_id is None) and
+        their device tensors; returns entries dropped. The key is
+        content-addressed, so this reclaims memory and never changes a
+        reply."""
+        if self._colcache is None:
+            return 0
+        return self._colcache.invalidate(script_id)
+
+    def reset_column_cache(self) -> None:
+        """Drop every cached entry and zero the cache's counters."""
+        if self._colcache is not None:
+            self._colcache.reset()
+
+    def reset_arenas(self) -> None:
+        """Swap in a fresh framing arena (deterministic reuse accounting;
+        returns the held buffers to the allocator)."""
+        self._arena = batch_codec.Arena()
+
     # ------------------------------------------------------------ metrics
     def stats(self) -> dict:
         """Per-stage wall seconds (``t_*``; ``t_dev_*`` are device seconds
         from CUDA events, summed over the mesh's cards on the mesh lane;
         ``t_mesh_ladder`` cuts a launch's columns into the shards' stacks),
-        counts (``n_*``, ``n_kernel_*`` per kernel,
-        ``n_mesh_launches``), link bytes (``bytes_h2d``, ``bytes_d2h``)
-        and, with a mesh, the meshrunner's ``mesh`` block (decision, probe,
-        launches and rows per device of the range-shard lane)."""
+        counts (``n_*``, ``n_kernel_*`` per kernel, ``n_mesh_launches``,
+        ``n_colcache_hit``/``_miss``, ``n_frame_gather``/``_padded``), link
+        bytes (``bytes_h2d``, ``bytes_d2h``), the framing ``arena``'s
+        reuse counts, the ``parse_path`` decision (None until probed) and
+        its ``parse_probe`` times, the ``colcache`` block when the cache is
+        on and, with a mesh, the meshrunner's ``mesh`` block (decision,
+        probe, launches and rows per device of the range-shard lane)."""
         with self._stats_lock:
             out = dict(self._stats)
         out["device"] = str(self.device)
+        out["arena"] = self._arena.stats()
+        with self._parse_decision_lock:
+            out["parse_path"] = self._parse_decision
+            if self._parse_probe is not None:
+                out["parse_probe"] = dict(self._parse_probe)
+        if self._colcache is not None:
+            out["colcache"] = self._colcache.stats()
         if self._meshrunner is not None:
             out["mesh"] = self._meshrunner.stats()
         return out
@@ -517,32 +648,144 @@ class TorchEngine:
         work."""
         plan = launch.plan
         t0 = time.perf_counter()
+        if isinstance(plan, PayloadPlan):
+            # pointer-table staging: no joined blob; staging packs each
+            # batch's records straight from its decompressed payload
+            pe = batch_codec.explode_ptrs(batches)
+            self._stat("t_explode_ptrs", t0)
+            self._count_launch(launch, pe.ranges, len(pe.sizes))
+            self._dispatch_payload_ptrs(launch, pe)
+            return
+        if not isinstance(plan, ColumnarPlan):  # host: materialized at harvest
+            launch.exploded = batch_codec.explode_batches(batches)
+            self._stat("t_explode", t0)
+            self._count_launch(launch, launch.exploded.ranges, len(launch.exploded.sizes))
+            return
+        # a repeat launch over an unchanged batch window skips the whole
+        # host ladder, and on a card the copy up
+        store_key = None
+        if self._colcache is not None and self._meshrunner is None and batches:
+            key = (launch.script_id, colcache.fingerprint(batches))
+            entry = self._colcache.lookup(key)
+            self._count_colcache(entry is not None)
+            if entry is not None:
+                self._dispatch_columnar_cached(launch, plan, entry)
+                return
+            store_key = key
+        # decided before the stage timer: the first representative launch
+        # calibrates here, and its ladder passes are not this launch's stages
+        parse = self._parse_path(plan, batches)
+        paths = plan.flat_paths()
+        t0 = time.perf_counter()
+        if parse == "structural":
+            sp = batch_codec.explode_find_structural(batches, paths, need_joined=plan.byte_identity)
+            self._stat("t_explode_find2", t0)
+            self._count_launch(launch, sp.ranges, sp.n)
+            self._dispatch_columnar_fused(launch, plan, sp, store_key)
+            return
+        fused = batch_codec.explode_and_find(batches, paths)
         cache = None
-        if isinstance(plan, ColumnarPlan):
-            paths = plan.flat_paths()
-            fused = batch_codec.explode_and_find(batches, paths)
-            if fused is not None:
-                exploded, types, vs, ve = fused
-                cache = plan.make_cache_from_tables(exploded, paths, types, vs, ve)
-                self._stat("t_explode_find", t0)
-            else:  # only nested paths: the per-path walker extracts them
-                exploded = batch_codec.explode_batches(batches)
-                self._stat("t_explode", t0)
-        else:
+        if fused is not None:
+            exploded, types, vs, ve = fused
+            cache = plan.make_cache_from_tables(exploded, paths, types, vs, ve)
+            self._stat("t_explode_find", t0)
+        else:  # only nested paths: the per-path walker extracts them
             exploded = batch_codec.explode_batches(batches)
             self._stat("t_explode", t0)
-        launch.ranges = exploded.ranges
-        launch.n = n = len(exploded.sizes)
+        self._count_launch(launch, exploded.ranges, len(exploded.sizes))
+        self._dispatch_columnar(launch, plan, exploded, cache, store_key)
+
+    def _count_launch(self, launch: _Launch, ranges, n: int) -> None:
+        launch.ranges = ranges
+        launch.n = n
         self._stat_add("n_records", n)
         self._stat_add("n_launches", 1)
-        if isinstance(plan, PayloadPlan):
-            self._dispatch_payload(launch, exploded, n)
-        elif isinstance(plan, ColumnarPlan):
-            self._dispatch_columnar(launch, plan, exploded, n, cache)
-        else:  # host: materialized at harvest
-            launch.exploded = exploded
 
-    def _dispatch_columnar(self, launch, plan: ColumnarPlan, exploded, n: int, cache) -> None:
+    def _count_colcache(self, hit: bool) -> None:
+        self._stat_add("n_colcache_hit" if hit else "n_colcache_miss", 1)
+
+    # ------------------------------------------------------ parse-path probe
+    def _parse_path(self, plan: ColumnarPlan, batches) -> str:
+        """Which parse ladder this launch runs: the measured per-engine
+        decision, gated by the plan (nested paths or general projections
+        keep the staged ladder). Until a representative launch has probed,
+        small launches take the staged ladder without pinning anything."""
+        if not self._structural_enabled or not plan.structural_eligible():
+            return "staged"
+        with self._parse_decision_lock:
+            decision = self._parse_decision
+        if decision is not None:
+            return decision
+        if sum(b.header.record_count for b in batches) < _PROBE_MIN_ROWS:
+            return "staged"
+        with self._parse_probe_run_lock:
+            with self._parse_decision_lock:
+                decision = self._parse_decision
+            if decision is None:
+                self._calibrate_parse_path(plan, batches)
+                with self._parse_decision_lock:
+                    decision = self._parse_decision
+        return decision
+
+    def _measure_parse_ratio(self, plan: ColumnarPlan, batches) -> tuple[float, float]:
+        """(t_staged, t_structural) of this launch's real parse + extract
+        ladders, each the best of two."""
+        paths = plan.flat_paths()
+        n_pad = _bucket_rows(sum(b.header.record_count for b in batches))
+
+        def staged():
+            ex, types, vs, ve = batch_codec.explode_and_find(batches, paths)
+            cache = plan.make_cache_from_tables(ex, paths, types, vs, ve)
+            plan.extract_device_inputs(ex.joined, ex.offsets, ex.sizes, n_pad, cache)
+            if not plan.passthrough:
+                plan.extract_projection(ex.joined, ex.offsets, ex.sizes, cache)
+
+        def structural():
+            sp = batch_codec.explode_find_structural(batches, paths, need_joined=plan.byte_identity)
+            plan.extract_fused(sp, n_pad)
+
+        t_staged = t_structural = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            staged()
+            t_staged = min(t_staged, time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            structural()
+            t_structural = min(t_structural, time.perf_counter() - t0)
+        return t_staged, t_structural
+
+    def _calibrate_parse_path(self, plan: ColumnarPlan, batches) -> None:
+        """Pin the parse ladder off the first representative launch: the
+        structural ladder must win by PROBE_MARGIN. The caller holds the
+        probe run lock. Both ladders are host code: a probe that raises
+        pins the staged ladder (``n_failures_parse_calibration``)."""
+        try:
+            t_staged, t_structural = self._measure_parse_ratio(plan, batches)
+        except _PROGRAMMING_ERRORS:
+            raise
+        except Exception as exc:
+            self._note_failure("parse_calibration", exc)
+            with self._parse_decision_lock:
+                self._parse_decision = "staged"
+            return
+        ratio = t_staged / t_structural if t_structural > 0 else 0.0
+        decision = "structural" if ratio >= host_pool.PROBE_MARGIN else "staged"
+        probe = {
+            "t_staged_ms": round(t_staged * 1e3, 3),
+            "t_structural_ms": round(t_structural * 1e3, 3),
+            "speedup": round(ratio, 3),
+            "chosen": decision,
+        }
+        with self._parse_decision_lock:
+            self._parse_decision = decision
+            self._parse_probe = probe
+        logger.info("parse-path calibration: %s", probe)
+
+    # ------------------------------------------------------ columnar lanes
+    def _dispatch_columnar(self, launch, plan: ColumnarPlan, exploded, cache, store_key) -> None:
+        """The staged ladder: per-column extraction from the span tables,
+        the predicate launch, then the projection, which overlaps it."""
+        n = launch.n
         launch.r_out = plan.r_out
         if n == 0:
             launch.proj_ok = np.zeros(0, bool)
@@ -553,13 +796,13 @@ class TorchEngine:
             exploded.joined, exploded.offsets, exploded.sizes, n_pad, cache
         )
         self._stat("t_extract_pred", t0)
-        counts = [e - s for s, e in exploded.ranges]
-        if not (plan.dev_cols and self._dispatch_mesh(launch, plan, cols, counts, n)):
-            inputs = [torch.from_numpy(c) for c in cols]
-            if self._stream is not None:
-                inputs = [t.pin_memory() for t in inputs]
-            launch.pending = self._run_device(inputs, plan.predicate, "predicate")
-        # projection extraction overlaps the device launch
+        entry = None
+        if store_key is not None:
+            entry = colcache.Entry(
+                n=n, n_pad=n_pad, ranges=launch.ranges, cols=cols,
+                exploded=exploded if plan.passthrough else None, parse_mode="staged",
+            )
+        self._dispatch_predicate(launch, plan, cols, entry=entry)
         t0 = time.perf_counter()
         if plan.passthrough:
             launch.proj_ok = np.ones(n, bool)
@@ -569,6 +812,76 @@ class TorchEngine:
                 exploded.joined, exploded.offsets, exploded.sizes, cache
             )
         self._stat("t_extract_proj", t0)
+        if entry is not None:
+            if not plan.passthrough:
+                entry.proj_data, entry.proj_ok = launch.proj_data, launch.proj_ok
+            self._store(store_key, entry)
+
+    def _dispatch_columnar_fused(self, launch, plan: ColumnarPlan, sp, store_key) -> None:
+        """The structural lane: one record-major extraction crossing gives
+        the predicate columns and the packed projection rows together."""
+        n = sp.n
+        launch.r_out = plan.r_out
+        if n == 0:
+            launch.proj_ok = np.zeros(0, bool)
+            return
+        t0 = time.perf_counter()
+        n_pad = _bucket_rows(n)
+        cols, proj_data, proj_ok = plan.extract_fused(sp, n_pad)
+        self._stat("t_fused_extract", t0)
+        if plan.passthrough:
+            launch.proj_ok = np.ones(n, bool)
+            launch.exploded = sp.exploded()
+        else:
+            launch.proj_data, launch.proj_ok = proj_data, proj_ok
+        entry = None
+        if store_key is not None:
+            entry = colcache.Entry(
+                n=n, n_pad=n_pad, ranges=launch.ranges, cols=cols,
+                proj_data=launch.proj_data, proj_ok=launch.proj_ok,
+                exploded=launch.exploded, parse_mode="structural",
+            )
+        self._dispatch_predicate(launch, plan, cols, entry=entry)
+        if entry is not None:
+            self._store(store_key, entry)
+
+    def _dispatch_columnar_cached(self, launch, plan: ColumnarPlan, entry) -> None:
+        """A column-cache hit: no host dispatch stage runs, and the predicate
+        reads the entry's columns -- on a card the tensors the cold launch
+        left there, so nothing is copied up. The arrays are the cold
+        launch's, so the reply is bit-identical."""
+        self._count_launch(launch, list(entry.ranges), entry.n)
+        launch.r_out = plan.r_out
+        if plan.passthrough:
+            launch.proj_ok = np.ones(entry.n, bool)
+            launch.exploded = entry.exploded
+        else:
+            launch.proj_data, launch.proj_ok = entry.proj_data, entry.proj_ok
+        self._dispatch_predicate(launch, plan, entry.cols, dev_cols=entry.cols_dev)
+
+    def _store(self, key, entry: colcache.Entry) -> None:
+        entry.nbytes = entry._measure()  # with the device tensors, once copied up
+        self._colcache.put(key, entry)
+
+    def _dispatch_predicate(self, launch, plan: ColumnarPlan, cols, entry=None,
+                            dev_cols=None) -> None:
+        """The predicate over a launch's columns: the mesh lane when it takes
+        the launch, else one launch on the engine's stream. ``entry`` (a
+        cache entry being built) keeps the tensors the columns are copied
+        into; ``dev_cols`` are such tensors from a hit, launched as they
+        are."""
+        if not plan.dev_cols:
+            return
+        if dev_cols is None:
+            counts = [e - s for s, e in launch.ranges]
+            if self._dispatch_mesh(launch, plan, cols, counts, launch.n):
+                return
+            inputs = [torch.from_numpy(c) for c in cols]
+            if self._stream is not None:
+                inputs = [t.pin_memory() for t in inputs]
+        else:
+            inputs = dev_cols
+        launch.pending = self._run_device(inputs, plan.predicate, "predicate", entry)
 
     def _mesh_blocks(self, counts: list[int], n: int):
         """The mesh lane's cut of a launch, or None for the single lane:
@@ -666,45 +979,55 @@ class TorchEngine:
         self._stat_add("bytes_d2h", host.nbytes)
         return _Pending(host, marks, refs)
 
-    def _dispatch_payload(self, launch, exploded, n: int) -> None:
+    def _dispatch_payload_ptrs(self, launch, pe) -> None:
+        """The payload lane: staging rows packed straight from each batch's
+        payload into the pinned staging tensor (its numpy view), copied up
+        and run through the packed payload kernel (K4). The staging tensor
+        stays referenced by the launch's _Pending until its copy is done."""
         prog = self._programs[launch.script_id]
         launch.r_out = prog.r_out
-        launch.fits = exploded.sizes <= self._row_stride
-        if n == 0:
+        launch.fits = pe.sizes <= self._row_stride
+        if launch.n == 0:
             return
         t0 = time.perf_counter()
-        n_pad = _bucket_rows(n)
         staged = torch.empty(
-            (n_pad, self._row_stride + IN_META), dtype=torch.uint8,
+            (_bucket_rows(launch.n), self._row_stride + IN_META), dtype=torch.uint8,
             pin_memory=self._stream is not None,
         )
-        pack_staged(exploded, self._row_stride, staged.numpy())
+        pack_staged_ptrs(pe, self._row_stride, staged.numpy())
         self._stat("t_pack", t0)
         launch.pending = self._run_device([staged], lambda t: run_packed(prog, t[0]),
                                           "payload_transform")
 
-    def _run_device(self, inputs: list[torch.Tensor], run, kernel: str) -> _Pending:
-        """Host inputs -> device -> ``run`` (one kernel launch) -> pinned
-        host result, all enqueued on the engine's stream; on the CPU device
-        ``run`` executes the plain version at once."""
+    def _run_device(self, inputs: list[torch.Tensor], run, kernel: str, entry=None) -> _Pending:
+        """Inputs -> device -> ``run`` (one kernel launch) -> pinned host
+        result, all enqueued on the engine's stream; on the CPU device
+        ``run`` executes the plain version at once. Inputs already on the
+        card (a cache hit's) are launched as they are, with no copy;
+        ``entry`` keeps the device copies of host inputs."""
         t0 = time.perf_counter()
         self._stat_add(f"n_kernel_{kernel}", 1)
         if self._stream is None:
             out = run(inputs)
             self._stat("t_dispatch", t0)
             return _Pending(out)
+        resident = inputs[0].device.type == "cuda"
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
             marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             marks[0].record()
-            dev = [t.to(self.device, non_blocking=True) for t in inputs]
+            dev = inputs if resident else [t.to(self.device, non_blocking=True) for t in inputs]
             marks[1].record()
             out = run(dev)
             marks[2].record()
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             marks[3].record()
+        if entry is not None:
+            # made on the engine's stream, which every hit launches on too
+            entry.cols_dev = dev
         self._stat("t_dispatch", t0)
-        self._stat_add("bytes_h2d", sum(t.nbytes for t in inputs))
+        if not resident:
+            self._stat_add("bytes_h2d", sum(t.nbytes for t in inputs))
         self._stat_add("bytes_d2h", host.nbytes)
         return _Pending(host, [marks], (inputs, dev, out))
 
@@ -724,5 +1047,22 @@ def pack_staged(exploded, row_stride: int, staged: np.ndarray) -> None:
         sizes = np.concatenate([sizes, np.zeros(n_pad - n, np.int32)])
     lens = np.where(sizes <= r, sizes, 0).astype("<i4")
     native.lib().pack_rows_into(exploded.joined, offsets, sizes, staged)
+    staged[:, r : r + 4] = lens.view(np.uint8).reshape(n_pad, 4)
+    staged[:, r + 4 :] = 0
+
+
+def pack_staged_ptrs(pe, row_stride: int, staged: np.ndarray) -> None:
+    """``pack_staged`` from a pointer-table explode: each batch's records
+    pack straight from its own payload into its rows of ``staged`` (one
+    rp_pack_rows crossing a batch), with the same bytes as pack_staged over
+    the joined blob (rp_pack_rows clamps to the row and zero-fills each
+    row's tail)."""
+    r = row_stride
+    n_pad = staged.shape[0]
+    n = len(pe.sizes)
+    native.lib().pack_table_into(pe.payloads, pe.rel_off, pe.rel_len, staged)
+    staged[n:] = 0
+    lens = np.zeros(n_pad, "<i4")
+    lens[:n] = np.where(pe.sizes <= r, pe.sizes, 0)
     staged[:, r : r + 4] = lens.view(np.uint8).reshape(n_pad, 4)
     staged[:, r + 4 :] = 0

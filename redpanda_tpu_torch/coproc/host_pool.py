@@ -1,5 +1,6 @@
 """The range shard of a launch's batches (the JAX package's
-coproc/host_pool.py ``partition_counts``, copied verbatim).
+coproc/host_pool.py ``partition_counts``, copied verbatim), and the margin
+a measured choice of the engine must win by (``PROBE_MARGIN``).
 
 The mesh lane (coproc/meshrunner.py) cuts a launch into per-device shards
 with it, so its shard ranges, and ``stats()["mesh"]["rows_per_device"]``,
@@ -8,6 +9,11 @@ not ported yet.
 """
 
 from __future__ import annotations
+
+# A measured choice of the engine (the structural-vs-staged parse ladder,
+# the mesh lane against the single device) pins the new path only when it
+# wins by this factor: the old one is the known path.
+PROBE_MARGIN = 1.25
 
 
 def partition_counts(counts: list[int], n_shards: int) -> list[tuple[int, int]]:

@@ -14,8 +14,8 @@ a ``PartitionMesh`` (parallel/mesh.py):
 - mesh-vs-single is a measured decision taken on the first representative
   launch (``PROBE_MIN_ROWS``): the same predicate over the same columns,
   once over the mesh and once on the engine's one device, and the mesh
-  must win by ``PROBE_MARGIN``. The decision and the probe's times are in
-  ``stats()``. On a virtual mesh (one card named several times) the mesh
+  must win by ``host_pool.PROBE_MARGIN``. The decision and the probe's
+  times are in ``stats()``. On a virtual mesh (one card named several times) the mesh
   does the single lane's work in one launch over padded blocks, so it
   cannot win by the margin and "single" is the expected answer there.
 
@@ -39,9 +39,6 @@ from redpanda_tpu_torch.parallel.mesh import PartitionMesh
 # don't pin the engine-sticky mesh-vs-single decision on a launch too
 # small to represent steady state
 PROBE_MIN_ROWS = 1024
-
-# the mesh must beat the single device by this factor to be chosen
-PROBE_MARGIN = 1.25
 
 
 class MeshRunner:
@@ -96,7 +93,7 @@ class MeshRunner:
             return "single"
         t_mesh, t_single = self._measure(plan, stacked, flat, device)
         ratio = t_single / t_mesh if t_mesh > 0 else 0.0
-        decision = "mesh" if ratio >= PROBE_MARGIN else "single"
+        decision = "mesh" if ratio >= host_pool.PROBE_MARGIN else "single"
         with self._lock:
             self._decision = decision
             self._probe = {

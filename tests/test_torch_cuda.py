@@ -785,3 +785,92 @@ def test_mesh_entry_points_raise_with_too_few_cards():
                  lambda: entry.dryrun_multichip(2), default_plane_on_a_mesh):
         with pytest.raises(RuntimeError, match="CUDA device"):
             make()
+
+
+# ------------------------------------------------------------------ host ladder lanes
+HOST_LADDER_LANES = {
+    "staged": dict(structural_parse=False),
+    "structural": dict(structural_probe=False),
+    "cached": dict(structural_probe=False, device_column_cache_mb=16),
+    "padded": dict(structural_parse=False, gather_frame=False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", sorted(HOST_LADDER_LANES))
+def test_engine_host_ladder_lanes_match_cpu_engine(card, lane):
+    """Each lane of the single-device host ladder on the card gives the CPU
+    engine's replies; the cached lane's hits copy nothing up."""
+    rng = np.random.default_rng(6)
+    items = []
+    for p in range(4):
+        recs = [Record(offset_delta=i, value=v) for i, v in enumerate(_docs(rng, 40))]
+        items.append(ProcessBatchItem(1, NTP.kafka("t", p), [RecordBatch.build(recs)]))
+    req = ProcessBatchRequest(items)
+    specs = [T.where(EXPRS[0]) | T.map_project(T.Int("code"), T.Str("msg", 24)),
+             T.where(EXPRS[1])]
+    for spec in specs:
+        replies = []
+        for dev in (card, "cpu"):
+            eng = TorchEngine(device=dev, row_stride=128, **HOST_LADDER_LANES[lane])
+            assert eng.enable_coprocessors([(1, spec.to_json(), ("t",))]) == [0]
+            replies.append([[b.encode_internal() for it in eng.process_batch(req).items
+                             for b in it.batches] for _ in range(3)])
+            st = eng.stats()
+            eng.shutdown()
+            if dev != "cpu":
+                assert st["n_kernel_predicate"] == 3
+                assert not any(k.startswith("n_failures") for k in st)
+                if lane == "cached":
+                    # one cold launch copied the columns up; two hits copied nothing
+                    assert st["colcache"]["hits"] == 2
+                    assert st["bytes_h2d"] == sum(t.nbytes for t in eng._colcache._entries[
+                        next(iter(eng._colcache._entries))].cols_dev)
+        assert replies[0] == replies[1]
+        assert any(replies[1][0])
+
+
+@pytest.mark.cuda
+def test_pointer_table_payload_lane_matches_cpu_engine(card):
+    rng = np.random.default_rng(8)
+    items = []
+    for p in range(4):
+        recs = [Record(offset_delta=i, value=v) for i, v in enumerate(_docs(rng, 50))]
+        items.append(ProcessBatchItem(1, NTP.kafka("t", p), [RecordBatch.build(recs)]))
+    req = ProcessBatchRequest(items)
+    replies = []
+    for dev in (card, "cpu"):
+        eng = TorchEngine(device=dev, row_stride=128)
+        assert eng.enable_coprocessors([(1, SPECS[0].to_json(), ("t",))]) == [0]
+        tickets = eng.submit_group([req, req])
+        replies.append([[b.encode_internal() for it in t.result().items for b in it.batches]
+                        for t in tickets])
+        assert eng.stats()["t_explode_ptrs"] > 0
+        eng.shutdown()
+    assert replies[0] == replies[1]
+
+
+@pytest.mark.cuda
+def test_policy_device_leg_matches_cpu_and_raises_on_a_failing_launch(card, monkeypatch):
+    from redpanda_tpu_torch.policy import PolicyEngine
+
+    rng = np.random.default_rng(9)
+    batches = [RecordBatch.build([Record(offset_delta=i, value=v)
+                                  for i, v in enumerate(_docs(rng, 64))], base_offset=64 * k)
+               for k in range(8)]
+    spec = SPECS[0].to_json()
+    outs = []
+    for dev, leg in ((card, "device"), ("cpu", "device"), ("cpu", "host")):
+        eng = PolicyEngine(device=dev, force_engine=leg, row_stride=256)
+        outs.append([b.encode_internal() for b in eng.transform_batches(spec, batches)])
+    assert outs[0] == outs[1] == outs[2]
+    before = kernels.PAYLOAD_TRANSFORM.launches
+    PolicyEngine(device=card, row_stride=256).transform_batches(spec, batches)  # 512 records
+    assert kernels.PAYLOAD_TRANSFORM.launches == before + 1
+
+    def failing(*args):
+        raise RuntimeError("payload kernel launch failed")
+
+    monkeypatch.setattr(kernels.PAYLOAD_TRANSFORM, "launch", failing)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        PolicyEngine(device=card, force_engine="device").transform_batches(spec, batches)

@@ -63,3 +63,19 @@ def test_script_checksums_match_reference():
         assert sorted(eng.scripts) == [1, 3]
     finally:
         ref.shutdown()
+
+
+@pytest.mark.parametrize("buckets", [1, 2, 3, 7, 16, 64, 1000, 2**31 - 1])
+def test_jump_consistent_hash_matches_reference(buckets):
+    from redpanda_tpu.hashing.jump import jump_consistent_hash as ref_jump
+    from redpanda_tpu_torch.hashing import jump_consistent_hash
+
+    rng = np.random.default_rng(buckets)
+    keys = [0, 1, 2**63, 2**64 - 1, -1, -(2**63)] + [int(k) for k in rng.integers(0, 2**63, 200)]
+    for key in keys:
+        got = jump_consistent_hash(key, buckets)
+        assert got == ref_jump(key, buckets), (key, buckets)
+        assert 0 <= got < buckets
+    for bad in (0, -3):
+        with pytest.raises(ValueError):
+            jump_consistent_hash(1, bad)
