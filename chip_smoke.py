@@ -45,7 +45,24 @@ Phases, each of which exits non-zero on failure:
    d. the data policy's device leg (PolicyEngine, row_stride 2048) over a
       fetch of the 64 partitions x 32 records, equal to
       PolicyEngine(device="cpu")'s device leg and to its host evaluator,
-      K4 launched; and a failing K4 launch raising from transform_batches.
+      K4 launched; and a failing K4 launch raising from transform_batches;
+   e. the host-stage pool: the columnar spec and then the payload spec
+      inline (host_workers=0) and on the pool (host_workers=4,
+      host_pool_probe=False) in turns (inline, pool, inline, pool), then
+      the passthrough spec inline, on the pinned pool (its reply-wide seal
+      fanned out) and on a probed engine (what its pool probe chose):
+      rates and the pool's, seal and harvest-thread stage seconds of each,
+      K1 one launch a shard a launch on the pool lane, K4 one launch a
+      launch staged from the pointer table on both lanes; then the seal seconds of the empty-reply lanes
+      split into garbage collection and host work (seal_profile, which
+      chip_tools/gc_profile.py also runs against another checkout);
+   f. on the card nothing takes a mask's place: a K1 launch that fails in
+      every shard and in the inline retry, and a copy down that fails on
+      the harvest thread, both end in the script's error policy (skip:
+      empty items; deregister: unloaded), with their failures counted.
+   The host-ladder lanes (3a-3c) run inline (host_workers=0); phase 3's default
+   engines take the pool when its probe (the launch's host path timed
+   inline and sharded) pins it.
 4. CRC-32C (K5, K6: the split CRC kernel over one block) against the
    plain versions at r = 100, 2048, 4097 and 16384 over 256, 1024 and 8192
    rows (64 and 512 more of 16384: 1, 2, 4 and 8 warps a row), aligned and
@@ -96,12 +113,12 @@ Phases, each of which exits non-zero on failure:
       and [64, 256] votes (one fused launch a step and no other kernel,
       asserted; the step timed beside its launch alone);
    b. the engine's mesh lane at the bench's shape through
-      TorchEngine(mesh=..., mesh_probe=False), columnar spec, both
-      workloads: every reply byte-identical to the CPU engine's, the
-      stacked predicate launched once per mesh launch and card chunk and
-      the single one not, rows per device summing to the records, its
-      t_dispatch beside the single lane's; then one engine with
-      mesh_probe=True and its decision;
+      TorchEngine(mesh=..., mesh_probe=False, host_workers=4) (the shards'
+      ladders on the pool), columnar spec, both workloads: every reply
+      byte-identical to the CPU engine's, the stacked predicate launched
+      once per mesh launch and card chunk and the single one not, rows per
+      device summing to the records, its t_dispatch beside the single
+      lane's; then one engine with mesh_probe=True and its decision;
    c. the raft plane's mesh leg at config 5's shape
       (RaftDevicePlane(mesh=..., probe=False).validate, 1024 regions: one
       crc32c_vote launch, asserted) and tally_votes over [4, 256], timed
@@ -637,6 +654,38 @@ def run_stream(engine, req, n_ticks):
     return replies, n_ticks * len(req.items) / elapsed
 
 
+class GcPauses:
+    """The garbage collector's pauses while the block runs (gc.callbacks):
+    ``pauses`` [start, end, generation]; ``by_gen`` {generation: [seconds,
+    count]}. A generation-2 collection of this process takes ~0.1 s, a third
+    or more of a 160-tick window, so every lane's rate is read beside it."""
+
+    def __enter__(self):
+        import gc
+
+        self.pauses = []
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._on_gc)
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self.pauses.append([time.perf_counter(), 0.0, info["generation"]])
+        elif self.pauses:
+            self.pauses[-1][1] = time.perf_counter()
+
+    def by_gen(self) -> dict:
+        out = {g: [0.0, 0] for g in (0, 1, 2)}
+        for p0, p1, g in self.pauses:
+            out[g][0] = round(out[g][0] + p1 - p0, 6)
+            out[g][1] += 1
+        return out
+
+
 def phase_engine(dev) -> dict:
     from redpanda_tpu_torch import kernels
     from redpanda_tpu_torch.coproc.engine import TorchEngine
@@ -649,6 +698,7 @@ def phase_engine(dev) -> dict:
         cpu.enable_coprocessors([(1, spec.to_json(), ("bench",))])
         for wname, req in work.items():
             want[sname, wname] = [reply_bytes(t.result()) for t in cpu.submit_group([req] * GROUP)]
+        cpu.shutdown()  # its pool's threads must not outlive the reference
     engines = {}
     for sname, spec in specs.items():
         eng = TorchEngine(device=dev, row_stride=ROW_STRIDE)
@@ -663,7 +713,10 @@ def phase_engine(dev) -> dict:
     for sname, eng in engines.items():
         for wname, req in work.items():
             n_ticks = TICKS if wname == "bench" else 2 * GROUP
-            replies, rate = run_stream(eng, req, n_ticks)
+            with GcPauses() as gcp:
+                t0 = time.perf_counter()
+                replies, rate = run_stream(eng, req, n_ticks)
+                wall = time.perf_counter() - t0
             ref = want[sname, wname]
             for k, rep in enumerate(replies):
                 if reply_bytes(rep) != ref[k % GROUP]:
@@ -685,15 +738,24 @@ def phase_engine(dev) -> dict:
                 busy = (st.get("t_dev_h2d", 0) + st.get("t_dev_kernel", 0)
                         + st.get("t_dev_d2h", 0)) * rate / (n_ticks * len(req.items))
                 log(f"engine {sname} stages: {json.dumps(stages)}")
+                gc_s = sum(p1 - p0 for p0, p1, _ in gcp.pauses)
+                log(f"engine {sname} bench: gc pauses {gc_s:.6f} s of the {wall:.6f} s window, "
+                    f"[s, count] by generation {json.dumps(gcp.by_gen())}; without them "
+                    f"{n_ticks * len(req.items) / (wall - gc_s):.1f} record_batches/s")
                 log(f"engine {sname}: device stream busy {busy:.2%} of the wall "
                     "(sum of CUDA-event stream intervals)")
                 if any(k.startswith("n_failures") for k in st):
                     fail(f"{sname}: engine failures {st}")
+                log(f"engine {sname}: the host pool probe chose "
+                    f"{json.dumps(st.get('host_pool_probe'))} at {st['host_workers']:.0f} workers; "
+                    f"{st.get('n_sharded_launches', 0):.0f} of {st['n_launches']:.0f} launches "
+                    "sharded")
                 if sname == "columnar":
                     log(f"engine columnar: the parse probe chose {st['parse_path']} "
                         f"({json.dumps(st.get('parse_probe'))})")
-                elif not st.get("t_explode_ptrs"):
-                    fail("payload: the pointer-table staging lane did not run")
+                elif not st.get("t_explode_ptrs") or st.get("t_explode"):
+                    # sharded or not, one staging path: the pointer table
+                    fail(f"payload: the pointer-table staging lane did not run {lane_stats(st)}")
             else:
                 log(f"engine {sname} short_msgs: {rate:.1f} record_batches/s, "
                     f"{kept} output batches per tick, replies byte-identical to the CPU engine")
@@ -738,13 +800,16 @@ def phase_host_ladder(dev, engine_run) -> dict:
     want = {"columnar": {w: engine_run["want"]["columnar", w] for w in work},
             "passthrough": {w: [reply_bytes(t.result()) for t in cpu.submit_group([r] * GROUP)]
                             for w, r in work.items()}}
+    cpu.shutdown()
     n_ticks_of = lambda w: TICKS if w == "bench" else 2 * GROUP  # noqa: E731
-    pinned = {"structural": dict(structural_probe=False), "staged": dict(structural_parse=False)}
+    # the inline ladders (host_workers=0): the pool lane is phase 3e's
+    pinned = {"structural": dict(structural_probe=False, host_workers=0),
+              "staged": dict(structural_parse=False, host_workers=0)}
     # the two pinned ladders in turns (ABBA): the host's spread is wider
     # than their difference in one pass
     lanes = [(f"{k} #{i}", "columnar", pinned[k])
              for i, k in ((1, "structural"), (1, "staged"), (2, "staged"), (2, "structural"))]
-    lanes.append(("gather-framed passthrough", "passthrough", {}))
+    lanes.append(("gather-framed passthrough", "passthrough", dict(host_workers=0)))
     launches = {}
     for name, sname, kw in lanes:
         spec = columnar_spec() if sname == "columnar" else passthrough_spec()
@@ -818,7 +883,8 @@ def phase_colcache(dev, work, want, n_ticks_of) -> int:
     from redpanda_tpu_torch import kernels
     from redpanda_tpu_torch.coproc.engine import TorchEngine
 
-    eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, device_column_cache_mb=32)
+    eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, device_column_cache_mb=32,
+                      host_workers=0)
     eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))])
     for wname, req in work.items():  # one cold launch per window fills the cache
         replies, _ = run_stream(eng, req, GROUP)
@@ -842,6 +908,221 @@ def phase_colcache(dev, work, want, n_ticks_of) -> int:
         f"{cold.get('bytes_h2d', 0):.0f}); {cc['entries']} entries, {cc['bytes']} B held")
     log(f"engine colcache lane bench stages: {lane_stats(st)}")
     return n
+
+
+def stage_line(st: dict, keys=("t_shard_", "t_sharded_", "t_seal", "t_harvest_wait",
+                                 "t_fetch", "t_explode", "t_fused", "t_frame", "t_rebuild",
+                                 "t_pack")) -> str:
+    return json.dumps({k: round(v, 6) for k, v in sorted(st.items()) if k.startswith(keys)})
+
+
+def phase_pool(dev, engine_run) -> int:
+    """Phase 3e: the host-stage pool against the inline path on the bench
+    shape, each lane its own engine, in turns (inline, pool, inline, pool)
+    for the columnar spec, then the passthrough spec (whose replies carry
+    data, so that the reply-wide seal fans out); every reply compared with
+    the CPU engine's, K1's launches exact (one a shard a launch on the pool
+    lane), no failure counted. Then the empty-reply seal profile and the
+    two failures on the card (3f)."""
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+
+    work = engine_run["work"]
+    cpu = TorchEngine(device="cpu", row_stride=ROW_STRIDE, host_workers=0)
+    cpu.enable_coprocessors([(1, passthrough_spec().to_json(), ("bench",))])
+    want = {"columnar": {w: engine_run["want"]["columnar", w] for w in work},
+            "payload": {w: engine_run["want"]["payload", w] for w in work},
+            "passthrough": {w: [reply_bytes(t.result()) for t in cpu.submit_group([r] * GROUP)]
+                            for w, r in work.items()}}
+    cpu.shutdown()
+    n_ticks_of = lambda w: TICKS if w == "bench" else 2 * GROUP  # noqa: E731
+    lanes = {"inline": dict(host_workers=0), "pool": dict(host_workers=4, host_pool_probe=False),
+             "probed": dict(host_workers=4)}
+    turns = ((1, "inline"), (1, "pool"), (2, "inline"), (2, "pool"))
+    order = [("columnar", k, i) for i, k in turns]
+    order += [("payload", k, i) for i, k in turns]
+    order += [("passthrough", k, 1) for k in ("inline", "pool", "probed")]
+    specs = {"columnar": columnar_spec, "payload": payload_spec, "passthrough": passthrough_spec}
+    k1 = 0
+    for sname, lane, i in order:
+        spec = specs[sname]()
+        eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, **lanes[lane])
+        if eng.enable_coprocessors([(1, spec.to_json(), ("bench",))]) != [0]:
+            fail(f"enable the {sname} {lane} lane")
+        run_stream(eng, work["bench"], GROUP + 1)  # warm-up
+        eng.reset_stats()
+        kernels.reset_launches()  # this lane's path starts here
+        with GcPauses() as gcp:
+            rates, st = drive_lane(f"{sname} {lane} #{i}", eng, work, want[sname], n_ticks_of)
+        end = eng.stats()
+        eng.shutdown()
+        sharded = end.get("n_sharded_launches", 0)
+        if sname == "payload":
+            # one K4 launch a launch on either lane, staged from the pointer table
+            n = path_launches(f"payload {lane} lane", kernels.PAYLOAD_TRANSFORM)["payload_transform"]
+            if (n != end["n_launches"] or sharded != (end["n_launches"] if lane == "pool" else 0)
+                    or not end.get("t_explode_ptrs") or end.get("t_explode")):
+                fail(f"payload {lane} lane: {n} K4 launches, {sharded} sharded "
+                     f"{stage_line(end)}")
+        else:
+            n = path_launches(f"{sname} {lane} lane", kernels.PREDICATE)["predicate"]
+            k1 += n
+        if sname != "payload" and lane == "pool":
+            if sharded != end["n_launches"] or n != 4 * sharded:
+                fail(f"pool lane: {n} K1 launches for {sharded} sharded launches of 4 shards "
+                     f"({end['n_launches']} launches)")
+            if sname == "passthrough" and not end.get("t_sharded_seal"):
+                fail(f"pool lane: the seal did not fan out {stage_line(end)}")
+        elif sname != "payload" and lane == "inline" and (sharded or n != end["n_launches"]):
+            fail(f"inline lane: {n} K1 launches for {end['n_launches']} launches, "
+                 f"{sharded} sharded")
+        elif lane == "probed":
+            log(f"engine pool phase {sname} probed: the pool probe chose "
+                f"{json.dumps(end.get('host_pool_probe'))}")
+        log(f"engine pool phase {sname} {lane} #{i} (host_workers "
+            f"{end['host_workers']:.0f}): bench {rates['bench']:.1f} record_batches/s over "
+            f"{TICKS} ticks, short_msgs {rates['short_msgs']:.1f}; replies byte-identical to "
+            f"TorchEngine(cpu); {'K4' if sname == 'payload' else 'K1'} launches {n} for "
+            f"{end['n_launches']:.0f} launches "
+            f"({sharded:.0f} sharded); gc pauses over both workloads [s, count] by "
+            f"generation {json.dumps(gcp.by_gen())}")
+        log(f"engine pool phase {sname} {lane} #{i} bench stages: {stage_line(st)}")
+    seal_profile(dev, work, want["columnar"])
+    phase_card_failures(dev, work)
+    return k1
+
+
+def seal_profile(dev, work, want) -> None:
+    """Where the seal seconds of lanes with empty replies go (the columnar
+    spec on the bench workload: every msg is wider than Str("msg", 64)):
+    the inline lane and the column cache's hit lane, each on its own engine
+    over TICKS ticks, with the garbage collector's pauses (gc.callbacks) and
+    the engine's t_seal windows recorded, so that the seal's seconds split
+    into collection and host work. An engine without a knob (an older
+    checkout's, driven by chip_tools/gc_profile.py) runs without it."""
+    import inspect
+
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+
+    knobs = inspect.signature(TorchEngine.__init__).parameters
+    windows = []
+    for lane, kw in (("inline", {}), ("colcache hits", dict(device_column_cache_mb=32))):
+        kw = {k: v for k, v in dict(kw, host_workers=0).items() if k in knobs}
+        eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, **kw)
+        eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))])
+        run_stream(eng, work["bench"], GROUP + 1)  # warm-up (and the cold launches)
+        eng.reset_stats()
+        real_stat = eng._stat
+
+        def stat(key, t0, real_stat=real_stat):
+            if key == "t_seal":
+                windows.append((t0, time.perf_counter()))
+            real_stat(key, t0)
+
+        eng._stat = stat
+        windows.clear()
+        with GcPauses() as gcp:
+            replies, rate = run_stream(eng, work["bench"], TICKS)
+        st = eng.stats()
+        eng.shutdown()
+        if any(reply_bytes(r) != want["bench"][k % GROUP] for k, r in enumerate(replies)):
+            fail(f"seal profile {lane}: a reply differs from the CPU engine's")
+        inside = {g: 0.0 for g in (0, 1, 2)}
+        for p0, p1, g in gcp.pauses:
+            inside[g] += sum(max(0.0, min(p1, w1) - max(p0, w0)) for w0, w1 in windows)
+        t_seal, gc_s = st.get("t_seal", 0.0), sum(inside.values())
+        by_gen = json.dumps({g: round(v, 6) for g, v in inside.items()})
+        log(f"seal profile, {lane}, columnar bench (empty replies), {TICKS} ticks: "
+            f"{rate:.1f} record_batches/s; t_seal {t_seal:.6f} s in {len(windows)} windows, of "
+            f"which gc {gc_s:.6f} s ({by_gen} by generation) and host work "
+            f"{t_seal - gc_s:.6f} s; all gc pauses [s, count] {json.dumps(gcp.by_gen())}")
+
+
+def gc_lanes(dev, work, want, rounds: int = 3) -> None:
+    """The columnar bench lane (TICKS ticks) on the default engine and on
+    the inline one (host_workers=0, where the engine has that knob), in
+    turns, each on its own engine, with the collector's pauses in the
+    window beside the rate, so that a lane is compared with the pauses taken
+    out as well as in."""
+    import inspect
+
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+
+    lanes = {"default": {}}
+    if "host_workers" in inspect.signature(TorchEngine.__init__).parameters:
+        lanes["inline"] = dict(host_workers=0)
+    for r in range(rounds):
+        for lane, kw in lanes.items():
+            eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, **kw)
+            eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))])
+            run_stream(eng, work["bench"], GROUP + 1)  # warm-up
+            eng.reset_stats()
+            with GcPauses() as gcp:
+                t0 = time.perf_counter()
+                replies, rate = run_stream(eng, work["bench"], TICKS)
+                wall = time.perf_counter() - t0
+            st = eng.stats()
+            eng.shutdown()
+            if any(reply_bytes(x) != want["bench"][k % GROUP] for k, x in enumerate(replies)):
+                fail(f"gc lanes {lane}: a reply differs from the CPU engine's")
+            gc_s = sum(p1 - p0 for p0, p1, _ in gcp.pauses)
+            log(f"gc lanes, {lane} #{r + 1}, columnar bench, {TICKS} ticks: {rate:.1f} "
+                f"record_batches/s ({wall:.6f} s); gc pauses {gc_s:.6f} s, [s, count] by "
+                f"generation {json.dumps(gcp.by_gen())}; without them "
+                f"{TICKS * P / (wall - gc_s):.1f} record_batches/s; sharded launches "
+                f"{st.get('n_sharded_launches', 0):.0f} of {st['n_launches']:.0f}")
+
+
+def phase_card_failures(dev, work) -> None:
+    """Phase 3f: on the card nothing takes the place of a mask. A K1 launch
+    that fails in every shard of a pool launch degrades it to the inline
+    lane, whose launch fails too: the script's error policy drops (skip) or
+    unloads (deregister) its output. A copy down that fails on the harvest
+    thread is raised by Ticket.result into the same policy."""
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.coproc import engine as engine_mod
+    from redpanda_tpu_torch.coproc.engine import ErrorPolicy, TorchEngine
+
+    req = work["short_msgs"]  # a host mask would have kept records here
+
+    def failing(*args):
+        raise RuntimeError("injected failure")
+
+    def run(policy):
+        eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, host_workers=4,
+                          host_pool_probe=False)
+        eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",), policy)])
+        reply = eng.submit_group([req] * 2)[0].result()  # 4096 records: four shards
+        st = eng.stats()
+        eng.shutdown()
+        return reply, st
+
+    cases = []
+    for what in ("K1 launch", "harvest"):
+        if what == "K1 launch":
+            kernels.PREDICATE.launch = failing  # shadows the method on this one kernel
+        else:
+            real_wait, engine_mod._Pending.wait = engine_mod._Pending.wait, failing
+        try:
+            skip, st = run(ErrorPolicy.skip_on_failure)
+            dereg, _ = run(ErrorPolicy.deregister)
+        finally:
+            if what == "K1 launch":
+                del kernels.PREDICATE.launch
+            else:
+                engine_mod._Pending.wait = real_wait
+        if any(it.batches for it in skip.items) or dereg.deregistered != [1]:
+            fail(f"a failing {what}: output was kept ({len(skip.items)} items, deregistered "
+                 f"{dereg.deregistered})")
+        failures = {k: v for k, v in st.items() if k.startswith("n_failures")}
+        want = ({"n_failures_shard_worker": 1.0, "n_failures_dispatch": 1.0} if what == "K1 launch"
+                else {"n_failures_rebuild": 1.0})
+        if any(failures.get(k) != v for k, v in want.items()) or (
+                what == "harvest" and not failures.get("n_failures_harvest")):
+            fail(f"a failing {what}: failures {failures}")
+        cases.append(f"{what}: {json.dumps(failures)}")
+    log("card failures (no host mask): every item of the skip script empty and the deregister "
+        "script unloaded; " + "; ".join(cases))
 
 
 def phase_policy(dev) -> int:
@@ -1822,7 +2103,9 @@ def phase_engine_mesh(dev, mesh, engine_run) -> dict:
     from redpanda_tpu_torch.parallel.mesh import card_groups
 
     spec = columnar_spec()
-    eng = TorchEngine(device=dev, mesh=mesh, mesh_probe=False, row_stride=ROW_STRIDE)
+    # the shards' ladders run on the host-stage pool
+    eng = TorchEngine(device=dev, mesh=mesh, mesh_probe=False, row_stride=ROW_STRIDE,
+                      host_workers=4)
     if eng.enable_coprocessors([(1, spec.to_json(), ("bench",))]) != [0]:
         fail("enable on the mesh")
     run_stream(eng, engine_run["work"]["bench"], GROUP + 1)  # warm-up
@@ -1853,12 +2136,16 @@ def phase_engine_mesh(dev, mesh, engine_run) -> dict:
     m["rows_per_device"] = [a - b for a, b in zip(m["rows_per_device"], warm_rows)]
     if sum(m["rows_per_device"]) != st["n_records"] or st.get("n_failures_dispatch"):
         fail(f"mesh lane accounting: {m}, n_records {st['n_records']}")
+    if not (st.get("t_mesh_ladder") and (st.get("t_shard_explode_find2")
+                                         or st.get("t_shard_explode_find"))):
+        fail(f"mesh lane: the pooled shard ladders did not run {lane_stats(st)}")
     stages = {k: round(v, 6) for k, v in sorted(st.items()) if k.startswith(("t_", "n_", "bytes_"))}
     single = engine_run["rates"]["columnar", "bench"][0]
     log(f"engine mesh lane (virtual mesh of {mesh.size} shards on one card), columnar bench: "
         f"{rates['bench']:.1f} record_batches/s against the single lane's {single:.1f} (phase 3); "
         f"short_msgs {rates['short_msgs']:.1f}; replies byte-identical to TorchEngine(cpu); "
-        f"rows_per_device {m['rows_per_device']}; launches {launches}")
+        f"rows_per_device {m['rows_per_device']}; launches {launches}; shard ladders on the "
+        f"pool ({st['host_workers']:.0f} workers): t_mesh_ladder {st['t_mesh_ladder']:.6f} s wall")
     busy = (st.get("t_dev_h2d", 0) + st.get("t_dev_kernel", 0) + st.get("t_dev_d2h", 0)) \
         * rates["bench"] / (TICKS * P)
     log(f"engine mesh lane bench stages: {json.dumps(stages)}; streams busy {busy:.2%} "
@@ -1974,7 +2261,7 @@ def main() -> int:
     measured["payload_transform"], measured["payload_record"] = phase_payload(dev)
     launches, engine_run = phase_engine(dev)
     lane_launches = phase_host_ladder(dev, engine_run)
-    launches["predicate"] += sum(lane_launches.values())
+    launches["predicate"] += sum(lane_launches.values()) + phase_pool(dev, engine_run)
     launches["payload_transform"] += phase_policy(dev)
     launches.update(phase_payload_entry(dev))
     measured.update(phase_crc_kernels(dev))

@@ -1,10 +1,11 @@
 """Individual codec implementations.
 
 - gzip: stdlib zlib (parity with compression/internal/gzip_compressor).
-- zstd at level 3: the `zstandard` package when it imports (one context
-  per thread), else the system libzstd through ctypes (ZSTD_compress / the
-  streaming decompressor), so a host without the package still reads and
-  writes zstd batches.
+- zstd at level 3: the `zstandard` package when it imports, else the
+  system libzstd through ctypes (ZSTD_compressCCtx / the streaming
+  decompressor), so a host without the package still reads and writes zstd
+  batches; either way one compression and one decompression context per
+  thread.
 - lz4: LZ4 *frame* format via ctypes on the system liblz4
   (parity with compression/internal/lz4_frame_compressor).
 - snappy: xerial/java-framed snappy via ctypes on the system libsnappy
@@ -38,8 +39,8 @@ def gzip_uncompress(data: bytes) -> bytes:
 
 # ------------------------------------------------------------------ zstd
 ZSTD_LEVEL = 3
-# one compressor and decompressor per thread: a zstandard context may not
-# be used by two threads at once
+# one compressor and decompressor per thread: a zstd context may not be
+# used by two threads at once
 _zstd_local = threading.local()
 
 
@@ -56,12 +57,17 @@ def _load_zstd():
     lib = ctypes.CDLL(path)
     lib.ZSTD_compressBound.restype = ctypes.c_size_t
     lib.ZSTD_compressBound.argtypes = [ctypes.c_size_t]
-    lib.ZSTD_compress.restype = ctypes.c_size_t
-    lib.ZSTD_compress.argtypes = [
-        ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
-    ]
     lib.ZSTD_isError.restype = ctypes.c_uint
     lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
+    lib.ZSTD_createCCtx.restype = ctypes.c_void_p
+    lib.ZSTD_createCCtx.argtypes = []
+    lib.ZSTD_freeCCtx.restype = ctypes.c_size_t
+    lib.ZSTD_freeCCtx.argtypes = [ctypes.c_void_p]
+    lib.ZSTD_compressCCtx.restype = ctypes.c_size_t
+    lib.ZSTD_compressCCtx.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t,
+        ctypes.c_int,
+    ]
     lib.ZSTD_createDStream.restype = ctypes.c_void_p
     lib.ZSTD_createDStream.argtypes = []
     lib.ZSTD_freeDStream.restype = ctypes.c_size_t
@@ -95,6 +101,34 @@ def zstd_available() -> bool:
     return True
 
 
+class _ZstdLibCtx:
+    """This thread's libzstd compression context, decompression stream and
+    output chunk, made once and reused. ZSTD_compress makes and frees a
+    context of hundreds of KB on every call, and threads that seal at once
+    then queue on the process's memory map. Freed when the thread ends."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.cctx = lib.ZSTD_createCCtx()
+        self.dstream = lib.ZSTD_createDStream()
+        if not self.cctx or not self.dstream:
+            raise RuntimeError("ZSTD_createCCtx / ZSTD_createDStream failed")
+        self.chunk = ctypes.create_string_buffer(256 * 1024)
+
+    def __del__(self):
+        if getattr(self, "cctx", None):
+            self.lib.ZSTD_freeCCtx(self.cctx)
+        if getattr(self, "dstream", None):
+            self.lib.ZSTD_freeDStream(self.dstream)
+
+
+def _zstd_lib_ctx() -> _ZstdLibCtx:
+    ctx = getattr(_zstd_local, "lib_ctx", None)
+    if ctx is None:
+        ctx = _zstd_local.lib_ctx = _ZstdLibCtx(_zstd_handle())
+    return ctx
+
+
 def _zstd_ctx():
     """This thread's reusable (compressor, decompressor) (parity with the
     stream_zstd workspaces, one per thread)."""
@@ -109,13 +143,15 @@ def zstd_compress(data: bytes) -> bytes:
     if zstandard is not None:
         zc, _ = _zstd_ctx()
         return zc.compress(data)
-    lib = _zstd_handle()
+    ctx = _zstd_lib_ctx()
+    lib = ctx.lib
     bound = lib.ZSTD_compressBound(len(data))
     dst = ctypes.create_string_buffer(bound)
-    n = lib.ZSTD_compress(dst, bound, data, len(data), ZSTD_LEVEL)
+    # the bytes of ZSTD_compress at this level, from the reused context
+    n = lib.ZSTD_compressCCtx(ctx.cctx, dst, bound, data, len(data), ZSTD_LEVEL)
     if lib.ZSTD_isError(n):
-        raise RuntimeError("ZSTD_compress failed")
-    return dst.raw[:n]
+        raise RuntimeError("ZSTD_compressCCtx failed")
+    return ctypes.string_at(dst, n)
 
 
 def zstd_uncompress(data: bytes) -> bytes:
@@ -124,27 +160,21 @@ def zstd_uncompress(data: bytes) -> bytes:
     if zstandard is not None:
         _, zd = _zstd_ctx()
         return zd.decompressobj().decompress(data)
-    lib = _zstd_handle()
-    ds = lib.ZSTD_createDStream()
-    if not ds:
-        raise RuntimeError("ZSTD_createDStream failed")
-    try:
-        if lib.ZSTD_isError(lib.ZSTD_initDStream(ds)):
-            raise RuntimeError("ZSTD_initDStream failed")
-        src = ctypes.create_string_buffer(bytes(data), len(data))
-        inb = _ZstdInBuffer(ctypes.cast(src, ctypes.c_void_p), len(data), 0)
-        chunk = ctypes.create_string_buffer(256 * 1024)
-        out = bytearray()
-        while True:
-            outb = _ZstdOutBuffer(ctypes.cast(chunk, ctypes.c_void_p), len(chunk), 0)
-            rc = lib.ZSTD_decompressStream(ds, ctypes.byref(outb), ctypes.byref(inb))
-            if lib.ZSTD_isError(rc):
-                raise RuntimeError("ZSTD_decompressStream failed")
-            out += chunk.raw[: outb.pos]
-            if inb.pos >= inb.size and outb.pos < outb.size:
-                return bytes(out)
-    finally:
-        lib.ZSTD_freeDStream(ds)
+    ctx = _zstd_lib_ctx()
+    lib, ds, chunk = ctx.lib, ctx.dstream, ctx.chunk
+    if lib.ZSTD_isError(lib.ZSTD_initDStream(ds)):  # resets the reused stream
+        raise RuntimeError("ZSTD_initDStream failed")
+    src = ctypes.create_string_buffer(bytes(data), len(data))
+    inb = _ZstdInBuffer(ctypes.cast(src, ctypes.c_void_p), len(data), 0)
+    out = bytearray()
+    while True:
+        outb = _ZstdOutBuffer(ctypes.cast(chunk, ctypes.c_void_p), len(chunk), 0)
+        rc = lib.ZSTD_decompressStream(ds, ctypes.byref(outb), ctypes.byref(inb))
+        if lib.ZSTD_isError(rc):
+            raise RuntimeError("ZSTD_decompressStream failed")
+        out += ctypes.string_at(chunk, outb.pos)
+        if inb.pos >= inb.size and outb.pos < outb.size:
+            return bytes(out)
 
 
 # ------------------------------------------------------------------ lz4 frame

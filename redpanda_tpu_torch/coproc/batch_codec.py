@@ -271,6 +271,27 @@ def merge_exploded(parts: list[ExplodedBatches]) -> ExplodedBatches:
     return ExplodedBatches(joined, np.concatenate(offs), np.concatenate(sizes), ranges)
 
 
+def merge_ptrs(parts: list[PtrExploded]) -> PtrExploded:
+    """Concatenate per-shard pointer-table explodes into the launch-wide
+    one. Offsets stay relative to each batch's own payload, so only the
+    record ranges rebase; the result is the one explode_ptrs gives for the
+    whole batch list."""
+    if len(parts) == 1:
+        return parts[0]
+    ranges: list[tuple[int, int]] = []
+    base = 0
+    for p in parts:
+        ranges.extend((s + base, e + base) for s, e in p.ranges)
+        base += len(p.sizes)
+    return PtrExploded(
+        [x for p in parts for x in p.payloads],
+        [x for p in parts for x in p.rel_off],
+        [x for p in parts for x in p.rel_len],
+        np.concatenate([p.sizes for p in parts]) if parts else np.zeros(0, np.int32),
+        ranges,
+    )
+
+
 def _parse_record_values_py(payload: bytes, count: int):
     """Plain Python version of rp_parse_record_values: each record's value
     offset and length (-1 for null) within one batch payload."""

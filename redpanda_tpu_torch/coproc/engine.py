@@ -16,8 +16,7 @@ package's (coproc/engine.py):
     (csrc/payload_transform.cu) returns packed output rows.
   * **host plans** (identity, uppercase) have no device stage.
 
-The host ladder before and after the device is the JAX engine's
-single-device one (its host-stage pool is not ported):
+The host ladder before and after the device is the JAX engine's:
 
   * columnar plans parse either with the staged ladder (one native explode
     + find over the joined blob, then one gather per column) or with the
@@ -32,26 +31,41 @@ single-device one (its host-stage pool is not ported):
     packed straight from its payload into the pinned staging tensor;
   * byte-identity plans (columnar passthrough, identity) frame their output
     straight from the joined blob (gather framing); framing buffers come
-    from the engine's arena.
+    from the engine's arena;
+  * the host-stage pool (coproc/host_pool.py; ``host_workers``, on when its
+    measured probe wins) cuts a launch of ``_SHARD_MIN_ROWS`` records or
+    more into contiguous batch shards: each shard runs its own parse,
+    extraction and column-cache consult on a pool worker and launches the
+    predicate over its own columns; at harvest the shards assemble and frame
+    on the pool, and a reply's recompress and seal jobs fan out over it
+    (``_SEAL_MIN_BATCHES``). Payload and host plans shard only the explode
+    (payload plans the pointer-table explode, merged for one staging pass).
+    The output is byte-identical to the inline path.
 
 Device work runs on the engine's own CUDA stream, never synchronously: the
 inputs are packed into pinned host memory, copied up, the kernel runs, the
 result is copied down into pinned memory, and one CUDA event marks the end.
-``Ticket.result()`` waits on that event, so several launches stay in flight
-while the host explodes, extracts and frames others. On ``device="cpu"`` the
-same path runs the kernels' plain PyTorch versions synchronously.
+A pool worker enters the engine's device and stream itself (both are per
+thread in PyTorch). On a card the mask-harvest thread waits on each
+predicate launch's end event off the dispatch path and publishes its keep
+bits; ``Ticket.result()`` then finds them ready, so several launches stay in
+flight while the host explodes, extracts and frames others. A failed harvest
+is kept on its mask and raised at harvest into the script's error policy:
+no host evaluation takes its place. On ``device="cpu"`` the same path runs
+the kernels' plain PyTorch versions synchronously.
 
 With a partition mesh (``mesh=`` a ``PartitionMesh``, or ``mesh_devices=n``
 cards) columnar launches take the mesh lane (coproc/meshrunner.py): the
-launch's records are cut into per-device shards by the host pool's range
-shard over its batches, each shard's predicate columns are padded to one
-common row bucket, and each card runs the stacked predicate (K2) over its
-shards' blocks in one launch, with one pinned copy per column and one end
-event per card. A launch of one batch cannot be range-sharded; on a mesh
-pinned by ``mesh_probe=False`` it runs as D equal row blocks of the padded
-launch through the same launcher (the JAX engine's ``mesh=`` lane). The measured
-calibration may choose the single device; a failing shard launch raises
-through the same dispatch boundary as a failing single-device launch.
+launch's batches are cut into per-device shards by the host pool's range
+shard, each shard runs its column-cache consult, parse and extraction (on
+the host-stage pool when there is one) at one common row bucket, and each
+card runs the stacked predicate (K2) over its shards' blocks in one launch,
+with one pinned copy per column and one end event per card. A launch of one
+batch cannot be range-sharded; on a mesh pinned by ``mesh_probe=False`` it
+runs as D equal row blocks of the padded launch through the same launcher
+(the JAX engine's ``mesh=`` lane). The measured calibration may choose the
+single device; a failing shard launch raises through the same dispatch
+boundary as a failing single-device launch.
 
 Error policies mirror the public SDK: SkipOnFailure drops the failing batch
 but keeps the script; Deregister removes the script on first failure.
@@ -61,6 +75,7 @@ from __future__ import annotations
 
 import enum
 import logging
+import queue
 import threading
 import time
 from collections import defaultdict
@@ -149,6 +164,27 @@ def _bucket_rows(n: int) -> int:
 # failures of our own code re-raise instead of feeding an error policy
 _PROGRAMMING_ERRORS = (AssertionError, NameError, UnboundLocalError)
 
+# A launch under this many records keeps the inline path: the pool's
+# handoff and the per-shard fixed costs eat the win.
+_SHARD_MIN_ROWS = 2048
+
+# A reply of fewer output batches seals inline: the handoff costs more than
+# the recompress and CRC it spreads.
+_SEAL_MIN_BATCHES = 8
+
+# How long a caller waits on the mask-harvest thread before it claims a
+# mask that is still queued behind others and fetches it itself.
+_HARVEST_WAIT_S = 5.0
+
+# serializes _MaskSlot.state transitions between the harvest thread, callers
+# claiming a still-queued mask and a degraded sharded launch abandoning its
+# shards' masks (rare, O(1): one lock for the process)
+_mask_claim_lock = threading.Lock()
+
+# set on a thread while it runs a pool probe's pass: the pass's stats are
+# not kept and its masks are fetched in the pass, not by the harvest thread
+_probing = threading.local()
+
 
 class _Pending:
     """One device result in flight: the pinned host tensor it lands in, for
@@ -174,9 +210,48 @@ class _Pending:
         return self.host.numpy()
 
 
+class _MaskSlot:
+    """One predicate result in flight -- an inline launch's keep bits, one
+    pool shard's, or the mesh lane's [D, n_blk/8] -- and its claim state:
+    "idle" (the caller fetches it), "queued" (handed to the harvest thread),
+    "harvesting", "claimed" (a caller took it while still queued) or
+    "abandoned" (its launch degraded to the inline path; nobody fetches it).
+    ``bits`` or ``error`` holds the outcome once fetched; ``event`` is set
+    when the harvest thread has published it."""
+
+    __slots__ = ("pending", "bits", "error", "event", "state")
+
+    def __init__(self, pending: _Pending):
+        self.pending = pending
+        self.bits: np.ndarray | None = None
+        self.error: BaseException | None = None
+        self.event: threading.Event | None = None
+        self.state = "idle"
+
+
+class _HostShard:
+    """One contiguous record range of a sharded launch: written by one pool
+    worker, read after the fan-in. ``mask`` is its predicate result, ``row``
+    its row of a mesh result (None for a shard's own launch)."""
+
+    __slots__ = ("n", "ranges", "exploded", "proj_data", "proj_ok", "mask", "row")
+
+    def __init__(self):
+        self.n = 0
+        self.ranges: list[tuple[int, int]] = []
+        self.exploded = None
+        self.proj_data = None
+        self.proj_ok: np.ndarray | None = None
+        self.mask: _MaskSlot | None = None
+        self.row: int | None = None
+
+
 class _Launch:
     """One device launch for one script, possibly spanning many requests.
-    ``framed()`` yields [(payload, kept)] per input batch, computed once."""
+    ``framed()`` yields [(payload, kept)] per input batch, computed once.
+    A sharded launch (``shards`` set: the pool lane or the mesh lane)
+    assembles and frames per shard; the concatenation is byte-identical to
+    the launch-wide path."""
 
     def __init__(self, engine: "TorchEngine", script_id: int, policy: ErrorPolicy, plan):
         self.engine = engine
@@ -187,15 +262,20 @@ class _Launch:
         self.n = 0
         self.ranges: list[tuple[int, int]] = []
         self.fits: np.ndarray | None = None
-        self.pending: _Pending | None = None
-        # mesh lane: the records of each shard's block, in launch order
+        self.pending: _Pending | None = None  # the payload lane's packed rows
+        self.mask: _MaskSlot | None = None  # the columnar lanes' keep bits
+        # one-batch mesh lane: the records of each shard's block, in order
         self.mesh_rows: list[int] | None = None
+        self.shards: list[_HostShard] | None = None
+        # the shards' masks handed to the harvest thread, abandoned if the
+        # sharded launch degrades to the inline path
+        self.pending_slots: list[_MaskSlot] = []
         self.exploded = None
         self.proj_data = None
         self.proj_ok: np.ndarray | None = None
-        # the resolved columnar keep mask: the fetch consumes ``pending``, so
-        # a framing retry after a failure must find the mask, not "no
-        # predicate" (which would keep every record)
+        # the resolved columnar keep mask, kept for a framing retry after a
+        # failure: it must find the mask, not "no predicate" (which would
+        # keep every record)
         self._keep: np.ndarray | None = None
         self._framed = None
         # tickets of one submit_group share this launch and may harvest
@@ -210,7 +290,9 @@ class _Launch:
         produced, so the padded row matrix is never built. The bytes are
         the same either way."""
         with self._lock:
-            if self._framed is None:
+            if self._framed is None and self.shards is not None:
+                self._framed = self._framed_sharded()
+            elif self._framed is None:
                 eng = self.engine
                 gv = self._gather_view()
                 if gv is not None:
@@ -268,8 +350,8 @@ class _Launch:
         """The predicate's keep bits (fetched once) and the projection's ok."""
         if self._keep is None:
             keep = np.ones(self.n, dtype=bool)
-            if self.pending is not None:
-                bits = self._fetch()
+            if self.mask is not None:
+                bits = self.engine._mask_bits(self.mask)
                 if self.mesh_rows is None:
                     keep = np.unpackbits(bits)[: self.n].astype(bool)
                 else:  # [D, n_blk/8]: each shard's bits, trimmed to its records
@@ -299,6 +381,64 @@ class _Launch:
         self.engine._stat("t_assemble", t0)
         return rows, lens, keep
 
+    def _shard_keep(self, shard: _HostShard) -> np.ndarray:
+        if shard.n == 0:
+            return np.zeros(0, dtype=bool)
+        if shard.mask is None:  # no predicate
+            return shard.proj_ok.copy()
+        bits = self.engine._mask_bits(shard.mask)
+        if shard.row is not None:
+            bits = bits[shard.row]
+        return np.unpackbits(bits)[: shard.n].astype(bool) & shard.proj_ok
+
+    def _frame_shard(self, shard: _HostShard, keep: np.ndarray):
+        """Assemble and frame one shard's record range (a pool worker's
+        body; it touches only its own shard). Byte-identity plans gather
+        straight from the shard's exploded table, as the inline path does.
+        ``t_shard_*`` are per-shard seconds summed over the workers; the
+        fan-out's wall time is ``t_sharded_frame``."""
+        eng = self.engine
+        plan: ColumnarPlan = self.plan
+        ex = shard.exploded
+        if eng._gather_frame and plan.byte_identity and ex is not None and shard.n > 0:
+            t0 = time.perf_counter()
+            framed = batch_codec.frame_ranges_gather(
+                ex.joined, ex.offsets, ex.sizes, keep, shard.ranges, arena=eng._arena
+            )
+            eng._stat("t_shard_frame_gather", t0)
+            eng._stat_add("n_frame_gather", 1)
+            return framed
+        t0 = time.perf_counter()
+        if shard.n == 0:
+            rows, lens = np.zeros((0, max(self.r_out, 1)), np.uint8), np.zeros(0, np.int32)
+        elif plan.passthrough:
+            rows, lens = _pack_values(ex, max(int(ex.sizes.max()), 1))
+        else:
+            rows, lens = plan.assemble_rows(shard.proj_data, shard.n)
+        eng._stat("t_shard_assemble", t0)
+        t0 = time.perf_counter()
+        framed = batch_codec.frame_ranges(rows, lens, keep, shard.ranges, arena=eng._arena)
+        eng._stat("t_shard_rebuild", t0)
+        eng._stat_add("n_frame_padded", 1)
+        return framed
+
+    def _framed_sharded(self) -> list[tuple[bytes, int]]:
+        """The shards' masks resolved in shard order, then assembly and
+        framing fanned out over the pool; shards are contiguous record
+        ranges in input order, so the concatenation is the launch-wide
+        framing."""
+        eng = self.engine
+        keeps = [self._shard_keep(shard) for shard in self.shards]
+        thunks = [(lambda s=shard, k=keep: self._frame_shard(s, k))
+                  for shard, keep in zip(self.shards, keeps)]
+        t0 = time.perf_counter()
+        pool = eng._host_pool
+        parts = pool.run(thunks) if pool is not None else [t() for t in thunks]
+        eng._stat("t_sharded_frame", t0)
+        for shard in self.shards:
+            shard.proj_data = shard.exploded = None
+        return [item for part in parts for item in part]
+
     def _mat_host(self):
         ex = self.exploded
         if self.n == 0:
@@ -319,6 +459,31 @@ def _pack_values(ex, stride: int):
     rows = np.empty((len(sizes), stride), dtype=np.uint8)
     native.lib().pack_rows_into(ex.joined, ex.offsets, sizes, rows)
     return rows, sizes
+
+
+def _fit_cols(cols, n_pad: int) -> list:
+    """Pad or trim host predicate columns to a row bucket. Rows past a
+    shard's records are padding whose bits are discarded, so zero fill
+    never changes output."""
+    out = []
+    for a in cols:
+        if len(a) == n_pad:
+            out.append(a)
+        elif len(a) > n_pad:
+            out.append(np.ascontiguousarray(a[:n_pad]))
+        else:
+            out.append(np.concatenate([a, np.zeros((n_pad - len(a),) + a.shape[1:], a.dtype)]))
+    return out
+
+
+def _join_shards(shards: list[_HostShard]) -> tuple[list[tuple[int, int]], int]:
+    """The launch-wide batch ranges and record count of its shards."""
+    ranges: list[tuple[int, int]] = []
+    n = 0
+    for shard in shards:
+        ranges.extend((a + n, b + n) for a, b in shard.ranges)
+        n += shard.n
+    return ranges, n
 
 
 # The parse-path probe: a launch under this many records does not pin the
@@ -342,7 +507,35 @@ class Ticket:
         reply = ProcessBatchReply()
         dereg: set[int] = set()
         failed_scripts: set[int] = set()
+        # Phase 1: frame every launch and collect the reply's seal jobs, so
+        # the recompress and seal can fan out over the pool in one go. The
+        # jobs are independent and come back in input order, so the bytes
+        # equal the serial loop's.
+        seal_jobs: list[tuple] = []  # (source batch, payload, kept)
+        slot_plans: list = []  # per slot: job indices, an exception, or None
+        framing_failed: set[int] = set()
         for disp, item, launch, rng in self._slots:
+            if disp != _LAUNCHED or launch.script_id in framing_failed:
+                # a later slot of a script whose framing failed is settled in
+                # phase 2 (the failing slot comes first)
+                slot_plans.append(None)
+                continue
+            try:
+                framed = launch.framed()  # one crossing per launch
+                idxs = []
+                for batch, ridx in zip(item.batches, rng):
+                    payload, kept = framed[ridx]
+                    idxs.append(len(seal_jobs))
+                    seal_jobs.append((batch, payload, kept))
+                slot_plans.append(idxs)
+            except Exception as exc:  # held for phase 2's error policy
+                slot_plans.append(exc)
+                framing_failed.add(launch.script_id)
+        sealed = eng._seal_jobs(seal_jobs)
+        # Phase 2: the reply in slot order, under each script's error policy:
+        # a framing or seal failure drops the script's output (skip) or
+        # unloads it (deregister)
+        for (disp, item, launch, rng), plan in zip(self._slots, slot_plans):
             if disp in (_UNKNOWN, _EMPTY):
                 reply.items.append(ProcessBatchReplyItem(item.script_id, item.ntp, []))
                 continue
@@ -353,33 +546,20 @@ class Ticket:
                 if launch.policy != ErrorPolicy.deregister:
                     reply.items.append(ProcessBatchReplyItem(item.script_id, item.ntp, []))
                 continue
-            try:
-                framed = launch.framed()  # one crossing per launch
-                t0 = time.perf_counter()
-                out_batches = []
-                for batch, ridx in zip(item.batches, rng):
-                    payload, kept = framed[ridx]
-                    b = batch_codec.build_output_batch(
-                        batch, payload, kept,
-                        compress_threshold=eng._compress_threshold,
-                        codec=eng._output_codec,
-                    )
-                    if b is not None:
-                        out_batches.append(b)
-                eng._stat("t_seal", t0)
-            except Exception as exc:
-                # the script error policy boundary: a framing or seal failure
-                # drops this script's output (skip) or unloads it (deregister)
-                eng._note_failure("rebuild", exc)
-                failed_scripts.add(launch.script_id)
-                if launch.policy == ErrorPolicy.deregister:
-                    eng.disable_coprocessors([launch.script_id])
-                    dereg.add(launch.script_id)
-                    reply.items = [ri for ri in reply.items if ri.script_id != launch.script_id]
-                else:
-                    reply.items.append(ProcessBatchReplyItem(item.script_id, item.ntp, []))
+            exc = plan if isinstance(plan, Exception) else next(
+                (sealed[i] for i in plan if isinstance(sealed[i], BaseException)), None)
+            if exc is None:
+                out_batches = [sealed[i] for i in plan if sealed[i] is not None]
+                reply.items.append(ProcessBatchReplyItem(item.script_id, item.ntp, out_batches))
                 continue
-            reply.items.append(ProcessBatchReplyItem(item.script_id, item.ntp, out_batches))
+            eng._note_failure("rebuild", exc)
+            failed_scripts.add(launch.script_id)
+            if launch.policy == ErrorPolicy.deregister:
+                eng.disable_coprocessors([launch.script_id])
+                dereg.add(launch.script_id)
+                reply.items = [ri for ri in reply.items if ri.script_id != launch.script_id]
+            else:
+                reply.items.append(ProcessBatchReplyItem(item.script_id, item.ntp, []))
         reply.deregistered = sorted(dereg)
         return reply
 
@@ -414,7 +594,22 @@ class TorchEngine:
     * ``device_column_cache_mb`` (None, meaning 0: uncached): a byte
       budget for the column cache (coproc/colcache.py), whose hits skip
       the host ladder and, on a card, the copy up
-      (``stats()["colcache"]``).
+      (``stats()["colcache"]``);
+    * ``host_workers`` (None, meaning ``host_pool.default_host_workers()``):
+      the host-stage pool's threads; 0 or 1 keeps the inline path;
+    * ``host_pool_probe`` (True): the first launch the pool could shard
+      runs inline and sharded, from its explode to its sealed output
+      batches (``_measure_pool_ratio``), and pins the pool only on a
+      ``host_pool.PROBE_MARGIN`` win (``stats()["host_pool_probe"]``); the
+      reply-wide seal fans out under the same decision. False pins the
+      pool on, unmeasured, and with it the seal's fan-out, which loses to
+      the inline seal on a host whose seal jobs are tens of microseconds
+      each;
+    * ``host_pool_recal_launches`` (None, meaning 512): the decision is
+      measured again after this many shardable launches (the previous
+      probe in ``stats()["host_pool_probe_prev"]``); 0 pins it for good.
+
+    ``shutdown()`` stops the mask-harvest thread and the pool's threads.
     """
 
     def __init__(
@@ -431,6 +626,9 @@ class TorchEngine:
         structural_parse: bool | None = None,
         structural_probe: bool = True,
         device_column_cache_mb: int | None = None,
+        host_workers: int | None = None,
+        host_pool_probe: bool = True,
+        host_pool_recal_launches: int | None = None,
     ):
         self.device = resolve_device(device)
         self._stream = None
@@ -467,6 +665,26 @@ class TorchEngine:
         self._parse_probe_run_lock = threading.Lock()
         cache_mb = 0 if device_column_cache_mb is None else max(0, int(device_column_cache_mb))
         self._colcache = colcache.DeviceColumnCache(cache_mb << 20) if cache_mb else None
+        # the host-stage pool: exists at >= 2 workers; on or off is a
+        # measured decision unless pinned (host_pool_probe=False)
+        if host_workers is None:
+            host_workers = host_pool.default_host_workers()
+        self._host_workers = max(0, int(host_workers))
+        self._host_pool = (host_pool.HostStagePool(self._host_workers)
+                           if self._host_workers >= 2 else None)
+        self._pool_decision: str | None = None if host_pool_probe else "sharded"
+        # held across a pool calibration, so concurrent first launches do
+        # not measure against each other's load
+        self._pool_decision_lock = threading.Lock()
+        self._host_pool_probe: dict | None = None
+        self._host_pool_probe_prev: dict | None = None
+        self._probe_enabled = bool(host_pool_probe)
+        self._recal_interval = (512 if host_pool_recal_launches is None
+                                else max(0, int(host_pool_recal_launches)))
+        self._launches_since_cal = 0
+        # the mask-harvest thread, started with the first mask it serves
+        self._harvest_q: queue.Queue = queue.Queue()
+        self._harvester: threading.Thread | None = None
 
     # ------------------------------------------------------------ control
     def enable_coprocessors(self, scripts) -> list[EnableResponseCode]:
@@ -529,7 +747,17 @@ class TorchEngine:
         return dict(self._handles)
 
     def shutdown(self) -> None:
-        """Wait for every launch still on the engine's streams."""
+        """Stop the mask-harvest thread (a sentinel queued behind the masks
+        in flight, then a join) and the host-stage pool's threads, and wait
+        for every launch still on the engine's streams. The engine takes no
+        request after it."""
+        with self._stats_lock:
+            t, self._harvester = self._harvester, None
+        if t is not None and t.is_alive():
+            self._harvest_q.put(None)
+            t.join(timeout=60.0)
+        if self._host_pool is not None:
+            self._host_pool.shutdown()
         if self._stream is not None:
             self._stream.synchronize()
         if self._meshrunner is not None:
@@ -561,17 +789,35 @@ class TorchEngine:
     def stats(self) -> dict:
         """Per-stage wall seconds (``t_*``; ``t_dev_*`` are device seconds
         from CUDA events, summed over the mesh's cards on the mesh lane;
-        ``t_mesh_ladder`` cuts a launch's columns into the shards' stacks),
-        counts (``n_*``, ``n_kernel_*`` per kernel, ``n_mesh_launches``,
-        ``n_colcache_hit``/``_miss``, ``n_frame_gather``/``_padded``), link
-        bytes (``bytes_h2d``, ``bytes_d2h``), the framing ``arena``'s
-        reuse counts, the ``parse_path`` decision (None until probed) and
-        its ``parse_probe`` times, the ``colcache`` block when the cache is
-        on and, with a mesh, the meshrunner's ``mesh`` block (decision,
-        probe, launches and rows per device of the range-shard lane)."""
+        ``t_mesh_ladder`` is the mesh lane's per-shard ladders, or its cut of
+        a one-batch launch; ``t_shard_*`` are a sharded launch's per-shard
+        seconds summed over the pool's workers, and ``t_sharded_dispatch``,
+        ``t_sharded_frame`` and ``t_sharded_seal`` the wall time of each
+        fan-out; ``t_harvest_wait`` is the mask-harvest thread's wait on the
+        card's copies down), counts (``n_*``, ``n_kernel_*`` per kernel,
+        ``n_mesh_launches``, ``n_sharded_launches``,
+        ``n_colcache_hit``/``_miss``, ``n_frame_gather``/``_padded``,
+        ``n_failures_*`` per failure domain), link bytes (``bytes_h2d``,
+        ``bytes_d2h``), ``host_workers``, the pool's ``host_pool_probe`` (and
+        ``host_pool_probe_prev``) and ``host_pool_recal`` when there is a
+        pool, the framing ``arena``'s reuse counts, the ``parse_path``
+        decision (None until probed) and its ``parse_probe`` times, the
+        ``colcache`` block when the cache is on and, with a mesh, the
+        meshrunner's ``mesh`` block (decision, probe, launches, demotions
+        and rows per device of the range-shard lane)."""
         with self._stats_lock:
             out = dict(self._stats)
         out["device"] = str(self.device)
+        out["host_workers"] = float(self._host_workers)
+        if self._host_pool_probe is not None:
+            out["host_pool_probe"] = dict(self._host_pool_probe)
+        if self._host_pool_probe_prev is not None:
+            out["host_pool_probe_prev"] = dict(self._host_pool_probe_prev)
+        if self._host_pool is not None:
+            out["host_pool_recal"] = {
+                "interval": self._recal_interval if self._probe_enabled else 0,
+                "launches_since": self._launches_since_cal,
+            }
         out["arena"] = self._arena.stats()
         with self._parse_decision_lock:
             out["parse_path"] = self._parse_decision
@@ -588,6 +834,8 @@ class TorchEngine:
             self._stats.clear()
 
     def _stat_add(self, key: str, v: float) -> None:
+        if getattr(_probing, "on", False):
+            return
         with self._stats_lock:
             self._stats[key] += v
 
@@ -597,6 +845,160 @@ class TorchEngine:
     def _note_failure(self, domain: str, exc: BaseException) -> None:
         self._stat_add(f"n_failures_{domain}", 1.0)
         logger.warning("coproc %s failure: %r", domain, exc)
+
+    # ------------------------------------------------------------ harvest
+    def _harvest_async(self) -> bool:
+        """Whether masks are handed to the harvest thread: on a card, where
+        the copy down is still in flight when dispatch returns."""
+        return self._stream is not None
+
+    def _publish_mask(self, slot: _MaskSlot) -> None:
+        """Hand a mask in flight to the harvest thread (on a card)."""
+        if not self._harvest_async() or getattr(_probing, "on", False):
+            return
+        slot.event = threading.Event()
+        slot.state = "queued"
+        self._ensure_harvester()
+        self._harvest_q.put(slot)
+
+    def _ensure_harvester(self) -> None:
+        # locked: concurrent dispatchers must not each start a thread
+        with self._stats_lock:
+            if self._harvester is None or not self._harvester.is_alive():
+                self._harvester = threading.Thread(
+                    target=self._harvest_loop, name="rptorch-mask-harvester", daemon=True
+                )
+                self._harvester.start()
+
+    def _harvest_loop(self) -> None:
+        while True:
+            slot = self._harvest_q.get()
+            if slot is None:  # shutdown's sentinel
+                return
+            with _mask_claim_lock:
+                if slot.state in ("claimed", "abandoned"):
+                    continue  # its caller fetches it, or nobody needs it
+                slot.state = "harvesting"
+            t0 = time.perf_counter()
+            self._fetch_mask(slot)
+            self._stat("t_harvest_wait", t0)
+            slot.event.set()
+
+    def _fetch_mask(self, slot: _MaskSlot) -> None:
+        """Wait for a mask's copy down on this thread; its bits, or the
+        exception the wait raised, go into the slot."""
+        try:
+            slot.bits = slot.pending.wait(self)
+        except Exception as exc:  # kept on the slot; raised at harvest
+            slot.error = exc
+            self._note_failure("harvest", exc)
+        finally:
+            slot.pending = None
+
+    def _mask_bits(self, slot: _MaskSlot) -> np.ndarray:
+        """A mask's keep bits, once fetched: published by the harvest thread,
+        or fetched here when it was never handed over (or is still queued
+        after ``_HARVEST_WAIT_S``). A failed fetch raises, now and on every
+        retry: nothing takes the card's place."""
+        if slot.bits is None and slot.error is None:
+            t0 = time.perf_counter()
+            if slot.event is None:
+                self._fetch_mask(slot)
+            elif not slot.event.wait(_HARVEST_WAIT_S):
+                with _mask_claim_lock:
+                    claimed = slot.state == "queued"
+                    if claimed:
+                        slot.state = "claimed"
+                if claimed:
+                    self._fetch_mask(slot)
+                else:
+                    slot.event.wait()
+            self._stat("t_fetch", t0)
+        if slot.error is not None:
+            raise slot.error
+        return slot.bits
+
+    def _abandon_pending_masks(self, launch: _Launch) -> None:
+        """Mark a degraded sharded launch's still-queued shard masks
+        abandoned: the harvest thread skips them."""
+        with launch._lock:
+            slots, launch.pending_slots = launch.pending_slots, []
+        with _mask_claim_lock:
+            for slot in slots:
+                if slot.state == "queued":
+                    slot.state = "abandoned"
+
+    # ------------------------------------------------------------ seal
+    def _seal_jobs(self, jobs: list[tuple]) -> list:
+        """Recompress and seal framed payloads into output batches
+        (``batch_codec.build_output_batch``; a job that kept no record is
+        None). The output batches fan out over the pool, in chunks balanced
+        by payload bytes, when its decision is "sharded" and the reply has
+        ``_SEAL_MIN_BATCHES`` of them or more. The jobs are
+        independent and the chunks come back in input order, so the bytes
+        equal the serial loop's. A job's failure comes back as its exception
+        (the caller applies the script's policy); a failure of the pool
+        itself seals the reply inline (``n_failures_shard_worker``)."""
+        out: list = [None] * len(jobs)
+        live = [i for i, (_, _, kept) in enumerate(jobs) if kept]
+        if not live:
+            return out
+        sealed = None
+        pool = self._host_pool
+        with self._pool_decision_lock:
+            decision = self._pool_decision
+        if pool is not None and decision == "sharded":
+            chunks = self._seal_chunks(jobs, live)
+            if len(chunks) >= 2:
+                sealed = self._seal_sharded(jobs, chunks)
+        if sealed is None:
+            t0 = time.perf_counter()
+            sealed = self._seal(jobs, live)
+            self._stat("t_seal", t0)
+        for i, b in zip(live, sealed):
+            out[i] = b
+        return out
+
+    def _seal_chunks(self, jobs: list[tuple], live: list[int]) -> list[list[int]]:
+        """The live jobs cut for the pool, balanced by payload bytes; one
+        chunk under ``_SEAL_MIN_BATCHES`` jobs."""
+        if len(live) < _SEAL_MIN_BATCHES:
+            return [live]
+        # +1 keeps empty payloads partitionable
+        parts = host_pool.partition_counts([len(jobs[i][1]) + 1 for i in live],
+                                           self._host_pool.workers)
+        return [live[s:e] for s, e in parts]
+
+    def _seal(self, jobs: list[tuple], idx: list[int]) -> list:
+        sealed = []
+        for i in idx:
+            try:
+                sealed.append(batch_codec.build_output_batch(
+                    *jobs[i], compress_threshold=self._compress_threshold,
+                    codec=self._output_codec))
+            except Exception as exc:  # delivered as a value to the error policy
+                sealed.append(exc)
+        return sealed
+
+    def _seal_sharded(self, jobs: list[tuple], chunks: list[list[int]]) -> list | None:
+        """The chunks' jobs sealed on the pool, in order; None when the pool
+        itself fails (counted), so that the caller seals inline."""
+        def run_chunk(idx: list[int]) -> list:
+            t0 = time.perf_counter()
+            sealed = self._seal(jobs, idx)
+            self._stat("t_shard_seal", t0)
+            return sealed
+
+        t0 = time.perf_counter()
+        try:
+            got = self._host_pool.run([(lambda idx=idx: run_chunk(idx)) for idx in chunks])
+        except Exception as exc:
+            if isinstance(exc, _PROGRAMMING_ERRORS):
+                raise
+            self._note_failure("shard_worker", exc)
+            return None
+        self._stat("t_sharded_seal", t0)
+        return [b for part in got for b in part]
 
     # ------------------------------------------------------------ data path
     def process_batch(self, req: ProcessBatchRequest) -> ProcessBatchReply:
@@ -645,8 +1047,26 @@ class TorchEngine:
 
     def _dispatch(self, launch: _Launch, batches: list[RecordBatch]) -> None:
         """Explode the launch's records and issue its (asynchronous) device
-        work."""
+        work: the mesh lane or a column-cache hit when either takes the
+        launch, else the host-stage pool when it shards it, else inline."""
         plan = launch.plan
+        store_key = None
+        if isinstance(plan, ColumnarPlan):
+            if self._meshrunner is not None and self._dispatch_mesh(launch, plan, batches):
+                return
+            # a repeat launch over an unchanged batch window skips the whole
+            # host ladder, and on a card the copy up (a sharded launch then
+            # consults the cache per shard)
+            if self._colcache is not None and self._meshrunner is None and batches:
+                key = (launch.script_id, colcache.fingerprint(batches))
+                entry = self._colcache.lookup(key)
+                self._count_colcache(entry is not None)
+                if entry is not None:
+                    self._dispatch_columnar_cached(launch, plan, entry)
+                    return
+                store_key = key
+        if self._dispatch_sharded(launch, plan, batches):
+            return
         t0 = time.perf_counter()
         if isinstance(plan, PayloadPlan):
             # pointer-table staging: no joined blob; staging packs each
@@ -661,17 +1081,6 @@ class TorchEngine:
             self._stat("t_explode", t0)
             self._count_launch(launch, launch.exploded.ranges, len(launch.exploded.sizes))
             return
-        # a repeat launch over an unchanged batch window skips the whole
-        # host ladder, and on a card the copy up
-        store_key = None
-        if self._colcache is not None and self._meshrunner is None and batches:
-            key = (launch.script_id, colcache.fingerprint(batches))
-            entry = self._colcache.lookup(key)
-            self._count_colcache(entry is not None)
-            if entry is not None:
-                self._dispatch_columnar_cached(launch, plan, entry)
-                return
-            store_key = key
         # decided before the stage timer: the first representative launch
         # calibrates here, and its ladder passes are not this launch's stages
         parse = self._parse_path(plan, batches)
@@ -781,6 +1190,301 @@ class TorchEngine:
             self._parse_probe = probe
         logger.info("parse-path calibration: %s", probe)
 
+    # ------------------------------------------------------ host-stage pool
+    def _measure_pool_ratio(self, launch: _Launch, batches, counts) -> tuple[float, float]:
+        """(t_inline, t_sharded) of this launch run each way, each the best
+        of two: the real workload, not a synthetic one, from the explode to
+        the sealed output batches -- what the user waits for. Sharded, the
+        stages the pool takes run on it: a columnar plan's parse,
+        extraction and predicate launches (one a shard) and its framing,
+        the explode of payload and host plans, and the seal when the launch
+        has ``_SEAL_MIN_BATCHES`` output batches or more. The passes keep
+        no stats (the framing arena still counts its buffers); their
+        kernel launches are real and count."""
+        parts = host_pool.partition_counts(counts, self._host_pool.workers)
+        t_inline = t_sharded = float("inf")
+        _probing.on = True
+        try:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                self._probe_pass(launch, batches, [(0, len(batches))])
+                t_inline = min(t_inline, time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                self._probe_pass(launch, batches, parts)
+                t_sharded = min(t_sharded, time.perf_counter() - t0)
+        finally:
+            _probing.on = False
+        return t_inline, t_sharded
+
+    def _probe_pass(self, launch: _Launch, batches, cuts) -> None:
+        """One probe pass over the launch's batches, cut into ``cuts`` (one
+        cut runs on this thread: the inline path)."""
+        plan = launch.plan
+        probe = _Launch(self, launch.script_id, launch.policy, plan)
+        if isinstance(plan, ColumnarPlan):
+            structural = self._parse_path(plan, batches) == "structural"
+            paths = plan.flat_paths()
+            shards = self._probe_run([(lambda s=s, e=e: self._probe_shard(
+                plan, batches[s:e], paths, structural)) for s, e in cuts])
+            probe.r_out = plan.r_out
+            keeps = [probe._shard_keep(shard) for shard in shards]
+            parts = self._probe_run([(lambda s=shard, k=keep: probe._frame_shard(s, k))
+                                     for shard, keep in zip(shards, keeps)])
+            framed = [item for part in parts for item in part]
+        else:
+            payload = isinstance(plan, PayloadPlan)
+            explode = batch_codec.explode_ptrs if payload else batch_codec.explode_batches
+            merge = batch_codec.merge_ptrs if payload else batch_codec.merge_exploded
+            ex = merge(self._probe_run([(lambda s=s, e=e: explode(batches[s:e]))
+                                        for s, e in cuts]))
+            self._count_launch(probe, ex.ranges, len(ex.sizes))
+            if payload:
+                self._dispatch_payload_ptrs(probe, ex)
+            else:
+                probe.exploded = ex
+            framed = probe.framed()
+        jobs = [(batch, payload, kept) for batch, (payload, kept) in zip(batches, framed)]
+        live = [i for i, (_, _, kept) in enumerate(jobs) if kept]
+        chunks = self._seal_chunks(jobs, live) if len(cuts) >= 2 else [live]
+        self._probe_run([(lambda idx=idx: self._seal(jobs, idx)) for idx in chunks])
+
+    def _probe_run(self, fns: list) -> list:
+        """A probe pass's thunks on the pool (one runs on this thread), each
+        with stats off on the thread that runs it."""
+        def quiet(fn):
+            was, _probing.on = getattr(_probing, "on", False), True
+            try:
+                return fn()
+            finally:
+                _probing.on = was
+
+        return self._host_pool.run([(lambda fn=fn: quiet(fn)) for fn in fns])
+
+    def _probe_shard(self, plan: ColumnarPlan, batches, paths, structural: bool) -> _HostShard:
+        """A probe pass's shard: the ladder and the predicate launch, with
+        no column cache."""
+        shard = _HostShard()
+        cols, _ = self._shard_ladder(shard, plan, batches, paths, structural)
+        if shard.n and cols is not None:
+            shard.mask = self._predicate_mask(plan, cols)
+        return shard
+
+    def _calibrate_host_pool(self, launch: _Launch, batches, counts) -> None:
+        """Pin the pool on or off off this launch: sharded must win by
+        PROBE_MARGIN. The caller holds the decision lock. A probe that
+        raises keeps the inline path (``n_failures_pool_calibration``); an
+        inline decision stops the pool's threads."""
+        try:
+            t_inline, t_sharded = self._measure_pool_ratio(launch, batches, counts)
+        except _PROGRAMMING_ERRORS:
+            raise
+        except Exception as exc:
+            self._note_failure("pool_calibration", exc)
+            self._pool_decision = "inline"
+        else:
+            ratio = t_inline / t_sharded if t_sharded > 0 else 0.0
+            self._pool_decision = "sharded" if ratio >= host_pool.PROBE_MARGIN else "inline"
+            self._host_pool_probe = {
+                "t_inline_ms": round(t_inline * 1e3, 3),
+                "t_sharded_ms": round(t_sharded * 1e3, 3),
+                "speedup": round(ratio, 3),
+                "workers": self._host_workers,
+                "chosen": self._pool_decision,
+            }
+            logger.info("host pool calibration: %s", self._host_pool_probe)
+        if self._pool_decision == "inline":
+            self._host_pool.shutdown()
+
+    def _dispatch_sharded(self, launch: _Launch, plan, batches) -> bool:
+        """Shard the launch's host stages over the pool; False sends it down
+        the inline path: no pool, fewer than ``_SHARD_MIN_ROWS`` records or
+        two shards, an inline decision, or a faulted shard worker (counted
+        as ``n_failures_shard_worker``; the inline path then runs every
+        stage again from the batches, on the card as before). The decision
+        is taken, or measured again every ``host_pool_recal_launches``
+        shardable launches, under one lock."""
+        pool = self._host_pool
+        if pool is None or len(batches) < 2:
+            return False
+        counts = [b.header.record_count for b in batches]
+        if sum(counts) < _SHARD_MIN_ROWS:
+            return False
+        parts = host_pool.partition_counts(counts, pool.workers)
+        if len(parts) < 2:
+            # skewed batches collapse to one shard; never calibrate on one
+            # (a one-thunk run is the inline path)
+            return False
+        with self._pool_decision_lock:
+            decision = self._pool_decision
+            if self._probe_enabled and self._recal_interval > 0 and decision is not None:
+                self._launches_since_cal += 1
+                if self._launches_since_cal >= self._recal_interval:
+                    if self._host_pool_probe is not None:
+                        self._host_pool_probe_prev = dict(self._host_pool_probe)
+                    decision = self._pool_decision = None
+                    self._launches_since_cal = 0
+            if decision is None:
+                self._calibrate_host_pool(launch, batches, counts)
+                decision = self._pool_decision
+        if decision != "sharded":
+            return False
+        if isinstance(plan, ColumnarPlan):
+            paths = plan.flat_paths()
+            # one parse ladder per launch, decided (maybe probed) here: the
+            # shards must not race the probe or mix ladders
+            structural = self._parse_path(plan, batches) == "structural"
+            thunks = [(lambda s=s, e=e: self._run_columnar_shard(
+                launch, plan, batches[s:e], paths, structural)) for s, e in parts]
+        else:  # payload and host plans: only the explode is per-record work
+            explode = (batch_codec.explode_ptrs if isinstance(plan, PayloadPlan)
+                       else batch_codec.explode_batches)
+            thunks = [(lambda s=s, e=e: explode(batches[s:e])) for s, e in parts]
+        t0 = time.perf_counter()
+        try:
+            got = pool.run(thunks)
+        except Exception as exc:
+            if isinstance(exc, _PROGRAMMING_ERRORS):
+                raise
+            self._note_failure("shard_worker", exc)
+            # masks the other shards handed over are nobody's now
+            self._abandon_pending_masks(launch)
+            return False
+        if isinstance(plan, ColumnarPlan):
+            self._stat("t_sharded_dispatch", t0)
+            launch.shards = got
+            launch.r_out = plan.r_out
+            self._count_launch(launch, *_join_shards(got))
+        elif isinstance(plan, PayloadPlan):
+            pe = batch_codec.merge_ptrs(got)
+            self._stat("t_explode_ptrs", t0)
+            self._count_launch(launch, pe.ranges, len(pe.sizes))
+            self._dispatch_payload_ptrs(launch, pe)
+        else:
+            exploded = batch_codec.merge_exploded(got)
+            self._stat("t_explode", t0)
+            self._count_launch(launch, exploded.ranges, len(exploded.sizes))
+            launch.exploded = exploded
+        self._stat_add("n_sharded_launches", 1)
+        return True
+
+    def _shard_cache_key(self, script_id: int, batches) -> tuple | None:
+        """A shard's column-cache key: the launch-wide key's fingerprint over
+        the shard's batches, so every shard of a repeated launch hits."""
+        if self._colcache is None or not batches:
+            return None
+        return (script_id, colcache.fingerprint(batches))
+
+    def _shard_cache_entry(self, shard: _HostShard, plan: ColumnarPlan, cols, n_pad: int,
+                           structural: bool) -> colcache.Entry:
+        """The cache entry of a shard's just-run ladder (the pool and mesh
+        lanes share it)."""
+        return colcache.Entry(
+            n=shard.n, n_pad=n_pad, ranges=shard.ranges, cols=cols,
+            proj_data=shard.proj_data, proj_ok=shard.proj_ok,
+            exploded=shard.exploded if plan.passthrough else None,
+            parse_mode="structural" if structural else "staged",
+        )
+
+    def _shard_from_entry(self, shard: _HostShard, plan: ColumnarPlan, entry, n_pad: int):
+        """Fill a shard from a cached entry (no ladder) and return its host
+        columns fitted to ``n_pad``."""
+        shard.n = entry.n
+        shard.ranges = list(entry.ranges)
+        if plan.passthrough:
+            shard.exploded = entry.exploded
+            shard.proj_ok = np.ones(entry.n, dtype=bool)
+        else:
+            shard.proj_data, shard.proj_ok = entry.proj_data, entry.proj_ok
+        return _fit_cols(entry.cols, n_pad)
+
+    def _shard_ladder(self, shard: _HostShard, plan: ColumnarPlan, batches, paths,
+                      structural: bool, n_pad: int | None = None):
+        """One shard's parse and extraction (no predicate): explode and find
+        (structural or staged), the predicate columns, the projection. Fills
+        ``shard`` and returns (cols, n_pad); ``n_pad`` pins the row bucket
+        (the mesh lane's one bucket for all shards), None buckets the
+        shard's own records. Stages land under ``t_shard_*``."""
+        t0 = time.perf_counter()
+        cols = cache = fused_proj = None
+        if structural and paths:
+            sp = batch_codec.explode_find_structural(batches, paths,
+                                                     need_joined=plan.byte_identity)
+            self._stat("t_shard_explode_find2", t0)
+            shard.ranges, n = sp.ranges, sp.n
+            shard.n = n
+            if n == 0:
+                shard.proj_ok = np.zeros(0, dtype=bool)
+                return None, n_pad or 0
+            shard.exploded = sp.exploded() if plan.byte_identity else None
+            t0 = time.perf_counter()
+            n_pad = n_pad or _bucket_rows(n)
+            cols, proj_data, proj_ok = plan.extract_fused(sp, n_pad)
+            self._stat("t_shard_fused_extract", t0)
+            fused_proj = (proj_data, proj_ok)
+        else:
+            fused = batch_codec.explode_and_find(batches, paths) if paths else None
+            if fused is not None:
+                ex, types, vs, ve = fused
+                cache = plan.make_cache_from_tables(ex, paths, types, vs, ve)
+                self._stat("t_shard_explode_find", t0)
+            else:
+                ex = batch_codec.explode_batches(batches)
+                self._stat("t_shard_explode", t0)
+            shard.exploded = ex
+            shard.ranges, n = ex.ranges, len(ex.sizes)
+            shard.n = n
+            if n == 0:
+                shard.proj_ok = np.zeros(0, dtype=bool)
+                return None, n_pad or 0
+            if plan.dev_cols:
+                t0 = time.perf_counter()
+                n_pad = n_pad or _bucket_rows(n)
+                cols = plan.extract_device_inputs(ex.joined, ex.offsets, ex.sizes, n_pad, cache)
+                self._stat("t_shard_extract_pred", t0)
+        if plan.passthrough:
+            shard.proj_ok = np.ones(n, dtype=bool)
+        elif fused_proj is not None:
+            shard.proj_data, shard.proj_ok = fused_proj
+        else:
+            t0 = time.perf_counter()
+            shard.proj_data, shard.proj_ok = plan.extract_projection(
+                ex.joined, ex.offsets, ex.sizes, cache)
+            shard.exploded = None  # framing reads proj_data, not the records
+            self._stat("t_shard_extract_proj", t0)
+        return cols, (n_pad or 0)
+
+    def _run_columnar_shard(self, launch: _Launch, plan: ColumnarPlan, batches, paths,
+                            structural: bool) -> _HostShard:
+        """One shard on a pool worker: its column-cache consult (a hit skips
+        the ladder), its ladder, the predicate over its own columns (on a
+        card one K1 launch on the engine's stream, handed to the harvest
+        thread, so it overlaps the other shards' extraction), and its cache
+        entry."""
+        shard = _HostShard()
+        key = self._shard_cache_key(launch.script_id, batches)
+        entry = dev_cols = store_entry = None
+        if key is not None:
+            entry = self._colcache.lookup(key)
+            self._count_colcache(entry is not None)
+        if entry is not None:
+            n_pad = _bucket_rows(entry.n) if entry.n else 0
+            cols = self._shard_from_entry(shard, plan, entry, n_pad)
+            if entry.cols_dev is not None and entry.n_pad == n_pad:
+                dev_cols = entry.cols_dev
+        else:
+            cols, n_pad = self._shard_ladder(shard, plan, batches, paths, structural)
+            if key is not None and shard.n and cols is not None:
+                store_entry = self._shard_cache_entry(shard, plan, cols, n_pad, structural)
+        if shard.n and cols is not None:
+            shard.mask = self._predicate_mask(plan, cols, store_entry, dev_cols,
+                                              stage="t_shard_dispatch")
+            with launch._lock:
+                launch.pending_slots.append(shard.mask)
+        if store_entry is not None:
+            # after the launch, so that the entry holds its device tensors
+            self._store(key, store_entry)
+        return shard
+
     # ------------------------------------------------------ columnar lanes
     def _dispatch_columnar(self, launch, plan: ColumnarPlan, exploded, cache, store_key) -> None:
         """The staged ladder: per-column extraction from the span tables,
@@ -865,74 +1569,141 @@ class TorchEngine:
 
     def _dispatch_predicate(self, launch, plan: ColumnarPlan, cols, entry=None,
                             dev_cols=None) -> None:
-        """The predicate over a launch's columns: the mesh lane when it takes
-        the launch, else one launch on the engine's stream. ``entry`` (a
-        cache entry being built) keeps the tensors the columns are copied
-        into; ``dev_cols`` are such tensors from a hit, launched as they
-        are."""
+        """The predicate over a launch's columns: the one-batch mesh lane
+        when it takes the launch, else one launch on the engine's stream.
+        ``entry`` (a cache entry being built) keeps the tensors the columns
+        are copied into; ``dev_cols`` are such tensors from a hit, launched
+        as they are."""
         if not plan.dev_cols:
             return
+        if dev_cols is None and self._dispatch_mesh_blocks(launch, plan, cols):
+            return
+        launch.mask = self._predicate_mask(plan, cols, entry, dev_cols)
+
+    def _predicate_mask(self, plan: ColumnarPlan, cols, entry=None, dev_cols=None,
+                        stage: str = "t_dispatch") -> _MaskSlot:
+        """One predicate launch over host columns (pinned, then copied up) or
+        a hit's device tensors, its mask handed to the harvest thread."""
         if dev_cols is None:
-            counts = [e - s for s, e in launch.ranges]
-            if self._dispatch_mesh(launch, plan, cols, counts, launch.n):
-                return
             inputs = [torch.from_numpy(c) for c in cols]
             if self._stream is not None:
                 inputs = [t.pin_memory() for t in inputs]
         else:
             inputs = dev_cols
-        launch.pending = self._run_device(inputs, plan.predicate, "predicate", entry)
+        slot = _MaskSlot(self._run_device(inputs, plan.predicate, "predicate", entry, stage))
+        self._publish_mask(slot)
+        return slot
 
-    def _mesh_blocks(self, counts: list[int], n: int):
-        """The mesh lane's cut of a launch, or None for the single lane:
-        ([start, end) records of each shard, common rows per block, whether
-        the cut is the range shard)."""
+    def _dispatch_mesh(self, launch: _Launch, plan: ColumnarPlan, batches) -> bool:
+        """The mesh lane over the range shard of the launch's batches: each
+        shard's column-cache consult, parse and extraction at the launch's
+        common row bucket (on the pool when there is one), then the stacked
+        predicate (K2), one launch per card. False sends the launch down the
+        other lanes: no predicate, fewer than two batches or no record, a
+        "single" decision, a launch too small to probe on (or, after a
+        measured pin, to be worth the mesh), a calibration running, or a
+        faulted shard worker (``n_failures_shard_worker``; the mesh counts a
+        demotion)."""
         runner = self._meshrunner
-        if runner is None or n == 0:
-            return None
+        if not plan.dev_cols:
+            return False
         decision = runner.decision
-        if decision == "single":
-            return None
-        d = runner.n_devices
-        if len(counts) < 2:
-            if decision != "mesh" or runner.probe_enabled:
-                return None
-            # one batch on a pinned mesh: D equal blocks of the padded launch
-            blk = -(-_bucket_rows(n) // (8 * d)) * 8
-            return [(min(k * blk, n), min((k + 1) * blk, n)) for k in range(d)], blk, False
+        counts = [b.header.record_count for b in batches]
+        n = sum(counts)
+        if decision == "single" or n == 0 or len(batches) < 2:
+            return False
         if n < meshrunner.PROBE_MIN_ROWS and (decision is None or runner.probe_enabled):
             # too small to probe on, or a trickle after a measured pin: the
             # single lane is cheaper; a pinned mesh (probe off) takes all
-            return None
-        starts = np.concatenate([[0], np.cumsum(counts)])
-        rec = [(int(starts[s]), int(starts[e])) for s, e in runner.shard_ranges(counts)]
-        rec += [(n, n)] * (d - len(rec))  # fewer batches than shards: empty shards
-        return rec, _bucket_rows(max(e - s for s, e in rec)), True
-
-    def _dispatch_mesh(self, launch, plan: ColumnarPlan, cols, counts, n: int) -> bool:
-        """Issue the launch's predicate on the mesh; False sends it down the
-        single lane (not mesh-eligible, or the calibration chose single)."""
-        cut = self._mesh_blocks(counts, n)
-        if cut is None:
             return False
-        rec, n_blk, ranged = cut
+        if decision is None and runner.probe_lock_busy:
+            return False  # another launch is calibrating: this one goes single
+        parts = runner.shard_ranges(counts)
+        structural = self._parse_path(plan, batches) == "structural"
+        paths = plan.flat_paths()
+        n_pad = _bucket_rows(max(sum(counts[s:e]) for s, e in parts))
+        t0 = time.perf_counter()
+        thunks = [(lambda s=s, e=e: self._run_mesh_shard(
+            launch, plan, batches[s:e], paths, structural, n_pad)) for s, e in parts]
+        pool = self._host_pool
+        try:
+            results = (pool.run(thunks) if pool is not None and len(thunks) >= 2
+                       else [t() for t in thunks])
+        except Exception as exc:
+            if isinstance(exc, _PROGRAMMING_ERRORS):
+                raise
+            self._note_failure("shard_worker", exc)
+            runner.note_demotion()
+            return False
+        self._stat("t_mesh_ladder", t0)
+        shards = [shard for shard, _ in results]
+        shard_cols = [cols for _, cols in results]
+        zeros = plan.zero_device_inputs(n_pad)
+        stacked = [np.stack([shard_cols[d][i] if d < len(shard_cols) and shard_cols[d] is not None
+                             else zeros[i] for d in range(runner.n_devices)])
+                   for i in range(len(zeros))]
+        if decision is None:
+            # the single lane's own columns: each shard's records, joined,
+            # padded to the launch's bucket
+            flat = [_fit_cols([np.concatenate([c[i][: sh.n] for sh, c in zip(shards, shard_cols)
+                                               if c is not None])], _bucket_rows(n))[0]
+                    for i in range(len(zeros))]
+            if runner.maybe_calibrate(plan, stacked, flat, self.device, n) != "mesh":
+                return False
+        launch.r_out = plan.r_out
+        slot = _MaskSlot(self._run_mesh(plan, stacked, n_pad))
+        self._publish_mask(slot)
+        for d, (shard, cols) in enumerate(zip(shards, shard_cols)):
+            if shard.n and cols is not None:
+                shard.mask, shard.row = slot, d
+        launch.shards = shards
+        self._count_launch(launch, *_join_shards(shards))
+        runner.note_launch([shard.n for shard in shards])
+        self._stat_add("n_mesh_launches", 1)
+        return True
+
+    def _run_mesh_shard(self, launch: _Launch, plan: ColumnarPlan, batches, paths,
+                        structural: bool, n_pad: int) -> tuple[_HostShard, list | None]:
+        """One mesh shard's host ladder (a pool worker or inline): its
+        column-cache consult, its parse and extraction at the launch's
+        common row bucket, its cache entry. The predicate is one stacked
+        launch per card after the stacks are assembled."""
+        shard = _HostShard()
+        key = self._shard_cache_key(launch.script_id, batches)
+        entry = self._colcache.lookup(key) if key is not None else None
+        if key is not None:
+            self._count_colcache(entry is not None)
+        if entry is not None:
+            return shard, self._shard_from_entry(shard, plan, entry, n_pad)
+        cols, _ = self._shard_ladder(shard, plan, batches, paths, structural, n_pad=n_pad)
+        if key is not None and shard.n and cols is not None:
+            self._store(key, self._shard_cache_entry(shard, plan, cols, n_pad, structural))
+        return shard, cols
+
+    def _dispatch_mesh_blocks(self, launch, plan: ColumnarPlan, cols) -> bool:
+        """A one-batch launch cannot be range-sharded: on a mesh pinned by
+        ``mesh_probe=False`` it runs as D equal row blocks of the padded
+        launch through the stacked predicate (the JAX engine's ``mesh=``
+        lane). False for the single lane."""
         runner = self._meshrunner
+        n = launch.n
+        if (runner is None or n == 0 or len(launch.ranges) >= 2
+                or runner.decision != "mesh" or runner.probe_enabled):
+            return False
+        d = runner.n_devices
+        blk = -(-_bucket_rows(n) // (8 * d)) * 8
+        rec = [(min(k * blk, n), min((k + 1) * blk, n)) for k in range(d)]
         t0 = time.perf_counter()
         stacks = []
-        for col, zero in zip(cols, plan.zero_device_inputs(n_blk)):
-            stack = np.repeat(zero[None], runner.n_devices, axis=0)
+        for col, zero in zip(cols, plan.zero_device_inputs(blk)):
+            stack = np.repeat(zero[None], d, axis=0)
             for k, (s, e) in enumerate(rec):
                 stack[k, : e - s] = col[s:e]
             stacks.append(stack)
         self._stat("t_mesh_ladder", t0)
-        if runner.decision is None:
-            # cols are exactly what the single lane would launch
-            if runner.maybe_calibrate(plan, stacks, cols, self.device, n) != "mesh":
-                return False
         launch.mesh_rows = [e - s for s, e in rec]
-        launch.pending = self._run_mesh(plan, stacks, n_blk)
-        if ranged:
-            runner.note_launch(launch.mesh_rows)
+        launch.mask = _MaskSlot(self._run_mesh(plan, stacks, blk))
+        self._publish_mask(launch.mask)
         self._stat_add("n_mesh_launches", 1)
         return True
 
@@ -947,13 +1718,12 @@ class TorchEngine:
         self._stat_add("n_kernel_predicate_stacked", mesh.size)
         host = torch.empty((mesh.size, n_blk // 8), dtype=torch.uint8,
                            pin_memory=mesh.type == "cuda")
-        inputs = [torch.from_numpy(s) for s in stacks]
+        inputs = self._meshrunner.stack_and_put(stacks)
         if mesh.type != "cuda":
             host[:] = plan.predicate_blocks([[t[d] for t in inputs] for d in range(mesh.size)],
                                             kernels.PREDICATE_STACKED)
             self._stat("t_dispatch", t0)
             return _Pending(host)
-        inputs = [t.pin_memory() for t in inputs]
         marks, refs = [], [inputs]
         for dev, shards in card_groups(mesh.devices):
             lo, hi = shards[0], shards[-1] + 1
@@ -984,9 +1754,13 @@ class TorchEngine:
         payload into the pinned staging tensor (its numpy view), copied up
         and run through the packed payload kernel (K4). The staging tensor
         stays referenced by the launch's _Pending until its copy is done."""
+        self._launch_payload(launch, pe.sizes,
+                             lambda staged: pack_staged_ptrs(pe, self._row_stride, staged))
+
+    def _launch_payload(self, launch, sizes: np.ndarray, pack) -> None:
         prog = self._programs[launch.script_id]
         launch.r_out = prog.r_out
-        launch.fits = pe.sizes <= self._row_stride
+        launch.fits = sizes <= self._row_stride
         if launch.n == 0:
             return
         t0 = time.perf_counter()
@@ -994,22 +1768,26 @@ class TorchEngine:
             (_bucket_rows(launch.n), self._row_stride + IN_META), dtype=torch.uint8,
             pin_memory=self._stream is not None,
         )
-        pack_staged_ptrs(pe, self._row_stride, staged.numpy())
+        pack(staged.numpy())
         self._stat("t_pack", t0)
         launch.pending = self._run_device([staged], lambda t: run_packed(prog, t[0]),
                                           "payload_transform")
 
-    def _run_device(self, inputs: list[torch.Tensor], run, kernel: str, entry=None) -> _Pending:
+    def _run_device(self, inputs: list[torch.Tensor], run, kernel: str, entry=None,
+                    stage: str = "t_dispatch") -> _Pending:
         """Inputs -> device -> ``run`` (one kernel launch) -> pinned host
-        result, all enqueued on the engine's stream; on the CPU device
-        ``run`` executes the plain version at once. Inputs already on the
-        card (a cache hit's) are launched as they are, with no copy;
-        ``entry`` keeps the device copies of host inputs."""
+        result, all enqueued on the engine's stream from any thread (the
+        current device and stream are entered here, since PyTorch keeps them
+        per thread); on the CPU device ``run`` executes the plain version at
+        once. Inputs already on the card (a cache hit's) are launched as they
+        are, with no copy; ``entry`` keeps the device copies of host
+        inputs. The returned _Pending keeps every tensor the stream still
+        reads or writes until the result is fetched."""
         t0 = time.perf_counter()
         self._stat_add(f"n_kernel_{kernel}", 1)
         if self._stream is None:
             out = run(inputs)
-            self._stat("t_dispatch", t0)
+            self._stat(stage, t0)
             return _Pending(out)
         resident = inputs[0].device.type == "cuda"
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
@@ -1025,7 +1803,7 @@ class TorchEngine:
         if entry is not None:
             # made on the engine's stream, which every hit launches on too
             entry.cols_dev = dev
-        self._stat("t_dispatch", t0)
+        self._stat(stage, t0)
         if not resident:
             self._stat_add("bytes_h2d", sum(t.nbytes for t in inputs))
         self._stat_add("bytes_d2h", host.nbytes)

@@ -14,10 +14,16 @@ a ``PartitionMesh`` (parallel/mesh.py):
 - mesh-vs-single is a measured decision taken on the first representative
   launch (``PROBE_MIN_ROWS``): the same predicate over the same columns,
   once over the mesh and once on the engine's one device, and the mesh
-  must win by ``host_pool.PROBE_MARGIN``. The decision and the probe's
-  times are in ``stats()``. On a virtual mesh (one card named several times) the mesh
+  must win by ``host_pool.PROBE_MARGIN``. One launch calibrates at a time;
+  a launch that finds a calibration running goes single
+  (``probe_lock_busy``). The decision and the probe's times are in
+  ``stats()``. On a virtual mesh (one card named several times) the mesh
   does the single lane's work in one launch over padded blocks, so it
   cannot win by the margin and "single" is the expected answer there.
+
+The engine runs each shard's host ladder (coproc/engine.py
+``_run_mesh_shard``) on its host-stage pool, stacks the shards' columns and
+places them with ``stack_and_put``.
 
 The governor journal of the JAX package is not ported yet; the probe's
 numbers are in ``stats()["probe"]``. The JAX package's
@@ -56,7 +62,11 @@ class MeshRunner:
         self._decision: str | None = None if probe else "mesh"
         self._probe: dict | None = None
         self._lock = threading.Lock()
+        # serializes calibration runs only; never held while the decision
+        # is read or published
+        self._probe_run_lock = threading.Lock()
         self._n_launches = 0
+        self._n_demotions = 0
         self._rows_per_device = [0] * self.n_devices
 
     @property
@@ -68,10 +78,25 @@ class MeshRunner:
     def probe_enabled(self) -> bool:
         return self._probe_enabled
 
+    @property
+    def probe_lock_busy(self) -> bool:
+        """True while a calibration runs: an undecided launch that finds it
+        so goes single before it pays the per-shard mesh ladders."""
+        return self._probe_run_lock.locked()
+
     def shard_ranges(self, counts: list[int]) -> list[tuple[int, int]]:
         """Per-device contiguous batch slices (may be fewer than the mesh's
         shards when there are fewer batches; the rest run empty)."""
         return host_pool.partition_counts(counts, self.n_devices)
+
+    def stack_and_put(self, stacked: list[np.ndarray]) -> list[torch.Tensor]:
+        """The [D, n_pad, ...] column stacks as tensors the cards copy from:
+        pinned host memory on a CUDA mesh (each card then copies its rows up
+        on its own stream), the arrays themselves on the CPU."""
+        out = [torch.from_numpy(s) for s in stacked]
+        if self.mesh.type == "cuda":
+            out = [t.pin_memory() for t in out]
+        return out
 
     def note_launch(self, shard_rows: list[int]) -> None:
         with self._lock:
@@ -79,18 +104,34 @@ class MeshRunner:
             for d, n in enumerate(shard_rows):
                 self._rows_per_device[d] += int(n)
 
+    def note_demotion(self) -> None:
+        """A launch that ran its per-shard mesh ladders and then went down the
+        single lane (a faulted shard worker)."""
+        with self._lock:
+            self._n_demotions += 1
+
     def maybe_calibrate(self, plan, stacked: list[np.ndarray], flat: list[np.ndarray],
                         device: torch.device, n_rows: int) -> str:
         """The engine-sticky pin, measured on the first representative
         launch's own columns: ``stacked`` ([D, n_pad, ...] per column) over
         the mesh against ``flat`` (the single lane's columns) on
-        ``device``. A launch under PROBE_MIN_ROWS runs single without
-        pinning. A failing probe raises."""
+        ``device``. A launch under PROBE_MIN_ROWS, or one that finds another
+        launch calibrating, runs single without pinning. A failing probe
+        raises."""
         with self._lock:
             if self._decision is not None:
                 return self._decision
-        if n_rows < PROBE_MIN_ROWS:
+        if n_rows < PROBE_MIN_ROWS or not self._probe_run_lock.acquire(blocking=False):
             return "single"
+        try:
+            with self._lock:
+                if self._decision is not None:
+                    return self._decision
+            return self._calibrate(plan, stacked, flat, device)
+        finally:
+            self._probe_run_lock.release()
+
+    def _calibrate(self, plan, stacked, flat, device) -> str:
         t_mesh, t_single = self._measure(plan, stacked, flat, device)
         ratio = t_single / t_mesh if t_mesh > 0 else 0.0
         decision = "mesh" if ratio >= host_pool.PROBE_MARGIN else "single"
@@ -133,6 +174,7 @@ class MeshRunner:
                 "devices": self.n_devices,
                 "decision": self._decision,
                 "launches": self._n_launches,
+                "demotions": self._n_demotions,
                 "rows_per_device": list(self._rows_per_device),
             }
             if self._probe is not None:

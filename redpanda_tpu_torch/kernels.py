@@ -109,7 +109,8 @@ class Kernel:
         rc = self.fn()(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name}: kernel launch failed, CUDA error {rc}")
-        self.launches += 1
+        with self._lock:  # pool workers launch one kernel from several threads
+            self.launches += 1
 
 
 _P = ctypes.c_void_p
