@@ -59,7 +59,28 @@ Phases, each of which exits non-zero on failure:
    f. on the card nothing takes a mask's place: a K1 launch that fails in
       every shard and in the inline retry, and a copy down that fails on
       the harvest thread, both end in the script's error policy (skip:
-      empty items; deregister: unloaded), with their failures counted.
+      empty items; deregister: unloaded), with their failures counted;
+   g. the fault envelope, armed through the port's honey badger, on a
+      default columnar engine and a payload engine with
+      breaker_cooldown_ms=200: a one-shot exception on each device domain
+      (dispatch, the caller's mask fetch, the harvest thread's copy down)
+      is retried to the CPU engine's reply with the breakers closed; a
+      persistent one exhausts the envelope launch by launch into the
+      policy (skip: empty; deregister: unloaded) until the dispatch
+      breaker opens; the next launch makes no kernel launch; after the
+      cooldown the half-open probe launches the kernel once, the breaker
+      closes and the replies are byte-identical again; the journal holds
+      the breaker's transitions as consistent pairs. Then a wedge past
+      device_deadline_ms=50 raises DeadlineExceeded into the policy within
+      the governor's envelope bound. The times to trip and to recover and
+      the bound are printed, and every exhausted launch is one sample of
+      coproc_failures_total. Before the faults: the pool probe's passes,
+      whose device legs run on fetch workers, leave the engine's stats
+      alone; and the default columnar and payload engines with their legs
+      on fetch workers (as shipped) and inline, in turns, with the hop's
+      seconds (t_leg_hop) beside each rate.
+   Every engine of the other phases must end with no n_failures_* or
+   n_retries count and every breaker closed.
    The host-ladder lanes (3a-3c) run inline (host_workers=0); phase 3's default
    engines take the pool when its probe (the launch's host path timed
    inline and sharded) pins it.
@@ -744,8 +765,7 @@ def phase_engine(dev) -> dict:
                     f"{n_ticks * len(req.items) / (wall - gc_s):.1f} record_batches/s")
                 log(f"engine {sname}: device stream busy {busy:.2%} of the wall "
                     "(sum of CUDA-event stream intervals)")
-                if any(k.startswith("n_failures") for k in st):
-                    fail(f"{sname}: engine failures {st}")
+                check_envelope(f"engine {sname}", st)
                 log(f"engine {sname}: the host pool probe chose "
                     f"{json.dumps(st.get('host_pool_probe'))} at {st['host_workers']:.0f} workers; "
                     f"{st.get('n_sharded_launches', 0):.0f} of {st['n_launches']:.0f} launches "
@@ -760,7 +780,8 @@ def phase_engine(dev) -> dict:
                 log(f"engine {sname} short_msgs: {rate:.1f} record_batches/s, "
                     f"{kept} output batches per tick, replies byte-identical to the CPU engine")
     launches = path_launches("engine", kernels.PREDICATE, kernels.PAYLOAD_TRANSFORM)
-    for eng in engines.values():
+    for sname, eng in engines.items():
+        check_envelope(f"engine {sname}", eng.stats())
         eng.shutdown()
     log(f"engine parity: every reply of both specs byte-identical to TorchEngine(cpu); "
         f"main-path launches {launches}")
@@ -783,9 +804,7 @@ def drive_lane(name, eng, work, want, n_ticks_of) -> tuple[dict, dict]:
                 fail(f"{name} lane {wname}: CUDA reply {k} differs from the CPU engine's")
         if wname == "bench":
             st = eng.stats()
-    failures = {k: v for k, v in eng.stats().items() if k.startswith("n_failures")}
-    if failures:
-        fail(f"{name} lane: engine failures {failures}")
+    check_envelope(f"{name} lane", eng.stats())
     return rates, st
 
 
@@ -1027,6 +1046,8 @@ def seal_profile(dev, work, want) -> None:
         eng.shutdown()
         if any(reply_bytes(r) != want["bench"][k % GROUP] for k, r in enumerate(replies)):
             fail(f"seal profile {lane}: a reply differs from the CPU engine's")
+        if "breakers" in st:  # an older checkout's engine has no envelope
+            check_envelope(f"seal profile {lane}", st)
         inside = {g: 0.0 for g in (0, 1, 2)}
         for p0, p1, g in gcp.pauses:
             inside[g] += sum(max(0.0, min(p1, w1) - max(p0, w0)) for w0, w1 in windows)
@@ -1071,6 +1092,292 @@ def gc_lanes(dev, work, want, rounds: int = 3) -> None:
                 f"generation {json.dumps(gcp.by_gen())}; without them "
                 f"{TICKS * P / (wall - gc_s):.1f} record_batches/s; sharded launches "
                 f"{st.get('n_sharded_launches', 0):.0f} of {st['n_launches']:.0f}")
+
+
+def check_envelope(name: str, st: dict) -> None:
+    """Nothing of the fault envelope may pass quietly on a main path: no
+    failure counted, no attempt retried, every domain's breaker closed."""
+    bad = {k: v for k, v in st.items() if k.startswith("n_failures") or k == "n_retries"}
+    not_closed = {d: b["state"] for d, b in st.get("breakers", {}).items()
+                  if b["state"] != "closed"}
+    if bad or not_closed:
+        fail(f"{name}: the fault envelope acted on a main path: {bad} breakers {not_closed}")
+
+
+def failures_total() -> float:
+    """coproc_failures_total summed over its domains and kinds: one sample a
+    failure, whichever lane or policy it met."""
+    from redpanda_tpu_torch import metrics
+
+    return sum(v for k, v in metrics.registry.snapshot().items()
+               if k.startswith("coproc_failures_total{"))
+
+
+def one_tick(eng, req):
+    """One launch of ``req`` through ``eng``: its reply and wall seconds."""
+    t0 = time.perf_counter()
+    reply = eng.submit_group([req])[0].result()
+    return reply, time.perf_counter() - t0
+
+
+FAULT_COOLDOWN_MS = 200
+WEDGE_DEADLINE_MS = 50
+
+
+def phase_fault_envelope(dev, engine_run) -> None:
+    """Phase 3g: the fault envelope on the card, armed through the port's
+    honey badger (module docstring)."""
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.coproc import faults
+    from redpanda_tpu_torch.finjector import honey_badger
+
+    req = engine_run["work"]["short_msgs"]  # replies that carry output batches
+    want = engine_run["want"]
+    probe_keeps_no_stats(dev, engine_run["work"]["bench"])
+    hop_lanes(dev, engine_run)
+    honey_badger.enable()
+    try:
+        fault_lane(dev, "columnar", columnar_spec(), kernels.PREDICATE,
+                   (faults.DEVICE_DISPATCH, faults.MASK_FETCH, faults.HARVEST), req,
+                   want["columnar", "short_msgs"][0])
+        fault_lane(dev, "payload", payload_spec(), kernels.PAYLOAD_TRANSFORM,
+                   (faults.DEVICE_DISPATCH, faults.HARVEST), req, want["payload", "short_msgs"][0])
+        wedge_lane(dev, req, want["columnar", "short_msgs"][0])
+    finally:
+        for module, armed in list(honey_badger.armed().items()):
+            for probe in armed:
+                honey_badger.unset(module, probe)
+        honey_badger.disable()
+
+
+def fault_lane(dev, sname, spec, kernel, domains, req, want) -> None:
+    """Phase 3g on one default engine of ``spec``: one-shot faults
+    retried, a persistent one tripping the dispatch breaker, the refused
+    launch, the half-open recovery and the journal's transition pairs."""
+    from redpanda_tpu_torch.coproc import faults, governor
+    from redpanda_tpu_torch.coproc.engine import ErrorPolicy, TorchEngine
+    from redpanda_tpu_torch.finjector import honey_badger
+    from redpanda_tpu_torch.observability import probes
+
+    eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, breaker_cooldown_ms=FAULT_COOLDOWN_MS)
+    if eng.enable_coprocessors([(1, spec.to_json(), ("bench",))]) != [0]:
+        fail(f"fault envelope: enable {sname}")
+    run_stream(eng, req, GROUP + 1)  # warm-up: the probes decide before any fault
+    check_envelope(f"fault envelope {sname} warm-up", eng.stats())
+    dispatch = eng.governor.breaker_for(faults.DEVICE_DISPATCH)
+    # 1. a one-shot exception on each domain is retried
+    for domain in domains:
+        eng.reset_stats()
+        if domain == faults.MASK_FETCH:
+            eng._harvest_async = lambda: False  # the caller fetches its masks
+        honey_badger.set_exception(faults.MODULE, domain, count=1)
+        try:
+            reply, wall = one_tick(eng, req)
+        finally:
+            eng.__dict__.pop("_harvest_async", None)
+        st = eng.stats()
+        if reply_bytes(reply) != want:
+            fail(f"fault envelope {sname}: a retried {domain} fault changed the reply")
+        if honey_badger.armed() or st.get("n_retries", 0) < 1:
+            fail(f"fault envelope {sname}: the one-shot {domain} fault was not retried "
+                 f"({honey_badger.armed()}, {lane_stats(st)})")
+        if any(k.startswith("n_failures") for k in st) or st["breaker"]["state"] != "closed":
+            fail(f"fault envelope {sname}: a retried {domain} fault left {st['breaker']} "
+                 f"{lane_stats(st)}")
+        log(f"fault envelope {sname}: one-shot {domain} exception retried "
+            f"({st['n_retries']:.0f} retries, {wall * 1e3:.3f} ms); reply byte-identical to "
+            "TorchEngine(cpu); breakers closed")
+    # 2. a persistent exception exhausts the envelope launch by launch
+    threshold = dispatch.threshold
+    honey_badger.set_exception(faults.MODULE, faults.DEVICE_DISPATCH)
+    total = failures_total()
+    t0 = time.perf_counter()
+    n = 0
+    while dispatch.state != "open":
+        n += 1
+        if n > threshold:
+            fail(f"fault envelope {sname}: the breaker did not open in {threshold} launches")
+        reply, _ = one_tick(eng, req)
+        if any(it.batches for it in reply.items) or reply.deregistered:
+            fail(f"fault envelope {sname}: an exhausted launch did not end in skip_on_failure")
+    t_open = time.perf_counter()
+    t_trip = t_open - t0
+    if failures_total() != total + n:
+        fail(f"fault envelope {sname}: {n} exhausted launches made "
+             f"{failures_total() - total:.0f} samples of coproc_failures_total")
+    dereg = TorchEngine(device=dev, row_stride=ROW_STRIDE, host_workers=0)
+    dereg.enable_coprocessors([(1, spec.to_json(), ("bench",), ErrorPolicy.deregister)])
+    reply, _ = one_tick(dereg, req)
+    if reply.deregistered != [1] or dereg.heartbeat() != 0:
+        fail(f"fault envelope {sname}: an exhausted launch did not deregister its script")
+    dereg.shutdown()
+    # 3. the open breaker refuses the next launch: no kernel launch
+    st0, before = eng.stats(), kernel.launches
+    refused = probes.coproc_failure_counter("dispatch", "DeviceUnavailable").value
+    reply, t_refused = one_tick(eng, req)
+    st1 = eng.stats()
+    key = f"n_kernel_{kernel.name}"
+    if (kernel.launches != before or st1.get(key) != st0.get(key)
+            or any(it.batches for it in reply.items)
+            or probes.coproc_failure_counter("dispatch", "DeviceUnavailable").value != refused + 1):
+        fail(f"fault envelope {sname}: the open breaker let a launch through "
+             f"({kernel.launches - before} launches, {lane_stats(st1)})")
+    # 4. after the cooldown the half-open probe launches once and closes it
+    honey_badger.unset(faults.MODULE, faults.DEVICE_DISPATCH)
+    t0 = time.perf_counter()
+    while dispatch.state == "open":
+        if time.perf_counter() - t0 > 5.0:
+            fail(f"fault envelope {sname}: the breaker stayed open past its cooldown")
+        time.sleep(0.005)
+    before = kernel.launches
+    reply, _ = one_tick(eng, req)
+    t_closed = time.perf_counter()
+    t_recover = t_closed - t0
+    if reply_bytes(reply) != want or kernel.launches - before != 1 or dispatch.state != "closed":
+        fail(f"fault envelope {sname}: the half-open probe made {kernel.launches - before} "
+             f"launches, breaker {dispatch.snapshot()}")
+    if reply_bytes(one_tick(eng, req)[0]) != want:
+        fail(f"fault envelope {sname}: the reply after recovery differs")
+    # 6. the journal holds each transition as a consistent pair
+    entries = [e for e in reversed(governor.journal.entries(domain=governor.BREAKER))
+               if e.get("engine") == eng.governor.engine_tag]
+    last: dict = {}
+    for e in entries:
+        b, frm, to = e["inputs"]["breaker"], e["inputs"]["from"], e["verdict"]
+        if not e["reason"].startswith(f"{b}: {frm} -> {to}") or last.get(b, "closed") != frm:
+            fail(f"fault envelope {sname}: an inconsistent journal entry {e}")
+        last[b] = to
+    pairs = [(e["inputs"]["from"], e["verdict"]) for e in entries
+             if e["inputs"]["breaker"] == faults.DEVICE_DISPATCH]
+    if pairs != [("closed", "open"), ("open", "half_open"), ("half_open", "closed")]:
+        fail(f"fault envelope {sname}: dispatch breaker transitions {pairs}")
+    st = eng.stats()
+    eng.shutdown()
+    log(f"fault envelope {sname}: a persistent dispatch exception tripped the breaker "
+        f"(threshold {threshold}) after {n} exhausted launches in {t_trip * 1e3:.3f} ms; "
+        f"the open breaker refused a launch in {t_refused * 1e3:.3f} ms with no "
+        f"{kernel.name} launch; recovered (cooldown {FAULT_COOLDOWN_MS} ms, one half-open "
+        f"probe launch) {(t_closed - t_open) * 1e3:.3f} ms after the breaker opened, "
+        f"{t_recover * 1e3:.3f} ms after the fault was disarmed; journal "
+        f"{pairs}; breaker {json.dumps(st['breaker'])}; dispatch envelope bound "
+        f"{eng.governor.envelope_bound_s(faults.DEVICE_DISPATCH):.3f} s")
+
+
+def probe_keeps_no_stats(dev, req) -> None:
+    """The pool probe's passes on the card, whose device legs run on fetch
+    workers: they leave the engine's stats alone (no kernel count, dispatch
+    or device time, link bytes), as on the CPU, while their launches are
+    real and count on the kernels."""
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.coproc import engine as engine_mod
+    from redpanda_tpu_torch.coproc.engine import ErrorPolicy, TorchEngine
+
+    batches = [b for it in req.items for b in it.batches]
+    counts = [b.header.record_count for b in batches]
+    for sname, spec, kernel in (("columnar", columnar_spec(), kernels.PREDICATE),
+                                ("payload", payload_spec(), kernels.PAYLOAD_TRANSFORM)):
+        eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, host_workers=4,
+                          host_pool_probe=False)
+        eng.enable_coprocessors([(1, spec.to_json(), ("bench",))])
+        run_stream(eng, req, 2)  # warm-up
+        before, n0 = eng.stats(), kernel.launches
+        launch = engine_mod._Launch(eng, 1, ErrorPolicy.skip_on_failure, eng._plans[1])
+        t_inline, t_sharded = eng._measure_pool_ratio(launch, batches, counts)
+        after = eng.stats()
+        eng.shutdown()
+        after.pop("arena"), before.pop("arena")  # the framing arena counts its buffers
+        moved = {k: (before.get(k), after.get(k)) for k in set(before) | set(after)
+                 if before.get(k) != after.get(k)}
+        if moved or kernel.launches == n0:
+            fail(f"pool probe {sname}: the probe's passes moved the engine's stats {moved} "
+                 f"({kernel.launches - n0} {kernel.name} launches)")
+        log(f"pool probe {sname} on the card: inline {t_inline * 1e3:.3f} ms, sharded "
+            f"{t_sharded * 1e3:.3f} ms, {kernel.launches - n0} {kernel.name} launches on "
+            "fetch workers; the engine's stats unchanged")
+
+
+def hop_lanes(dev, engine_run, rounds: int = 2) -> None:
+    """What the fault envelope's hop to a fetch worker costs: the default
+    columnar and payload engines with their device legs on fetch workers
+    (as shipped) and inline on the calling thread (no deadline), in turns
+    (worker, inline, inline, worker), each over TICKS ticks of the bench
+    workload, replies compared with the CPU engine's; t_leg_hop is the
+    legs' hand-offs summed over the window, two legs a kernel launch (the
+    launch and its copy down)."""
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+
+    work, want = engine_run["work"], engine_run["want"]
+    for sname, spec, key in (("columnar", columnar_spec, "n_kernel_predicate"),
+                             ("payload", payload_spec, "n_kernel_payload_transform")):
+        for r in range(rounds):
+            for legs in (("worker", "inline") if r % 2 == 0 else ("inline", "worker")):
+                eng = TorchEngine(device=dev, row_stride=ROW_STRIDE)
+                eng._leg_deadlines = legs == "worker"
+                eng.enable_coprocessors([(1, spec().to_json(), ("bench",))])
+                run_stream(eng, work["bench"], GROUP + 1)  # warm-up (and the pool probe)
+                eng.reset_stats()
+                replies, rate = run_stream(eng, work["bench"], TICKS)
+                st = eng.stats()
+                eng.shutdown()
+                if any(reply_bytes(x) != want[sname, "bench"][k % GROUP]
+                       for k, x in enumerate(replies)):
+                    fail(f"hop lanes {sname} {legs}: a reply differs from the CPU engine's")
+                check_envelope(f"hop lanes {sname} {legs}", st)
+                hop, n_legs = st.get("t_leg_hop", 0.0), 2 * st[key]
+                log(f"hop lanes {sname}, legs {legs} #{r + 1}, {TICKS} ticks: {rate:.1f} "
+                    f"record_batches/s; t_leg_hop {hop:.6f} s over {n_legs:.0f} legs "
+                    f"({hop / n_legs * 1e6:.1f} us a leg) of {st['n_launches']:.0f} launches; "
+                    f"t_dispatch {st.get('t_dispatch', 0.0):.6f} t_harvest_wait "
+                    f"{st.get('t_harvest_wait', 0.0):.6f} t_fetch {st.get('t_fetch', 0.0):.6f}")
+
+
+def wedge_lane(dev, req, want) -> None:
+    """Phase 3g's wedge: a dispatch leg wedged past its deadline is
+    abandoned on every attempt and the tick returns inside the envelope."""
+    from redpanda_tpu_torch.coproc import faults
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+    from redpanda_tpu_torch.finjector import honey_badger
+    from redpanda_tpu_torch.observability import probes
+
+    # inline and a fixed deadline: one envelope per tick, none raised
+    eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, host_workers=0,
+                      device_deadline_ms=WEDGE_DEADLINE_MS, adaptive_deadline=False)
+    eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))])
+    run_stream(eng, req, 2)  # warm-up
+    reply, t_clean = one_tick(eng, req)
+    if reply_bytes(reply) != want:
+        fail("fault envelope wedge: the clean tick's reply differs")
+    eng.reset_stats()
+    bound = eng.governor.envelope_bound_s(faults.DEVICE_DISPATCH)
+    deadlines = probes.coproc_failure_counter(faults.DEVICE_DISPATCH, "deadline").value
+    total = failures_total()
+    saved, honey_badger.wedge_max_s = honey_badger.wedge_max_s, 10.0
+    honey_badger.set_wedge(faults.MODULE, faults.DEVICE_DISPATCH)
+    try:
+        reply, t_wedged = one_tick(eng, req)
+    finally:
+        honey_badger.unset(faults.MODULE, faults.DEVICE_DISPATCH)
+        honey_badger.wedge_max_s = saved
+    st = eng.stats()
+    # the abandoned attempts run on once unwedged: let them end (they launch
+    # K1 late) before any later phase counts its launches
+    t0 = time.perf_counter()
+    while faults.fetch_pool_stats()["free"] < faults.fetch_pool_stats()["created"]:
+        if time.perf_counter() - t0 > 10.0:
+            fail("fault envelope wedge: abandoned attempts did not end")
+        time.sleep(0.005)
+    eng.shutdown()
+    if (any(it.batches for it in reply.items) or st.get("n_failures_dispatch") != 1
+            or probes.coproc_failure_counter(faults.DEVICE_DISPATCH, "deadline").value
+            != deadlines + 1 or failures_total() != total + 1):
+        fail(f"fault envelope wedge: not a DeadlineExceeded into the policy {lane_stats(st)}")
+    if t_wedged > bound + t_clean:
+        fail(f"fault envelope wedge: the tick took {t_wedged:.3f} s against an envelope bound "
+             f"of {bound:.3f} s and a clean tick of {t_clean:.3f} s")
+    log(f"fault envelope wedge: a dispatch leg wedged past device_deadline_ms="
+        f"{WEDGE_DEADLINE_MS} raised DeadlineExceeded into the policy after "
+        f"{st.get('n_retries', 0):.0f} retries; tick {t_wedged * 1e3:.3f} ms against the "
+        f"envelope bound {bound * 1e3:.3f} ms (+ a clean tick's {t_clean * 1e3:.3f} ms)")
 
 
 def phase_card_failures(dev, work) -> None:
@@ -2132,6 +2439,7 @@ def phase_engine_mesh(dev, mesh, engine_run) -> dict:
         fail(f"mesh lane: {launches['predicate_stacked']} stacked predicate launches for "
              f"{n_mesh} mesh launches of {chunks} card chunk(s) each")
     eng.shutdown()
+    check_envelope("engine mesh lane", eng.stats())
     m = st["mesh"]
     m["rows_per_device"] = [a - b for a, b in zip(m["rows_per_device"], warm_rows)]
     if sum(m["rows_per_device"]) != st["n_records"] or st.get("n_failures_dispatch"):
@@ -2161,6 +2469,7 @@ def phase_engine_mesh(dev, mesh, engine_run) -> dict:
            for k, r in enumerate(replies)):
         fail("probing mesh engine: a reply differs from the CPU engine's")
     pm = probing.stats()["mesh"]
+    check_envelope("probing mesh engine", probing.stats())
     probing.shutdown()
     log(f"engine mesh probe (mesh_probe=True): decision {pm['decision']}, probe "
         f"{json.dumps(pm.get('probe'))}")
@@ -2262,6 +2571,7 @@ def main() -> int:
     launches, engine_run = phase_engine(dev)
     lane_launches = phase_host_ladder(dev, engine_run)
     launches["predicate"] += sum(lane_launches.values()) + phase_pool(dev, engine_run)
+    phase_fault_envelope(dev, engine_run)
     launches["payload_transform"] += phase_policy(dev)
     launches.update(phase_payload_entry(dev))
     measured.update(phase_crc_kernels(dev))

@@ -67,6 +67,21 @@ runs as D equal row blocks of the padded launch through the same launcher
 single device; a failing shard launch raises through the same dispatch
 boundary as a failing single-device launch.
 
+Every device leg -- a predicate or payload launch (its copy up, kernel and
+copy down enqueued), the mesh lane's stacked launch, a mask's or a payload
+result's copy down -- runs inside the JAX engine's fault envelope
+(coproc/faults.py, coproc/governor.py): ``faults.inject(<domain>)`` first,
+then on a card a per-attempt deadline on an abandonable worker thread,
+bounded retries with backoff, and a verdict on the domain's circuit
+breaker. Where the JAX engine then falls back to its exact host path, this
+engine raises into the script's error policy: an exhausted envelope raises
+its last failure, an open breaker ``DeviceUnavailable`` without a launch.
+The mesh domain's open breaker demotes a launch to the single-card lane. A
+failed kernel build or a wrapper's argument check is never retried and
+re-raises out of ``submit_group``. On the CPU the plain versions run
+synchronously on the calling thread: the legs are retried and judged there
+too, with no deadline (nothing is in flight to abandon).
+
 Error policies mirror the public SDK: SkipOnFailure drops the failing batch
 but keeps the script; Deregister removes the script on first failure.
 """
@@ -86,12 +101,14 @@ import torch
 
 from redpanda_tpu_torch import native
 from redpanda_tpu_torch import kernels
-from redpanda_tpu_torch.coproc import batch_codec, colcache, host_pool, meshrunner
+from redpanda_tpu_torch.coproc import batch_codec, colcache, faults, governor, host_pool, meshrunner
 from redpanda_tpu_torch.coproc.column_plan import ColumnarPlan, PayloadPlan, plan_spec
 from redpanda_tpu_torch.device import resolve_device
 from redpanda_tpu_torch.hashing.xx import xxhash64
 from redpanda_tpu_torch.models.fundamental import NTP
 from redpanda_tpu_torch.models.record import Compression, RecordBatch
+from redpanda_tpu_torch.observability import probes
+from redpanda_tpu_torch.observability.trace import tracer
 from redpanda_tpu_torch.ops.pipeline import IN_META, run_packed, unpack_result
 from redpanda_tpu_torch.ops.transforms import TransformSpec, compile_transform
 from redpanda_tpu_torch.parallel.mesh import PartitionMesh, card_groups, partition_mesh
@@ -161,9 +178,6 @@ def _bucket_rows(n: int) -> int:
     return b
 
 
-# failures of our own code re-raise instead of feeding an error policy
-_PROGRAMMING_ERRORS = (AssertionError, NameError, UnboundLocalError)
-
 # A launch under this many records keeps the inline path: the pool's
 # handoff and the per-shard fixed costs eat the win.
 _SHARD_MIN_ROWS = 2048
@@ -217,16 +231,19 @@ class _MaskSlot:
     "harvesting", "claimed" (a caller took it while still queued) or
     "abandoned" (its launch degraded to the inline path; nobody fetches it).
     ``bits`` or ``error`` holds the outcome once fetched; ``event`` is set
-    when the harvest thread has published it."""
+    when the harvest thread has published it. ``trace_id`` is the launch's
+    trace and ``enq_t`` when the mask was handed over (its queue wait)."""
 
-    __slots__ = ("pending", "bits", "error", "event", "state")
+    __slots__ = ("pending", "bits", "error", "event", "state", "trace_id", "enq_t")
 
-    def __init__(self, pending: _Pending):
+    def __init__(self, pending: _Pending, trace_id: int | None = None):
         self.pending = pending
         self.bits: np.ndarray | None = None
         self.error: BaseException | None = None
         self.event: threading.Event | None = None
         self.state = "idle"
+        self.trace_id = trace_id
+        self.enq_t = 0.0
 
 
 class _HostShard:
@@ -258,6 +275,7 @@ class _Launch:
         self.script_id = script_id
         self.policy = policy
         self.plan = plan
+        self.trace_id: int | None = None
         self.r_out = 0
         self.n = 0
         self.ranges: list[tuple[int, int]] = []
@@ -302,7 +320,7 @@ class _Launch:
                         ex.joined, ex.offsets, ex.sizes, keep, self.ranges, arena=eng._arena
                     )
                     eng._stat("t_frame_gather", t0)
-                    eng._stat_add("n_frame_gather", 1)
+                    self._count_frame("n_frame_gather")
                 else:
                     mode = self.plan.mode
                     if mode == "payload":
@@ -316,7 +334,7 @@ class _Launch:
                         out, out_len, keep, self.ranges, arena=eng._arena
                     )
                     eng._stat("t_rebuild", t0)
-                    eng._stat_add("n_frame_padded", 1)
+                    self._count_frame("n_frame_padded")
                 self.exploded = self.proj_data = None
             return self._framed
 
@@ -332,10 +350,34 @@ class _Launch:
             return ex, self._keep_columnar()
         return ex, ex.sizes > 0  # identity's rule: drop empty values
 
+    def _count_frame(self, key: str) -> None:
+        """Count one framing crossing and journal the script's framing path
+        when it changes (gather for byte-identity plans, else padded)."""
+        eng = self.engine
+        eng._stat_add(key, 1)
+        if getattr(_probing, "on", False):
+            return  # a pool probe's pass records nothing
+        mode = "gather" if key == "n_frame_gather" else "padded"
+        eng.governor.record_mode(
+            governor.HARVEST_PATH, mode,
+            "byte-identity plan framed zero-copy from the joined blob" if mode == "gather"
+            else "byte-mutating plan framed via the padded row matrix",
+            {"script_id": self.script_id, "mode": self.plan.mode},
+            key=self.script_id,
+        )
+
     def _fetch(self) -> np.ndarray:
+        """The payload lane's packed rows: the copy down under the harvest
+        domain's envelope."""
         t0 = time.perf_counter()
-        got = self.pending.wait(self.engine)
-        self.engine._stat("t_fetch", t0)
+        eng, pending = self.engine, self.pending
+
+        def leg():
+            faults.inject(faults.HARVEST)
+            return pending.wait(eng)
+
+        got = eng._try_device_leg(faults.HARVEST, leg)
+        eng._stat("t_fetch", t0)
         self.pending = None
         return got
 
@@ -406,7 +448,7 @@ class _Launch:
                 ex.joined, ex.offsets, ex.sizes, keep, shard.ranges, arena=eng._arena
             )
             eng._stat("t_shard_frame_gather", t0)
-            eng._stat_add("n_frame_gather", 1)
+            self._count_frame("n_frame_gather")
             return framed
         t0 = time.perf_counter()
         if shard.n == 0:
@@ -419,7 +461,7 @@ class _Launch:
         t0 = time.perf_counter()
         framed = batch_codec.frame_ranges(rows, lens, keep, shard.ranges, arena=eng._arena)
         eng._stat("t_shard_rebuild", t0)
-        eng._stat_add("n_frame_padded", 1)
+        self._count_frame("n_frame_padded")
         return framed
 
     def _framed_sharded(self) -> list[tuple[bytes, int]]:
@@ -476,6 +518,19 @@ def _fit_cols(cols, n_pad: int) -> list:
     return out
 
 
+def _launches_kernel(plan) -> bool:
+    """Whether a plan's launches run a kernel, and so cross the dispatch
+    domain's breaker."""
+    return isinstance(plan, PayloadPlan) or (isinstance(plan, ColumnarPlan) and bool(plan.dev_cols))
+
+
+def _explode_shard(explode, batches):
+    """A payload or host plan's explode shard on a pool worker (the
+    shard_worker fault domain's probe site)."""
+    faults.inject(faults.SHARD_WORKER)
+    return explode(batches)
+
+
 def _join_shards(shards: list[_HostShard]) -> tuple[list[tuple[int, int]], int]:
     """The launch-wide batch ranges and record count of its shards."""
     ranges: list[tuple[int, int]] = []
@@ -499,10 +554,15 @@ class Ticket:
 
     def __init__(self, engine: "TorchEngine"):
         self._engine = engine
+        self.trace_id: int | None = None  # the request's, carried across threads
         # (disposition, item, launch, [batch range indices])
         self._slots: list[tuple] = []
 
     def result(self) -> ProcessBatchReply:
+        with tracer.span("coproc.harvest", trace_id=self.trace_id):
+            return self._result()
+
+    def _result(self) -> ProcessBatchReply:
         eng = self._engine
         reply = ProcessBatchReply()
         dereg: set[int] = set()
@@ -529,6 +589,8 @@ class Ticket:
                     seal_jobs.append((batch, payload, kept))
                 slot_plans.append(idxs)
             except Exception as exc:  # held for phase 2's error policy
+                if faults.unretried(exc):  # our bug, not a transform failure
+                    raise
                 slot_plans.append(exc)
                 framing_failed.add(launch.script_id)
         sealed = eng._seal_jobs(seal_jobs)
@@ -609,6 +671,24 @@ class TorchEngine:
       measured again after this many shardable launches (the previous
       probe in ``stats()["host_pool_probe_prev"]``); 0 pins it for good.
 
+    The fault envelope's knobs are the JAX engine's too, with its defaults
+    (``self.governor`` holds the per-domain breakers, the adaptive deadlines
+    and this engine's view of the decision journal):
+
+    * ``device_deadline_ms`` (None, meaning 30000): the per-attempt deadline
+      of a device leg on a card, the floor of the adaptive deadlines;
+    * ``launch_retries`` (None, meaning 2) and ``retry_backoff_ms`` (None,
+      meaning 50): retries after a failed attempt, with exponential backoff
+      and jitter;
+    * ``breaker_threshold`` (None, meaning 5) consecutive failed legs open a
+      domain's breaker; ``breaker_cooldown_ms`` (None, meaning 30000) later
+      one half-open probe launch is admitted;
+    * ``adaptive_deadline`` (None, meaning on) and
+      ``adaptive_deadline_margin`` (None, meaning 4.0): a domain's deadline
+      rises to margin x its successful legs' p99.9 (at most 8x the floor);
+    * ``governor_journal_capacity`` (None: the process journal's 256): the
+      decision journal's ring, process-wide.
+
     ``shutdown()`` stops the mask-harvest thread and the pool's threads.
     """
 
@@ -629,6 +709,14 @@ class TorchEngine:
         host_workers: int | None = None,
         host_pool_probe: bool = True,
         host_pool_recal_launches: int | None = None,
+        device_deadline_ms: int | None = None,
+        launch_retries: int | None = None,
+        retry_backoff_ms: int | None = None,
+        breaker_threshold: int | None = None,
+        breaker_cooldown_ms: int | None = None,
+        adaptive_deadline: bool | None = None,
+        adaptive_deadline_margin: float | None = None,
+        governor_journal_capacity: int | None = None,
     ):
         self.device = resolve_device(device)
         self._stream = None
@@ -641,6 +729,43 @@ class TorchEngine:
             if mesh.type != self.device.type:
                 raise ValueError(f"mesh {mesh} does not run on the engine's device {self.device}")
             self._meshrunner = meshrunner.MeshRunner(mesh, probe=mesh_probe)
+        # the fault envelope: the static deadline is the floor of the
+        # governor's per-domain adaptive deadlines
+        self._fault_policy = faults.FaultPolicy(
+            deadline_s=(30_000 if device_deadline_ms is None else device_deadline_ms) / 1000.0,
+            retries=2 if launch_retries is None else launch_retries,
+            backoff_s=(50 if retry_backoff_ms is None else retry_backoff_ms) / 1000.0,
+        )
+        # the plain versions on the CPU run synchronously on the caller's
+        # thread: there is no copy in flight to abandon, so no deadline
+        self._leg_deadlines = self._stream is not None
+        threshold = 5 if breaker_threshold is None else breaker_threshold
+        cooldown_s = (30_000 if breaker_cooldown_ms is None else breaker_cooldown_ms) / 1000.0
+        adaptive = True if adaptive_deadline is None else bool(adaptive_deadline)
+        if governor_journal_capacity is not None:
+            governor.journal.configure(governor_journal_capacity)
+        self.governor = governor.Governor(
+            fault_policy=self._fault_policy,
+            breaker_threshold=threshold,
+            breaker_cooldown_s=cooldown_s,
+            # a half-open probe runs a whole retry envelope: the stale-probe
+            # release must outwait it, or a slow probe gets a second probe
+            # stacked onto the same struggling card
+            breaker_probe_timeout_s=max(cooldown_s, 2.0 * self._fault_policy.envelope_s()),
+            adaptive_deadline=adaptive,
+            deadline_margin=4.0 if adaptive_deadline_margin is None else adaptive_deadline_margin,
+        )
+        self.governor.set_config_snapshot({
+            "device_deadline_ms": round(self._fault_policy.deadline_s * 1e3),
+            "launch_retries": self._fault_policy.retries,
+            "retry_backoff_ms": round(self._fault_policy.backoff_s * 1e3),
+            "breaker_threshold": threshold,
+            "breaker_cooldown_ms": round(cooldown_s * 1e3),
+            "gather_frame": bool(gather_frame),
+            "adaptive_deadline": adaptive,
+        })
+        # the dispatch domain's breaker: every launch crosses it first
+        self._breaker = self.governor.breaker_for(faults.DEVICE_DISPATCH)
         self._row_stride = int(row_stride)
         self._compress_threshold = compress_threshold
         self._output_codec = output_codec
@@ -658,6 +783,10 @@ class TorchEngine:
             self._parse_decision = "staged"
         elif not structural_probe:
             self._parse_decision = "structural"
+        if self._parse_decision is not None:
+            # an operator's pin, not a measurement: posture only
+            self.governor.note_posture(governor.PARSE_PATH, self._parse_decision)
+        self.governor.update_config_snapshot(structural_parse=self._structural_enabled)
         self._parse_probe: dict | None = None
         self._parse_decision_lock = threading.Lock()
         # serializes calibration runs only; never held while the decision
@@ -665,6 +794,9 @@ class TorchEngine:
         self._parse_probe_run_lock = threading.Lock()
         cache_mb = 0 if device_column_cache_mb is None else max(0, int(device_column_cache_mb))
         self._colcache = colcache.DeviceColumnCache(cache_mb << 20) if cache_mb else None
+        self.governor.update_config_snapshot(
+            device_column_cache_mb=cache_mb,
+            mesh_devices=self._meshrunner.n_devices if self._meshrunner else 0)
         # the host-stage pool: exists at >= 2 workers; on or off is a
         # measured decision unless pinned (host_pool_probe=False)
         if host_workers is None:
@@ -673,11 +805,16 @@ class TorchEngine:
         self._host_pool = (host_pool.HostStagePool(self._host_workers)
                            if self._host_workers >= 2 else None)
         self._pool_decision: str | None = None if host_pool_probe else "sharded"
+        self.governor.update_config_snapshot(host_workers=self._host_workers)
+        if not host_pool_probe:
+            self.governor.note_posture(governor.HOST_POOL, "sharded")  # a pin: posture only
         # held across a pool calibration, so concurrent first launches do
         # not measure against each other's load
         self._pool_decision_lock = threading.Lock()
         self._host_pool_probe: dict | None = None
         self._host_pool_probe_prev: dict | None = None
+        # set while a periodic recalibration is pending: it journals as one
+        self._recal_pending = False
         self._probe_enabled = bool(host_pool_probe)
         self._recal_interval = (512 if host_pool_recal_launches is None
                                 else max(0, int(host_pool_recal_launches)))
@@ -794,7 +931,8 @@ class TorchEngine:
         seconds summed over the pool's workers, and ``t_sharded_dispatch``,
         ``t_sharded_frame`` and ``t_sharded_seal`` the wall time of each
         fan-out; ``t_harvest_wait`` is the mask-harvest thread's wait on the
-        card's copies down), counts (``n_*``, ``n_kernel_*`` per kernel,
+        card's copies down; ``t_leg_hop`` the device legs' hand-offs to the
+        fetch workers and back, on a card), counts (``n_*``, ``n_kernel_*`` per kernel,
         ``n_mesh_launches``, ``n_sharded_launches``,
         ``n_colcache_hit``/``_miss``, ``n_frame_gather``/``_padded``,
         ``n_failures_*`` per failure domain), link bytes (``bytes_h2d``,
@@ -804,11 +942,18 @@ class TorchEngine:
         decision (None until probed) and its ``parse_probe`` times, the
         ``colcache`` block when the cache is on and, with a mesh, the
         meshrunner's ``mesh`` block (decision, probe, launches, demotions
-        and rows per device of the range-shard lane)."""
+        and rows per device of the range-shard lane). The fault envelope adds
+        ``n_retries`` (attempts retried), ``breaker`` (the worst state
+        across the fault domains' breakers, the largest consecutive-failure
+        count, the trips summed), ``breakers`` (each domain's breaker) and
+        ``governor`` (its posture and the decision journal's summary)."""
         with self._stats_lock:
             out = dict(self._stats)
         out["device"] = str(self.device)
         out["host_workers"] = float(self._host_workers)
+        out["breaker"] = self.governor.aggregate_breaker_snapshot()
+        out["breakers"] = self.governor.breakers_snapshot()
+        out["governor"] = self.governor.snapshot()
         if self._host_pool_probe is not None:
             out["host_pool_probe"] = dict(self._host_pool_probe)
         if self._host_pool_probe_prev is not None:
@@ -834,17 +979,77 @@ class TorchEngine:
             self._stats.clear()
 
     def _stat_add(self, key: str, v: float) -> None:
+        """Add to one stat; a ``t_*`` stage also lands in
+        ``coproc_stage_latency_us{stage=}``, recorded under the same lock
+        (HdrHist's record is a read-modify-write)."""
         if getattr(_probing, "on", False):
             return
         with self._stats_lock:
             self._stats[key] += v
+            if key.startswith("t_"):
+                probes.coproc_stage_hist(key[2:]).record(int(v * 1e6))
 
     def _stat(self, key: str, t0: float) -> None:
         self._stat_add(key, time.perf_counter() - t0)
 
     def _note_failure(self, domain: str, exc: BaseException) -> None:
+        """One failure that meets an error policy or a degraded lane:
+        ``n_failures_<domain>``, and ``coproc_failures_total`` unless a
+        device leg's envelope classified it already (``rp_counted``): one
+        failure is one sample of the series, under the leg's domain."""
         self._stat_add(f"n_failures_{domain}", 1.0)
-        logger.warning("coproc %s failure: %r", domain, exc)
+        if not getattr(exc, "rp_counted", False):
+            faults.note_failure(domain, exc)
+
+    def _try_device_leg(self, domain: str, leg):
+        """One device leg under the fault envelope of ``domain``: the
+        breaker's admission (``DeviceUnavailable`` when it refuses, with no
+        launch), the domain's per-attempt deadline (adaptive, from the
+        governor; none on the CPU), bounded retries, classified failure
+        accounting and the breaker's verdict. Returns the leg's value or
+        raises its last failure: the caller raises it into the script's
+        error policy where the JAX engine falls back to its host path. An
+        ``unretried`` failure is counted and re-raised with no verdict.
+        Each successful attempt's wall time feeds the domain's adaptive
+        deadline (``governor.observe_leg``).
+
+        On a card each attempt runs on an abandonable fetch worker, which
+        inherits the calling thread's ``_probing``: a pool probe's legs keep
+        no stats there either. ``t_leg_hop`` sums the hand-off to the worker
+        and back of the legs that ran in one attempt."""
+        gov = self.governor
+        breaker = gov.breaker_for(domain)
+        if not breaker.allow_device():
+            raise faults.DeviceUnavailable(domain)
+        probing = getattr(_probing, "on", False)
+        spans: list[float] = []  # each attempt's start, then the last one's end
+
+        def timed_leg():
+            was, _probing.on = getattr(_probing, "on", False), probing
+            try:
+                t0 = time.perf_counter()
+                spans.append(t0)
+                out = leg()
+                t1 = time.perf_counter()
+            finally:
+                _probing.on = was
+            gov.observe_leg(domain, t1 - t0)
+            spans.append(t1)
+            return out
+
+        t_call = time.perf_counter()
+        try:
+            out = faults.retry_call(timed_leg, gov.policy_for(domain), domain,
+                                    count=self._stat_add, inline=not self._leg_deadlines)
+        except Exception as exc:
+            exc.rp_counted = True  # the policy boundary does not count it again
+            faults.note_failure(domain, exc, reraise_programming=True)
+            breaker.record_failure()
+            raise
+        if self._leg_deadlines and len(spans) == 2:
+            self._stat_add("t_leg_hop", (spans[0] - t_call) + (time.perf_counter() - spans[1]))
+        breaker.record_success()
+        return out
 
     # ------------------------------------------------------------ harvest
     def _harvest_async(self) -> bool:
@@ -858,6 +1063,7 @@ class TorchEngine:
             return
         slot.event = threading.Event()
         slot.state = "queued"
+        slot.enq_t = time.perf_counter()
         self._ensure_harvester()
         self._harvest_q.put(slot)
 
@@ -880,43 +1086,74 @@ class TorchEngine:
                     continue  # its caller fetches it, or nobody needs it
                 slot.state = "harvesting"
             t0 = time.perf_counter()
-            self._fetch_mask(slot)
-            self._stat("t_harvest_wait", t0)
-            slot.event.set()
+            try:
+                self._fetch_mask(slot, faults.HARVEST)
+            finally:
+                t1 = time.perf_counter()
+                self._stat_add("t_harvest_wait", t1 - t0)
+                # the copy down's span (post-synchronize device time) and
+                # how long the mask waited for this thread
+                tracer.record("coproc.device_harvest", (t1 - t0) * 1e6, slot.trace_id,
+                              start_perf=t0, queue_us=int((t0 - slot.enq_t) * 1e6),
+                              device_us=int((t1 - t0) * 1e6))
+                slot.event.set()
 
-    def _fetch_mask(self, slot: _MaskSlot) -> None:
-        """Wait for a mask's copy down on this thread; its bits, or the
-        exception the wait raised, go into the slot."""
+    def _fetch_mask(self, slot: _MaskSlot, domain: str) -> None:
+        """Wait for a mask's copy down under ``domain``'s envelope (HARVEST
+        on the harvest thread, MASK_FETCH for a caller); its bits, or the
+        last exception, go into the slot. The envelope has classified the
+        failure already; ``n_failures_harvest`` counts it for the engine."""
+        pending = slot.pending
+
+        def leg():
+            faults.inject(domain)
+            return pending.wait(self)
+
         try:
-            slot.bits = slot.pending.wait(self)
+            slot.bits = self._try_device_leg(domain, leg)
         except Exception as exc:  # kept on the slot; raised at harvest
             slot.error = exc
-            self._note_failure("harvest", exc)
+            self._stat_add("n_failures_harvest", 1.0)
         finally:
             slot.pending = None
 
     def _mask_bits(self, slot: _MaskSlot) -> np.ndarray:
         """A mask's keep bits, once fetched: published by the harvest thread,
-        or fetched here when it was never handed over (or is still queued
-        after ``_HARVEST_WAIT_S``). A failed fetch raises, now and on every
+        or fetched here (MASK_FETCH) when it was never handed over or is
+        still queued after ``_HARVEST_WAIT_S``. A mask the thread is
+        fetching is waited for as long as the harvest domain's envelope
+        (re-read while it grows). A failed fetch raises, now and on every
         retry: nothing takes the card's place."""
         if slot.bits is None and slot.error is None:
             t0 = time.perf_counter()
             if slot.event is None:
-                self._fetch_mask(slot)
+                self._fetch_mask(slot, faults.MASK_FETCH)
             elif not slot.event.wait(_HARVEST_WAIT_S):
                 with _mask_claim_lock:
                     claimed = slot.state == "queued"
                     if claimed:
                         slot.state = "claimed"
                 if claimed:
-                    self._fetch_mask(slot)
+                    self._fetch_mask(slot, faults.MASK_FETCH)
                 else:
-                    slot.event.wait()
+                    self._await_harvest(slot)
             self._stat("t_fetch", t0)
         if slot.error is not None:
             raise slot.error
         return slot.bits
+
+    def _await_harvest(self, slot: _MaskSlot) -> None:
+        """Wait for the harvest thread's verdict on a mask it is fetching:
+        its whole envelope and a second, the bound re-read until it stops
+        growing (an adaptive raise lands in it before the fetch starts)."""
+        waited = 0.0
+        while True:
+            bound = self.governor.envelope_bound_s(faults.HARVEST) + 1.0
+            if bound <= waited:
+                raise faults.DeadlineExceeded("the harvest thread outlived its envelope")
+            if slot.event.wait(bound - waited):
+                return
+            waited = bound
 
     def _abandon_pending_masks(self, launch: _Launch) -> None:
         """Mark a degraded sharded launch's still-queued shard masks
@@ -951,6 +1188,19 @@ class TorchEngine:
             chunks = self._seal_chunks(jobs, live)
             if len(chunks) >= 2:
                 sealed = self._seal_sharded(jobs, chunks)
+            if sealed is not None:
+                # journaled once the fan-out committed
+                self.governor.record_mode(
+                    governor.SHARDED_SEAL, "sharded",
+                    f"reply-wide seal fan-out engaged: {len(live)} jobs >= "
+                    f"{_SEAL_MIN_BATCHES} over {len(chunks)} chunks",
+                    {"jobs": len(live), "chunks": len(chunks)})
+        if sealed is None and len(live) >= _SEAL_MIN_BATCHES:
+            # only an eligible reply sealing inline is a decision
+            self.governor.record_mode(
+                governor.SHARDED_SEAL, "inline",
+                "serial seal despite an eligible reply: pool off, measured inline "
+                "decision, or pool failure", {"jobs": len(live)})
         if sealed is None:
             t0 = time.perf_counter()
             sealed = self._seal(jobs, live)
@@ -993,7 +1243,7 @@ class TorchEngine:
         try:
             got = self._host_pool.run([(lambda idx=idx: run_chunk(idx)) for idx in chunks])
         except Exception as exc:
-            if isinstance(exc, _PROGRAMMING_ERRORS):
+            if faults.unretried(exc):
                 raise
             self._note_failure("shard_worker", exc)
             return None
@@ -1015,6 +1265,7 @@ class TorchEngine:
         tickets = [Ticket(self) for _ in reqs]
         by_script: dict[int, list[tuple]] = {}
         for ticket, req in zip(tickets, reqs):
+            ticket.trace_id = req.trace_id
             for item in req.items:
                 if item.script_id not in self._handles:
                     ticket._slots.append((_UNKNOWN, item, None, None))
@@ -1026,6 +1277,7 @@ class TorchEngine:
         for script_id, entries in by_script.items():
             handle = self._handles[script_id]
             launch = _Launch(self, script_id, handle.policy, self._plans[script_id])
+            launch.trace_id = entries[0][0].trace_id
             try:
                 self._dispatch(launch, [b for _, _, item in entries for b in item.batches])
                 ridx = 0
@@ -1034,7 +1286,7 @@ class TorchEngine:
                     ridx += len(item.batches)
                     ticket._slots[slot_idx] = (_LAUNCHED, item, launch, rng)
             except Exception as exc:
-                if isinstance(exc, _PROGRAMMING_ERRORS):
+                if faults.unretried(exc):
                     raise
                 self._note_failure("dispatch", exc)
                 disp = _EMPTY
@@ -1051,9 +1303,13 @@ class TorchEngine:
         launch, else the host-stage pool when it shards it, else inline."""
         plan = launch.plan
         store_key = None
+        if isinstance(plan, ColumnarPlan) and self._meshrunner is not None and \
+                self._dispatch_mesh(launch, plan, batches):
+            return
+        if batches and _launches_kernel(plan) and self._breaker.state == faults.STATE_OPEN:
+            # fail fast: no host stage runs for a launch the breaker refuses
+            raise faults.DeviceUnavailable(faults.DEVICE_DISPATCH)
         if isinstance(plan, ColumnarPlan):
-            if self._meshrunner is not None and self._dispatch_mesh(launch, plan, batches):
-                return
             # a repeat launch over an unchanged batch window skips the whole
             # host ladder, and on a card the copy up (a sharded launch then
             # consults the cache per shard)
@@ -1170,12 +1426,16 @@ class TorchEngine:
         pins the staged ladder (``n_failures_parse_calibration``)."""
         try:
             t_staged, t_structural = self._measure_parse_ratio(plan, batches)
-        except _PROGRAMMING_ERRORS:
-            raise
         except Exception as exc:
+            if faults.unretried(exc):
+                raise
             self._note_failure("parse_calibration", exc)
             with self._parse_decision_lock:
                 self._parse_decision = "staged"
+            self.governor.record(
+                governor.PARSE_PATH, "staged",
+                f"calibration FAILED ({faults.kind_of(exc)}); keeping the staged ladder",
+                {"error": faults.kind_of(exc)})
             return
         ratio = t_staged / t_structural if t_structural > 0 else 0.0
         decision = "structural" if ratio >= host_pool.PROBE_MARGIN else "staged"
@@ -1189,6 +1449,11 @@ class TorchEngine:
             self._parse_decision = decision
             self._parse_probe = probe
         logger.info("parse-path calibration: %s", probe)
+        self.governor.record(
+            governor.PARSE_PATH, decision,
+            f"measured parse+extract ladders: staged {t_staged * 1e3:.3f} ms vs structural "
+            f"{t_structural * 1e3:.3f} ms (structural must win {host_pool.PROBE_MARGIN}x; "
+            "engine-sticky)", dict(probe))
 
     # ------------------------------------------------------ host-stage pool
     def _measure_pool_ratio(self, launch: _Launch, batches, counts) -> tuple[float, float]:
@@ -1274,13 +1539,19 @@ class TorchEngine:
         PROBE_MARGIN. The caller holds the decision lock. A probe that
         raises keeps the inline path (``n_failures_pool_calibration``); an
         inline decision stops the pool's threads."""
+        recal, self._recal_pending = self._recal_pending, False
+        why = "periodic recalibration" if recal else "first shardable launch calibration"
         try:
             t_inline, t_sharded = self._measure_pool_ratio(launch, batches, counts)
-        except _PROGRAMMING_ERRORS:
-            raise
         except Exception as exc:
+            if faults.unretried(exc):
+                raise
             self._note_failure("pool_calibration", exc)
             self._pool_decision = "inline"
+            self.governor.record(
+                governor.HOST_POOL, "inline",
+                f"{why} FAILED ({faults.kind_of(exc)}); keeping the inline path",
+                {"error": faults.kind_of(exc), "workers": self._host_workers})
         else:
             ratio = t_inline / t_sharded if t_sharded > 0 else 0.0
             self._pool_decision = "sharded" if ratio >= host_pool.PROBE_MARGIN else "inline"
@@ -1292,6 +1563,12 @@ class TorchEngine:
                 "chosen": self._pool_decision,
             }
             logger.info("host pool calibration: %s", self._host_pool_probe)
+            self.governor.record(
+                governor.HOST_POOL, self._pool_decision,
+                f"{why}: the launch's host path (explode to sealed batches) {ratio:.3f}x "
+                f"faster sharded, against margin {host_pool.PROBE_MARGIN} at "
+                f"{self._host_workers} workers",
+                dict(self._host_pool_probe, recalibration=recal))
         if self._pool_decision == "inline":
             self._host_pool.shutdown()
 
@@ -1302,9 +1579,15 @@ class TorchEngine:
         as ``n_failures_shard_worker``; the inline path then runs every
         stage again from the batches, on the card as before). The decision
         is taken, or measured again every ``host_pool_recal_launches``
-        shardable launches, under one lock."""
+        shardable launches, under one lock. While the dispatch breaker is not
+        closed a columnar launch stays inline: its one launch is the
+        half-open probe. A shard refused by the breaker, or an unretried
+        failure, fails the launch instead of degrading it."""
         pool = self._host_pool
         if pool is None or len(batches) < 2:
+            return False
+        if (isinstance(plan, ColumnarPlan) and plan.dev_cols
+                and self._breaker.state != faults.STATE_CLOSED):
             return False
         counts = [b.header.record_count for b in batches]
         if sum(counts) < _SHARD_MIN_ROWS:
@@ -1323,6 +1606,7 @@ class TorchEngine:
                         self._host_pool_probe_prev = dict(self._host_pool_probe)
                     decision = self._pool_decision = None
                     self._launches_since_cal = 0
+                    self._recal_pending = True
             if decision is None:
                 self._calibrate_host_pool(launch, batches, counts)
                 decision = self._pool_decision
@@ -1338,16 +1622,16 @@ class TorchEngine:
         else:  # payload and host plans: only the explode is per-record work
             explode = (batch_codec.explode_ptrs if isinstance(plan, PayloadPlan)
                        else batch_codec.explode_batches)
-            thunks = [(lambda s=s, e=e: explode(batches[s:e])) for s, e in parts]
+            thunks = [(lambda s=s, e=e: _explode_shard(explode, batches[s:e])) for s, e in parts]
         t0 = time.perf_counter()
         try:
             got = pool.run(thunks)
         except Exception as exc:
-            if isinstance(exc, _PROGRAMMING_ERRORS):
-                raise
-            self._note_failure("shard_worker", exc)
             # masks the other shards handed over are nobody's now
             self._abandon_pending_masks(launch)
+            if faults.unretried(exc) or isinstance(exc, faults.DeviceUnavailable):
+                raise
+            self._note_failure("shard_worker", exc)
             return False
         if isinstance(plan, ColumnarPlan):
             self._stat("t_sharded_dispatch", t0)
@@ -1460,6 +1744,7 @@ class TorchEngine:
         card one K1 launch on the engine's stream, handed to the harvest
         thread, so it overlaps the other shards' extraction), and its cache
         entry."""
+        faults.inject(faults.SHARD_WORKER)
         shard = _HostShard()
         key = self._shard_cache_key(launch.script_id, batches)
         entry = dev_cols = store_entry = None
@@ -1477,7 +1762,7 @@ class TorchEngine:
                 store_entry = self._shard_cache_entry(shard, plan, cols, n_pad, structural)
         if shard.n and cols is not None:
             shard.mask = self._predicate_mask(plan, cols, store_entry, dev_cols,
-                                              stage="t_shard_dispatch")
+                                              stage="t_shard_dispatch", trace_id=launch.trace_id)
             with launch._lock:
                 launch.pending_slots.append(shard.mask)
         if store_entry is not None:
@@ -1578,19 +1863,25 @@ class TorchEngine:
             return
         if dev_cols is None and self._dispatch_mesh_blocks(launch, plan, cols):
             return
-        launch.mask = self._predicate_mask(plan, cols, entry, dev_cols)
+        launch.mask = self._predicate_mask(plan, cols, entry, dev_cols, trace_id=launch.trace_id)
 
     def _predicate_mask(self, plan: ColumnarPlan, cols, entry=None, dev_cols=None,
-                        stage: str = "t_dispatch") -> _MaskSlot:
+                        stage: str = "t_dispatch", trace_id: int | None = None) -> _MaskSlot:
         """One predicate launch over host columns (pinned, then copied up) or
-        a hit's device tensors, its mask handed to the harvest thread."""
+        a hit's device tensors, under the dispatch domain's envelope; its mask
+        is handed to the harvest thread."""
         if dev_cols is None:
             inputs = [torch.from_numpy(c) for c in cols]
             if self._stream is not None:
                 inputs = [t.pin_memory() for t in inputs]
         else:
             inputs = dev_cols
-        slot = _MaskSlot(self._run_device(inputs, plan.predicate, "predicate", entry, stage))
+
+        def leg():
+            faults.inject(faults.DEVICE_DISPATCH)
+            return self._run_device(inputs, plan.predicate, "predicate", entry, stage)
+
+        slot = _MaskSlot(self._try_device_leg(faults.DEVICE_DISPATCH, leg), trace_id)
         self._publish_mask(slot)
         return slot
 
@@ -1601,9 +1892,11 @@ class TorchEngine:
         predicate (K2), one launch per card. False sends the launch down the
         other lanes: no predicate, fewer than two batches or no record, a
         "single" decision, a launch too small to probe on (or, after a
-        measured pin, to be worth the mesh), a calibration running, or a
+        measured pin, to be worth the mesh), a calibration running, a
         faulted shard worker (``n_failures_shard_worker``; the mesh counts a
-        demotion)."""
+        demotion), or the mesh_dispatch breaker refusing the mesh leg (a
+        demotion, journaled). An exhausted mesh leg raises into the script's
+        error policy, as a failed single-lane launch does."""
         runner = self._meshrunner
         if not plan.dev_cols:
             return False
@@ -1618,6 +1911,8 @@ class TorchEngine:
             return False
         if decision is None and runner.probe_lock_busy:
             return False  # another launch is calibrating: this one goes single
+        if self.governor.breaker_for(faults.MESH_DISPATCH).state == faults.STATE_OPEN:
+            return self._demote_mesh()
         parts = runner.shard_ranges(counts)
         structural = self._parse_path(plan, batches) == "structural"
         paths = plan.flat_paths()
@@ -1630,7 +1925,7 @@ class TorchEngine:
             results = (pool.run(thunks) if pool is not None and len(thunks) >= 2
                        else [t() for t in thunks])
         except Exception as exc:
-            if isinstance(exc, _PROGRAMMING_ERRORS):
+            if faults.unretried(exc):
                 raise
             self._note_failure("shard_worker", exc)
             runner.note_demotion()
@@ -1648,10 +1943,14 @@ class TorchEngine:
             flat = [_fit_cols([np.concatenate([c[i][: sh.n] for sh, c in zip(shards, shard_cols)
                                                if c is not None])], _bucket_rows(n))[0]
                     for i in range(len(zeros))]
-            if runner.maybe_calibrate(plan, stacked, flat, self.device, n) != "mesh":
+            if runner.maybe_calibrate(plan, stacked, flat, self.device, n,
+                                      governor=self.governor) != "mesh":
                 return False
         launch.r_out = plan.r_out
-        slot = _MaskSlot(self._run_mesh(plan, stacked, n_pad))
+        pending = self._mesh_leg(plan, stacked, n_pad)
+        if pending is None:
+            return self._demote_mesh()
+        slot = _MaskSlot(pending, launch.trace_id)
         self._publish_mask(slot)
         for d, (shard, cols) in enumerate(zip(shards, shard_cols)):
             if shard.n and cols is not None:
@@ -1659,8 +1958,35 @@ class TorchEngine:
         launch.shards = shards
         self._count_launch(launch, *_join_shards(shards))
         runner.note_launch([shard.n for shard in shards])
+        self.governor.record_mode(
+            governor.MESH, "mesh",
+            f"stacked launch over the {runner.n_devices}-shard mesh: the host-pool range "
+            "shard, one predicate launch per card",
+            {"devices": runner.n_devices, "rows": launch.n}, key="path")
         self._stat_add("n_mesh_launches", 1)
         return True
+
+    def _mesh_leg(self, plan: ColumnarPlan, stacks: list[np.ndarray], n_blk: int):
+        """The mesh lane's stacked launch under the mesh_dispatch domain's
+        envelope; None when the breaker refuses it (the launch goes single)."""
+        def leg():
+            faults.inject(faults.MESH_DISPATCH)
+            return self._run_mesh(plan, stacks, n_blk)
+
+        try:
+            return self._try_device_leg(faults.MESH_DISPATCH, leg)
+        except faults.DeviceUnavailable:
+            return None
+
+    def _demote_mesh(self) -> bool:
+        """A mesh-eligible launch sent down the single-card lane by the
+        mesh_dispatch breaker: counted and journaled; False for the caller."""
+        self._meshrunner.note_demotion()
+        self.governor.record_mode(
+            governor.MESH, "single",
+            "mesh_dispatch breaker open: mesh launches demoted to the single-card lane",
+            {"devices": self._meshrunner.n_devices}, key="path")
+        return False
 
     def _run_mesh_shard(self, launch: _Launch, plan: ColumnarPlan, batches, paths,
                         structural: bool, n_pad: int) -> tuple[_HostShard, list | None]:
@@ -1668,6 +1994,7 @@ class TorchEngine:
         column-cache consult, its parse and extraction at the launch's
         common row bucket, its cache entry. The predicate is one stacked
         launch per card after the stacks are assembled."""
+        faults.inject(faults.SHARD_WORKER)
         shard = _HostShard()
         key = self._shard_cache_key(launch.script_id, batches)
         entry = self._colcache.lookup(key) if key is not None else None
@@ -1690,6 +2017,8 @@ class TorchEngine:
         if (runner is None or n == 0 or len(launch.ranges) >= 2
                 or runner.decision != "mesh" or runner.probe_enabled):
             return False
+        if self.governor.breaker_for(faults.MESH_DISPATCH).state == faults.STATE_OPEN:
+            return self._demote_mesh()
         d = runner.n_devices
         blk = -(-_bucket_rows(n) // (8 * d)) * 8
         rec = [(min(k * blk, n), min((k + 1) * blk, n)) for k in range(d)]
@@ -1701,8 +2030,11 @@ class TorchEngine:
                 stack[k, : e - s] = col[s:e]
             stacks.append(stack)
         self._stat("t_mesh_ladder", t0)
+        pending = self._mesh_leg(plan, stacks, blk)
+        if pending is None:
+            return self._demote_mesh()
         launch.mesh_rows = [e - s for s, e in rec]
-        launch.mask = _MaskSlot(self._run_mesh(plan, stacks, blk))
+        launch.mask = _MaskSlot(pending, launch.trace_id)
         self._publish_mask(launch.mask)
         self._stat_add("n_mesh_launches", 1)
         return True
@@ -1770,8 +2102,13 @@ class TorchEngine:
         )
         pack(staged.numpy())
         self._stat("t_pack", t0)
-        launch.pending = self._run_device([staged], lambda t: run_packed(prog, t[0]),
-                                          "payload_transform")
+
+        def leg():
+            faults.inject(faults.DEVICE_DISPATCH)
+            return self._run_device([staged], lambda t: run_packed(prog, t[0]),
+                                    "payload_transform")
+
+        launch.pending = self._try_device_leg(faults.DEVICE_DISPATCH, leg)
 
     def _run_device(self, inputs: list[torch.Tensor], run, kernel: str, entry=None,
                     stage: str = "t_dispatch") -> _Pending:

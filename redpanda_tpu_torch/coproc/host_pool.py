@@ -23,6 +23,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from redpanda_tpu_torch.observability import probes
+
 
 def default_host_workers() -> int:
     """One worker per core, capped at 4 (past that the serial merge
@@ -133,11 +135,12 @@ class HostStagePool:
 
         The first exception (in input order) is raised once every task has
         ended, so no task still touches the launch when the caller handles
-        the failure. One thunk runs on the calling thread."""
+        the failure. One thunk runs on the calling thread. Each task counts
+        in the ``coproc_host_pool_busy_workers`` gauge while it runs."""
         if len(fns) == 1:
-            return [fns[0]()]
+            return [self._tracked(fns[0])]
         ex = self._ensure_executor()
-        futures = [ex.submit(fn) for fn in fns]
+        futures = [ex.submit(self._tracked, fn) for fn in fns]
         results = []
         first_exc: BaseException | None = None
         for f in futures:
@@ -150,6 +153,14 @@ class HostStagePool:
         if first_exc is not None:
             raise first_exc
         return results
+
+    @staticmethod
+    def _tracked(fn):
+        probes.host_pool_task_started()
+        try:
+            return fn()
+        finally:
+            probes.host_pool_task_finished()
 
     def shutdown(self) -> None:
         """Stop the worker threads once their tasks end (joined)."""

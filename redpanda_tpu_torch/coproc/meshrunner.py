@@ -25,8 +25,9 @@ The engine runs each shard's host ladder (coproc/engine.py
 ``_run_mesh_shard``) on its host-stage pool, stacks the shards' columns and
 places them with ``stack_and_put``.
 
-The governor journal of the JAX package is not ported yet; the probe's
-numbers are in ``stats()["probe"]``. The JAX package's
+The probe's numbers are in ``stats()["probe"]`` and, when the engine passes
+its governor, in the decision journal (domain ``mesh``); each launch's
+records per device feed ``coproc_mesh_device_rows_total{device=}``. The JAX package's
 ``available_devices`` (which returned [] on any error) has no counterpart:
 ``partition_mesh(n)`` raises when there are fewer than n cards.
 """
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from redpanda_tpu_torch.coproc import host_pool
+from redpanda_tpu_torch.observability import probes
 from redpanda_tpu_torch.parallel.mesh import PartitionMesh
 
 # don't pin the engine-sticky mesh-vs-single decision on a launch too
@@ -103,21 +105,24 @@ class MeshRunner:
             self._n_launches += 1
             for d, n in enumerate(shard_rows):
                 self._rows_per_device[d] += int(n)
+        for d, n in enumerate(shard_rows):
+            if n:
+                probes.coproc_mesh_device_rows(d).inc(n)
 
     def note_demotion(self) -> None:
-        """A launch that ran its per-shard mesh ladders and then went down the
-        single lane (a faulted shard worker)."""
+        """A mesh-eligible launch that went down the single lane: a faulted
+        shard worker, or the mesh_dispatch breaker refusing the mesh leg."""
         with self._lock:
             self._n_demotions += 1
 
     def maybe_calibrate(self, plan, stacked: list[np.ndarray], flat: list[np.ndarray],
-                        device: torch.device, n_rows: int) -> str:
+                        device: torch.device, n_rows: int, governor=None) -> str:
         """The engine-sticky pin, measured on the first representative
         launch's own columns: ``stacked`` ([D, n_pad, ...] per column) over
         the mesh against ``flat`` (the single lane's columns) on
         ``device``. A launch under PROBE_MIN_ROWS, or one that finds another
         launch calibrating, runs single without pinning. A failing probe
-        raises."""
+        raises. ``governor`` (the engine's) journals the pin."""
         with self._lock:
             if self._decision is not None:
                 return self._decision
@@ -127,23 +132,32 @@ class MeshRunner:
             with self._lock:
                 if self._decision is not None:
                     return self._decision
-            return self._calibrate(plan, stacked, flat, device)
+            return self._calibrate(plan, stacked, flat, device, governor)
         finally:
             self._probe_run_lock.release()
 
-    def _calibrate(self, plan, stacked, flat, device) -> str:
+    def _calibrate(self, plan, stacked, flat, device, governor=None) -> str:
         t_mesh, t_single = self._measure(plan, stacked, flat, device)
         ratio = t_single / t_mesh if t_mesh > 0 else 0.0
         decision = "mesh" if ratio >= host_pool.PROBE_MARGIN else "single"
+        probe = {
+            "t_single_ms": round(t_single * 1e3, 3),
+            "t_mesh_ms": round(t_mesh * 1e3, 3),
+            "speedup": round(ratio, 3),
+            "devices": self.n_devices,
+            "chosen": decision,
+        }
         with self._lock:
             self._decision = decision
-            self._probe = {
-                "t_single_ms": round(t_single * 1e3, 3),
-                "t_mesh_ms": round(t_mesh * 1e3, 3),
-                "speedup": round(ratio, 3),
-                "devices": self.n_devices,
-                "chosen": decision,
-            }
+            self._probe = probe
+        if governor is not None:
+            governor.record(
+                "mesh", decision,
+                f"measured predicate leg: single-device {t_single * 1e3:.3f} ms vs "
+                f"{self.n_devices}-device mesh {t_mesh * 1e3:.3f} ms (mesh must win "
+                f"{host_pool.PROBE_MARGIN}x; engine-sticky)",
+                dict(probe),
+            )
         return decision
 
     def _measure(self, plan, stacked, flat, device) -> tuple[float, float]:

@@ -26,7 +26,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-from redpanda_tpu_torch.build import cached_build
+from redpanda_tpu_torch.build import BuildError, cached_build
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 NVCC_FLAGS = [
@@ -45,7 +45,7 @@ def nvcc() -> str:
             return cand
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        raise BuildError("nvcc not found: the CUDA kernels cannot be built")
     return found
 
 
