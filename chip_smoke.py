@@ -79,6 +79,27 @@ Phases, each of which exits non-zero on failure:
       alone; and the default columnar and payload engines with their legs
       on fetch workers (as shipped) and inline, in turns, with the hop's
       seconds (t_leg_hop) beside each rate.
+   h. the budget plane and admission (TorchEngine(budget_plane=)), at the
+      bench's request (64 partitions x 32 records of ~1 KB, GROUP ticks a
+      group): (a) on the default plane (512 MiB, coproc 128 MiB) a columnar
+      and a payload engine submit groups without harvesting: the first shed
+      comes at the group the group's bytes predict (printed), makes no K1/K4
+      launch and copies nothing up, with the held bytes unchanged; the
+      oldest tickets are harvested one by one and the next group is admitted
+      after exactly as many as the freed bytes predict (printed); once every
+      ticket is harvested nothing is held, and the journal has one shed and
+      one resumed; (b) with a plane that never sheds, the replies of both
+      lanes are byte-identical to a plane-less engine's and the CPU
+      engine's; (c) a persistent dispatch fault and a persistent harvest
+      fault (honey badger) each leave nothing held after they raise into
+      the policy; (d) an engine whose column cache two submits fill is
+      pushed past 0.90 through the plane's storage account: the cache
+      evicts to half its budget, torch.cuda.memory_allocated falls by at
+      least the evicted entries' CUDA bytes (memory_reserved printed), the
+      evicted window misses and launches K1 with its copy up, and the
+      release brings back ok and the whole budget; (e) the default
+      columnar and payload lanes with a never-shedding plane and without,
+      in turns: rates and n_shed_submits (information, no gate).
    Every engine of the other phases must end with no n_failures_* or
    n_retries count and every breaker closed.
    The host-ladder lanes (3a-3c) run inline (host_workers=0); phase 3's default
@@ -152,7 +173,7 @@ Phases, each of which exits non-zero on failure:
 11. Print the kernels line, the card's name and power limit, and last the
     {"ok": true, "device": ...} line.
 
-Phases 3, 5-8 and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
+Phases 3, 3h, 5-8 and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
 every launch count to 0 just before their path and fail if a kernel of that
 path was not launched in it.
 
@@ -1380,6 +1401,310 @@ def wedge_lane(dev, req, want) -> None:
         f"envelope bound {bound * 1e3:.3f} ms (+ a clean tick's {t_clean * 1e3:.3f} ms)")
 
 
+ADMIT_NEVER_SHEDS = 1 << 40  # a plane whose coproc account (256 GiB) never fills
+
+
+def phase_admission(dev, engine_run) -> dict:
+    """Phase 3h: the budget plane and admission on the card (module
+    docstring). Returns the path's K1 and K4 launches."""
+    from redpanda_tpu_torch import kernels
+
+    kernels.reset_launches()  # the admission path starts here
+    for sname, spec, kernel in (("columnar", columnar_spec(), kernels.PREDICATE),
+                                ("payload", payload_spec(), kernels.PAYLOAD_TRANSFORM)):
+        admission_flood(dev, sname, spec, kernel, engine_run)
+    admission_parity(dev, engine_run)
+    admission_faults(dev, engine_run)
+    admission_pressure(dev, engine_run)
+    admission_cost(dev, engine_run)
+    return path_launches("admission", kernels.PREDICATE, kernels.PAYLOAD_TRANSFORM)
+
+
+def admission_journal(eng) -> list:
+    """The engine's ADMISSION journal entries, oldest first."""
+    from redpanda_tpu_torch.coproc import governor
+
+    return [e for e in reversed(governor.journal.entries(domain=governor.ADMISSION))
+            if e.get("engine") == eng.governor.engine_tag]
+
+
+def admission_flood(dev, sname, spec, kernel, engine_run) -> None:
+    """3h (a): groups submitted without harvesting on the reference's
+    default plane shed exactly where the group's bytes say, with nothing
+    run; the harvests that free enough bytes admit the next group."""
+    import math
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+    from redpanda_tpu_torch.resource_mgmt import BudgetPlane, ShedError
+
+    req = engine_run["work"]["bench"]
+    want = engine_run["want"][sname, "bench"]
+    plane = BudgetPlane()  # 512 MiB, coproc 128 MiB
+    acct = plane.account("coproc")
+    r = sum(len(b.payload) for it in req.items for b in it.batches)
+    group = GROUP * r
+    k_pred = acct.limit // group  # the first group the account cannot hold
+    m_pred = math.ceil((group - (acct.limit - k_pred * group)) / r)  # harvests to admit it
+    log(f"admission flood {sname}: a request reserves {r} B, a group of {GROUP} {group} B, the "
+        f"coproc account {acct.limit} B: predicted first shed at group {k_pred} (0-based), "
+        f"admitted again after {m_pred} harvested tickets")
+    eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, budget_plane=plane)
+    try:
+        if eng.enable_coprocessors([(1, spec.to_json(), ("bench",))]) != [0]:
+            fail(f"admission flood: enable {sname}")
+        outstanding = []
+        g = 0
+        while True:
+            before = (kernels.PREDICATE.launches, kernels.PAYLOAD_TRANSFORM.launches)
+            st0, held0 = eng.stats(), acct.held
+            try:
+                outstanding.extend(eng.submit_group([req] * GROUP))
+            except ShedError as exc:
+                shed_exc = exc
+                break
+            g += 1
+            if g > k_pred:
+                fail(f"admission flood {sname}: group {g - 1} admitted past the prediction")
+        st1 = eng.stats()
+        launched = (kernels.PREDICATE.launches, kernels.PAYLOAD_TRANSFORM.launches)
+        if g != k_pred:
+            fail(f"admission flood {sname}: the first shed came at group {g}, predicted {k_pred}")
+        if (launched != before or st1.get("bytes_h2d") != st0.get("bytes_h2d")
+                or acct.held != held0 or acct.held != k_pred * group
+                or st1.get(f"n_kernel_{kernel.name}") != st0.get(f"n_kernel_{kernel.name}")):
+            fail(f"admission flood {sname}: the shed submit ran something: launches {before} -> "
+                 f"{launched}, bytes_h2d {st0.get('bytes_h2d')} -> {st1.get('bytes_h2d')}, held "
+                 f"{held0} -> {acct.held}")
+        log(f"admission flood {sname}: shed at group {g} as predicted ({shed_exc}); the shed "
+            f"submit made 0 K1/K4 launches and 0 B H2D, held {acct.held} B unchanged")
+        # harvest the oldest tickets one by one, retrying the next group after each
+        harvested = 0
+        while True:
+            reply = outstanding.pop(0).result()
+            if reply_bytes(reply) != want[harvested % GROUP]:
+                fail(f"admission flood {sname}: harvested reply {harvested} differs")
+            harvested += 1
+            try:
+                outstanding.extend(eng.submit_group([req] * GROUP))
+                break
+            except ShedError:
+                if harvested >= m_pred:
+                    fail(f"admission flood {sname}: still shedding after {harvested} harvests")
+        if harvested != m_pred:
+            fail(f"admission flood {sname}: admitted after {harvested} harvests, predicted "
+                 f"{m_pred}")
+        for t in outstanding:
+            if reply_bytes(t.result()) != want[0]:
+                fail(f"admission flood {sname}: a reply after the flood differs")
+        st = eng.stats()
+        verdicts = [e["verdict"] for e in admission_journal(eng)]
+        if acct.held != 0 or verdicts.count("shed") != 1 or verdicts.count("resumed") != 1:
+            fail(f"admission flood {sname}: held {acct.held}, journal {verdicts}")
+        check_envelope(f"admission flood {sname}", st)
+        log(f"admission flood {sname}: the next group admitted after {harvested} harvested "
+            f"tickets as predicted; held 0 after every ticket harvested; {st['n_shed_submits']:.0f} "
+            f"shed submits, journal {verdicts}; admission {json.dumps(st['admission'])}")
+    finally:
+        eng.shutdown()
+
+
+def admission_parity(dev, engine_run) -> None:
+    """3h (b): an engine whose plane never sheds replies byte for byte as a
+    plane-less engine and the CPU engine, on the columnar and payload lanes."""
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+    from redpanda_tpu_torch.resource_mgmt import BudgetPlane
+
+    work, want = engine_run["work"], engine_run["want"]
+    for sname, spec in (("columnar", columnar_spec()), ("payload", payload_spec())):
+        got = {}
+        for label, plane in (("plane", BudgetPlane(ADMIT_NEVER_SHEDS)), ("plane-less", None)):
+            eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, budget_plane=plane)
+            eng.enable_coprocessors([(1, spec.to_json(), ("bench",))])
+            for wname, req in work.items():
+                replies, _ = run_stream(eng, req, 2 * GROUP)
+                got[label, wname] = [reply_bytes(x) for x in replies]
+                if any(x != want[sname, wname][k % GROUP]
+                       for k, x in enumerate(got[label, wname])):
+                    fail(f"admission parity {sname} {label} {wname}: a reply differs from the "
+                         "CPU engine's")
+            st = eng.stats()
+            eng.shutdown()
+            check_envelope(f"admission parity {sname} {label}", st)
+            if plane is not None and (plane.account("coproc").held != 0
+                                      or st.get("n_shed_submits")):
+                fail(f"admission parity {sname}: {st.get('admission')}")
+        if any(got["plane", w] != got["plane-less", w] for w in work):
+            fail(f"admission parity {sname}: the planed engine's replies differ")
+    log("admission parity: with a plane that never sheds, every reply of the columnar and "
+        "payload lanes byte-identical to a plane-less engine's and to TorchEngine(cpu)'s")
+
+
+def admission_faults(dev, engine_run) -> None:
+    """3h (c): a persistent dispatch fault and a persistent harvest fault,
+    armed through the honey badger, each leave the account empty after
+    they raise into the script's error policy."""
+    from redpanda_tpu_torch.coproc import faults
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+    from redpanda_tpu_torch.finjector import honey_badger
+    from redpanda_tpu_torch.resource_mgmt import BudgetPlane
+
+    req = engine_run["work"]["short_msgs"]
+    out = []
+    honey_badger.enable()
+    try:
+        for domain in (faults.DEVICE_DISPATCH, faults.HARVEST):
+            plane = BudgetPlane()
+            acct = plane.account("coproc")
+            eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, budget_plane=plane,
+                              retry_backoff_ms=1)
+            eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))])
+            run_stream(eng, req, 2)  # warm-up: the probes decide before the fault
+            honey_badger.set_exception(faults.MODULE, domain)
+            try:
+                tickets = eng.submit_group([req] * 2)
+                held = acct.held
+                replies = [t.result() for t in tickets]
+            finally:
+                honey_badger.unset(faults.MODULE, domain)
+            st = eng.stats()
+            eng.shutdown()
+            failures = {k: v for k, v in st.items() if k.startswith("n_failures")}
+            if (acct.held != 0 or held == 0 or not failures
+                    or any(it.batches for x in replies for it in x.items)):
+                fail(f"admission faults {domain}: held {acct.held} (in flight {held}), failures "
+                     f"{failures}")
+            out.append(f"{domain}: {held} B held in flight, 0 after the raise, {json.dumps(failures)}")
+    finally:
+        for module, armed in list(honey_badger.armed().items()):
+            for probe in armed:
+                honey_badger.unset(module, probe)
+        honey_badger.disable()
+    log("admission faults (persistent, into skip_on_failure): " + "; ".join(out))
+
+
+def admission_pressure(dev, engine_run) -> None:
+    """3h (d): occupancy pushed over 0.90 through the plane's own storage
+    account evicts the column cache to half its budget and frees the
+    evicted entries' CUDA tensors; the evicted window then misses and
+    launches K1 with its copy up; back at ok the whole budget returns."""
+    import torch
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.coproc import colcache
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+    from redpanda_tpu_torch.resource_mgmt import BudgetPlane
+
+    work, want = engine_run["work"], engine_run["want"]
+    # each submit's cache key: the launch's batches, request by request
+    keys = {w: (1, colcache.fingerprint([b for _ in range(GROUP) for it in req.items
+                                         for b in it.batches])) for w, req in work.items()}
+
+    def fill(eng):
+        for wname, req in work.items():  # two submits, one cold launch each
+            for k, t in enumerate(eng.submit_group([req] * GROUP)):
+                if reply_bytes(t.result()) != want["columnar", wname][k]:
+                    fail(f"admission pressure {wname}: a reply differs from the CPU engine's")
+
+    # the two entries' bytes, on an engine whose cache holds both at ease
+    probe = TorchEngine(device=dev, row_stride=ROW_STRIDE, host_workers=0,
+                        device_column_cache_mb=256)
+    probe.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))])
+    fill(probe)
+    two = probe.stats()["colcache"]["bytes"]
+    probe.shutdown()
+    del probe
+    budget_mb = -(-two // (1 << 20))  # holds both; the halved budget holds one
+    plane = BudgetPlane()
+    eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, host_workers=0,
+                      device_column_cache_mb=budget_mb, budget_plane=plane)
+    try:
+        eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))])
+        fill(eng)
+        cc = eng.stats()["colcache"]
+        if cc["entries"] != 2 or cc["bytes"] <= cc["budget_bytes"] // 2:
+            fail(f"admission pressure: the cache did not fill over two submits {cc}")
+        torch.cuda.synchronize(dev)
+        dev_bytes = {k: sum(t.nbytes for t in e.cols_dev) for k, e in
+                     eng._colcache._entries.items() if e.cols_dev is not None}
+        if set(dev_bytes) != set(keys.values()):
+            fail("admission pressure: a cached entry holds no CUDA tensors")
+        alloc0, reserved0 = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+        storage = plane.account("storage")
+        pushed = storage.try_acquire(int(storage.limit * 0.95))
+        alloc1, reserved1 = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+        st = eng.stats()
+        cc = st["colcache"]
+        evicted = set(dev_bytes) - set(eng._colcache._entries)
+        freed = sum(dev_bytes[k] for k in evicted)
+        if (plane.pressure() != "critical" or not evicted or cc["bytes"] > cc["budget_bytes"] // 2
+                or st.get("n_pressure_evictions") != len(evicted)
+                or st.get("n_pressure_trims") != 1):
+            fail(f"admission pressure: critical did not evict to half the budget {cc} "
+                 f"{lane_stats(st)}")
+        if alloc0 - alloc1 < freed:
+            fail(f"admission pressure: memory_allocated fell {alloc0 - alloc1} B, the evicted "
+                 f"entries held {freed} B on the card")
+        log(f"admission pressure: storage at {pushed / storage.limit:.4f} -> critical; the cache "
+            f"({budget_mb} MiB) evicted {len(evicted)} of 2 entries to {cc['bytes']} B (half "
+            f"budget {cc['budget_bytes'] // 2} B); memory_allocated {alloc0} -> {alloc1} B (fell "
+            f"{alloc0 - alloc1} B, the evicted entries' CUDA tensors {freed} B); "
+            f"memory_reserved {reserved0} -> {reserved1} B; arena {json.dumps(st['arena'])}")
+        # the evicted window misses: the ladder, its copy up and K1 run again
+        wname = next(w for w, key in keys.items() if key in evicted)
+        before, k1 = eng.stats(), kernels.PREDICATE.launches
+        for k, t in enumerate(eng.submit_group([work[wname]] * GROUP)):
+            if reply_bytes(t.result()) != want["columnar", wname][k]:
+                fail("admission pressure: the reply after the eviction differs")
+        after = eng.stats()
+        if (after["n_colcache_miss"] != before["n_colcache_miss"] + 1
+                or kernels.PREDICATE.launches != k1 + 1
+                or after.get("bytes_h2d", 0) <= before.get("bytes_h2d", 0)):
+            fail(f"admission pressure: the evicted window did not miss and launch K1 "
+                 f"{lane_stats(after)}")
+        storage.release(pushed)
+        cc = eng.stats()["colcache"]
+        verdicts = [e["verdict"] for e in admission_journal(eng)]
+        if (plane.pressure() != "ok" or cc["pressure"]
+                or cc["effective_budget_bytes"] != cc["budget_bytes"]
+                or verdicts != ["critical", "ok"]):
+            fail(f"admission pressure: release did not restore ok and the budget {cc} {verdicts}")
+        check_envelope("admission pressure", eng.stats())
+        log(f"admission pressure: the evicted window ({wname}) missed, launched K1 once and "
+            f"copied {after.get('bytes_h2d', 0) - before.get('bytes_h2d', 0):.0f} B up; release "
+            f"-> ok, effective budget {cc['effective_budget_bytes']} B; journal {verdicts}")
+    finally:
+        eng.shutdown()
+
+
+def admission_cost(dev, engine_run, rounds: int = 2) -> None:
+    """3h (e): what admission costs on the default lanes: each spec with a
+    plane that never sheds and without one, in turns (plane, none, none,
+    plane), TICKS ticks of the bench workload each. Information, no gate."""
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+    from redpanda_tpu_torch.resource_mgmt import BudgetPlane
+
+    work, want = engine_run["work"], engine_run["want"]
+    for sname, spec in (("columnar", columnar_spec), ("payload", payload_spec)):
+        for r in range(rounds):
+            for label in (("plane", "none") if r % 2 == 0 else ("none", "plane")):
+                plane = BudgetPlane(ADMIT_NEVER_SHEDS) if label == "plane" else None
+                eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, budget_plane=plane)
+                eng.enable_coprocessors([(1, spec().to_json(), ("bench",))])
+                run_stream(eng, work["bench"], GROUP + 1)  # warm-up (and the pool probe)
+                eng.reset_stats()
+                replies, rate = run_stream(eng, work["bench"], TICKS)
+                st = eng.stats()
+                eng.shutdown()
+                if any(reply_bytes(x) != want[sname, "bench"][k % GROUP]
+                       for k, x in enumerate(replies)):
+                    fail(f"admission cost {sname} {label}: a reply differs from the CPU engine's")
+                check_envelope(f"admission cost {sname} {label}", st)
+                log(f"admission cost {sname}, {label} #{r + 1}, {TICKS} ticks: {rate:.1f} "
+                    f"record_batches/s; n_shed_submits {st.get('n_shed_submits', 0):.0f}; "
+                    f"admitted (warm-up included) {st.get('admission', {}).get('admitted', '-')}")
+
+
 def phase_card_failures(dev, work) -> None:
     """Phase 3f: on the card nothing takes the place of a mask. A K1 launch
     that fails in every shard of a pool launch degrades it to the inline
@@ -2572,6 +2897,8 @@ def main() -> int:
     lane_launches = phase_host_ladder(dev, engine_run)
     launches["predicate"] += sum(lane_launches.values()) + phase_pool(dev, engine_run)
     phase_fault_envelope(dev, engine_run)
+    for name, n in phase_admission(dev, engine_run).items():
+        launches[name] += n
     launches["payload_transform"] += phase_policy(dev)
     launches.update(phase_payload_entry(dev))
     measured.update(phase_crc_kernels(dev))

@@ -82,6 +82,17 @@ re-raises out of ``submit_group``. On the CPU the plain versions run
 synchronously on the calling thread: the legs are retried and judged there
 too, with no deadline (nothing is in flight to abandon).
 
+With a budget plane (``budget_plane=``, resource_mgmt/budgets.py) every
+submit is admitted first, as in the JAX engine: each request's payload bytes
+are reserved from the plane's ``coproc`` account, all or nothing per group,
+before any host ladder, copy up or launch, whichever lane the launch then
+takes. A submit the account cannot hold raises a retriable ``ShedError``
+having run nothing (shed-before-ack); the bytes come back when the ticket
+harvests, or at once when the submit raises. The engine listens to the
+plane's pressure: on critical it trims its framing arena and halves the
+column cache's budget (the evicted entries' device tensors are freed with
+them); back at ok the cache gets its whole budget again.
+
 Error policies mirror the public SDK: SkipOnFailure drops the failing batch
 but keeps the script; Deregister removes the script on first failure.
 """
@@ -93,6 +104,7 @@ import logging
 import queue
 import threading
 import time
+import weakref
 from collections import defaultdict
 from dataclasses import dataclass, field
 
@@ -112,6 +124,8 @@ from redpanda_tpu_torch.observability.trace import tracer
 from redpanda_tpu_torch.ops.pipeline import IN_META, run_packed, unpack_result
 from redpanda_tpu_torch.ops.transforms import TransformSpec, compile_transform
 from redpanda_tpu_torch.parallel.mesh import PartitionMesh, card_groups, partition_mesh
+from redpanda_tpu_torch.resource_mgmt import admission as rm_admission
+from redpanda_tpu_torch.resource_mgmt import budgets as rm_budgets
 
 logger = logging.getLogger("rptorch.coproc.engine")
 
@@ -557,10 +571,17 @@ class Ticket:
         self.trace_id: int | None = None  # the request's, carried across threads
         # (disposition, item, launch, [batch range indices])
         self._slots: list[tuple] = []
+        # bytes reserved from the coproc memory account at submit (0 when
+        # admission is off); released exactly once when result() returns
+        # OR raises -- leaking them would starve every later submit
+        self._admitted: int = 0
 
     def result(self) -> ProcessBatchReply:
-        with tracer.span("coproc.harvest", trace_id=self.trace_id):
-            return self._result()
+        try:
+            with tracer.span("coproc.harvest", trace_id=self.trace_id):
+                return self._result()
+        finally:
+            self._engine._release_admission(self)
 
     def _result(self) -> ProcessBatchReply:
         eng = self._engine
@@ -689,7 +710,13 @@ class TorchEngine:
     * ``governor_journal_capacity`` (None: the process journal's 256): the
       decision journal's ring, process-wide.
 
-    ``shutdown()`` stops the mask-harvest thread and the pool's threads.
+    ``budget_plane`` (None: every submit admitted, the JAX engine's default)
+    is a ``resource_mgmt.BudgetPlane``: submits reserve their payload bytes
+    from its ``coproc`` account or shed (``ShedError``), and its pressure
+    transitions trim the arena and the column cache (module docstring).
+
+    ``shutdown()`` stops the mask-harvest thread and the pool's threads, and
+    removes the engine's pressure listener from the plane.
     """
 
     def __init__(
@@ -717,6 +744,7 @@ class TorchEngine:
         adaptive_deadline: bool | None = None,
         adaptive_deadline_margin: float | None = None,
         governor_journal_capacity: int | None = None,
+        budget_plane: rm_budgets.BudgetPlane | None = None,
     ):
         self.device = resolve_device(device)
         self._stream = None
@@ -822,6 +850,30 @@ class TorchEngine:
         # the mask-harvest thread, started with the first mask it serves
         self._harvest_q: queue.Queue = queue.Queue()
         self._harvester: threading.Thread | None = None
+        # The budget plane: a submit's payload bytes are reserved from the
+        # 'coproc' account BEFORE any host ladder, copy up or launch; a full
+        # account sheds the whole submit with a retriable ShedError. The
+        # bytes return when the ticket harvests (Ticket.result's finally).
+        # A plane-less engine admits everything. The pressure listener is
+        # weakref-bound: the process-wide plane must not pin dead engines.
+        self._budget_plane = budget_plane
+        self._admission: rm_admission.AdmissionController | None = None
+        self._pressure_listener = None
+        if budget_plane is not None:
+            acct = budget_plane.accounts.get("coproc")
+            if acct is not None:
+                self._admission = rm_admission.AdmissionController(
+                    acct, "coproc", warn_pct=budget_plane.warn_pct)
+            _ref = weakref.ref(self)
+
+            def _pressure_listener(level, snap, _ref=_ref):
+                eng = _ref()
+                if eng is not None:
+                    eng._on_memory_pressure(level, snap)
+
+            self._pressure_listener = _pressure_listener
+            budget_plane.add_pressure_listener(_pressure_listener)
+        self.governor.update_config_snapshot(admission=self._admission is not None)
 
     # ------------------------------------------------------------ control
     def enable_coprocessors(self, scripts) -> list[EnableResponseCode]:
@@ -901,6 +953,12 @@ class TorchEngine:
             for stream in self._meshrunner.mesh.streams:
                 if stream is not None:
                     stream.synchronize()
+        with self._stats_lock:  # concurrent shutdowns: swap-then-remove once
+            listener, self._pressure_listener = self._pressure_listener, None
+        if self._budget_plane is not None and listener is not None:
+            # the plane is process-wide and outlives this engine: a dead
+            # closure left behind would be walked on every later transition
+            self._budget_plane.remove_pressure_listener(listener)
 
     # ------------------------------------------------------------ colcache
     def invalidate_columns(self, script_id: int | None = None) -> int:
@@ -921,6 +979,47 @@ class TorchEngine:
         """Swap in a fresh framing arena (deterministic reuse accounting;
         returns the held buffers to the allocator)."""
         self._arena = batch_codec.Arena()
+
+    # ------------------------------------------------------------ budget plane
+    def _release_admission(self, ticket: Ticket) -> None:
+        """Return a ticket's reserved coproc-account bytes. Idempotent AND
+        atomic: the zero-swap runs under the stats lock, so two threads
+        releasing one ticket cannot free its bytes twice and overcommit the
+        account."""
+        with self._stats_lock:
+            n, ticket._admitted = ticket._admitted, 0
+        if n and self._admission is not None:
+            self._admission.release(n)
+
+    def _on_memory_pressure(self, level: str, snap: dict) -> None:
+        """Budget-plane pressure transition (fired by the plane on a level
+        CHANGE, from whatever thread moved the occupancy). CRITICAL frees
+        reclaimable memory: the arena's free list is trimmed and the column
+        cache evicts down to half its budget (an evicted entry takes its
+        device tensors with it: nothing else holds them); OK restores the
+        whole cache budget. WARN only journals. Each transition is one
+        ADMISSION journal entry."""
+        trims = evicted = 0
+        if level == rm_budgets.PRESSURE_CRITICAL:
+            trims = self._arena.trim()
+            if self._colcache is not None:
+                evicted = self._colcache.set_pressure(True)
+            self._stat_add("n_pressure_trims", 1.0)
+            if evicted:
+                self._stat_add("n_pressure_evictions", float(evicted))
+        elif level == rm_budgets.PRESSURE_OK and self._colcache is not None:
+            self._colcache.set_pressure(False)
+        self.governor.record(
+            governor.ADMISSION, level,
+            f"memory pressure {level}: arena buffers freed {trims}, "
+            f"colcache entries evicted {evicted}",
+            {
+                "arena_freed": trims,
+                "colcache_evicted": evicted,
+                "max_occupancy": snap.get("max_occupancy"),
+                "account": snap.get("max_occupancy_account"),
+            },
+        )
 
     # ------------------------------------------------------------ metrics
     def stats(self) -> dict:
@@ -946,7 +1045,11 @@ class TorchEngine:
         ``n_retries`` (attempts retried), ``breaker`` (the worst state
         across the fault domains' breakers, the largest consecutive-failure
         count, the trips summed), ``breakers`` (each domain's breaker) and
-        ``governor`` (its posture and the decision journal's summary)."""
+        ``governor`` (its posture and the decision journal's summary). With a
+        budget plane: ``n_shed_submits`` (submits shed), ``n_pressure_trims``
+        and ``n_pressure_evictions`` (critical transitions and the cache
+        entries they evicted) and the ``admission`` block (the controller's
+        admits, sheds, throttle and account)."""
         with self._stats_lock:
             out = dict(self._stats)
         out["device"] = str(self.device)
@@ -970,6 +1073,8 @@ class TorchEngine:
                 out["parse_probe"] = dict(self._parse_probe)
         if self._colcache is not None:
             out["colcache"] = self._colcache.stats()
+        if self._admission is not None:
+            out["admission"] = self._admission.snapshot()
         if self._meshrunner is not None:
             out["mesh"] = self._meshrunner.stats()
         return out
@@ -1261,8 +1366,49 @@ class TorchEngine:
     def submit_group(self, reqs: list[ProcessBatchRequest]) -> list[Ticket]:
         """Fuse many requests into ONE launch per script: all records of all
         requests targeting a script go up in one staging copy, run in one
-        kernel launch and come back in one copy."""
+        kernel launch and come back in one copy.
+
+        With a budget plane, every request's payload bytes reserve from the
+        'coproc' account first, all or nothing per group: a shed submit
+        raises ``ShedError`` having run nothing (no host ladder, no copy up,
+        no launch). Reserved bytes release when each ticket harvests, or
+        here when the submit raises."""
+        admitted: list[int] = []
+        if self._admission is not None:
+            ctrl = self._admission
+            for req in reqs:
+                nbytes = sum(len(b.payload) for item in req.items for b in item.batches)
+                reserved, retry_ms = ctrl.try_admit(nbytes)
+                if nbytes > 0 and reserved == 0:
+                    for r in admitted:
+                        ctrl.release(r)
+                    acct = ctrl.account
+                    self.governor.note_shed(
+                        "coproc", retry_ms,
+                        {"requested_bytes": nbytes, "held_bytes": acct.held,
+                         "limit_bytes": acct.limit},
+                    )
+                    self._stat_add("n_shed_submits", 1.0)
+                    raise rm_admission.ShedError("coproc", retry_ms, f"{nbytes} staged bytes")
+                admitted.append(reserved)
+            if any(admitted):
+                # a zero-byte submit is not evidence the account recovered
+                self.governor.note_admitted("coproc")
+        try:
+            return self._submit_group_admitted(reqs, admitted)
+        except BaseException:
+            # nothing was handed back: the caller cannot harvest, so the
+            # reservations must not outlive the failed submit
+            if self._admission is not None:
+                for r in admitted:
+                    self._admission.release(r)
+            raise
+
+    def _submit_group_admitted(self, reqs: list[ProcessBatchRequest],
+                               admitted: list[int]) -> list[Ticket]:
         tickets = [Ticket(self) for _ in reqs]
+        for t, r in zip(tickets, admitted):
+            t._admitted = r
         by_script: dict[int, list[tuple]] = {}
         for ticket, req in zip(tickets, reqs):
             ticket.trace_id = req.trace_id

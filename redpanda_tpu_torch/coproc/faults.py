@@ -236,16 +236,22 @@ class _FetchWorker(threading.Thread):
             except BaseException as e:  # noqa: BLE001 -- delivered to the caller
                 res, exc = None, e
             with _pool_lock:
-                if job.state == "abandoned":
+                # the leg's closure may hold CUDA tensors (a cache entry's
+                # columns): an idle worker must not keep them alive
+                job.fn = None
+                abandoned = job.state == "abandoned"
+                if abandoned:
                     # late completion: discard the stale result (it may pin
                     # a device buffer) and reclaim this thread
                     job.result = job.exc = None
-                    job.fn = None
                     _free_workers.append(self)
-                    continue
-                job.state = "done"
-                job.result, job.exc = res, exc
-            job.event.set()
+                else:
+                    job.state = "done"
+                    job.result, job.exc = res, exc
+            if not abandoned:
+                job.event.set()
+            # nor may this frame's locals, while it waits for the next job
+            job = res = exc = None
 
 
 def fetch_pool_stats() -> dict:

@@ -1,6 +1,6 @@
 """The coproc governor: one decision plane for every adaptive choice (the
-JAX package's coproc/governor.py, ported without its launch-knob autotune
-and admission episodes, which come with the budget plane).
+JAX package's coproc/governor.py, ported with its admission shed episodes
+and without its launch-knob autotune, whose callers are not ported yet).
 
 The engine carries a family of measured probes -- the host-pool
 calibration (and its periodic recalibration), the parse-path probe, the
@@ -49,9 +49,10 @@ logger = logging.getLogger("rptorch.coproc.governor")
 # ------------------------------------------------------------ decision domains
 # The JAX package's domains, all of them, so that the two journals read
 # alike. The port journals host_pool, breaker, harvest_path, sharded_seal,
-# deadline, parse_path and mesh; the others belong to modules still to be
-# ported (the columnar backend probe, LZ4, the column cache's pressure,
-# lockwatch, leakwatch, admission, trends, bench diagnoses).
+# deadline, parse_path, mesh and admission (shed episodes and memory
+# pressure transitions); the others belong to modules still to be ported
+# (the columnar backend probe, LZ4, lockwatch, leakwatch, trends, bench
+# diagnoses).
 HOST_POOL = "host_pool"
 COLUMNAR_BACKEND = "columnar_backend"
 DEVICE_LZ4 = "device_lz4"
@@ -316,6 +317,8 @@ class Governor:
         # per-domain adaptive deadline state:
         # domain -> {"count": samples at last recompute, "deadline_s": ...}
         self._deadline_state: dict[str, dict] = {}
+        # open shed episodes (note_shed / note_admitted bracket them)
+        self._shed_open: set = set()
         self._policies: dict[str, faults.FaultPolicy] = {}
         # monotonic per-domain max of deadlines actually ISSUED (floor
         # when never raised): the basis of envelope_bound_s
@@ -651,6 +654,43 @@ class Governor:
         return max(
             self.envelope_bound_s(d) for d in BREAKER_DOMAINS
         )
+
+    # ------------------------------------------------------------ admission
+    def note_shed(
+        self, subsystem: str, retry_after_ms: int, inputs: dict | None = None
+    ) -> None:
+        """Open a shed EPISODE in the journal: the first shed journals,
+        repeats inside the same episode only count (the bounded ring must
+        keep the episode boundary, not 10^6 identical entries)."""
+        open_ = self._shed_open
+        with self._lock:
+            first = subsystem not in open_
+            open_.add(subsystem)
+        if first:
+            self._emit(
+                ADMISSION,
+                "shed",
+                f"{subsystem}: admission shedding (retry after "
+                f"{retry_after_ms} ms)",
+                {"subsystem": subsystem, "retry_after_ms": retry_after_ms,
+                 **(inputs or {})},
+            )
+
+    def note_admitted(self, subsystem: str) -> None:
+        """Close the shed episode (first successful admit after sheds)."""
+        open_ = self._shed_open
+        if not open_:
+            return
+        with self._lock:
+            was_open = subsystem in open_
+            open_.discard(subsystem)
+        if was_open:
+            self._emit(
+                ADMISSION,
+                "resumed",
+                f"{subsystem}: admission resumed",
+                {"subsystem": subsystem},
+            )
 
     # ------------------------------------------------------------ views
     def posture(self) -> dict:

@@ -874,3 +874,50 @@ def test_policy_device_leg_matches_cpu_and_raises_on_a_failing_launch(card, monk
     monkeypatch.setattr(kernels.PAYLOAD_TRANSFORM, "launch", failing)
     with pytest.raises(RuntimeError, match="launch failed"):
         PolicyEngine(device=card, force_engine="device").transform_batches(spec, batches)
+
+
+# ------------------------------------------------------------------ budget plane
+@pytest.mark.cuda
+def test_pressure_eviction_frees_the_cached_cuda_columns(card, monkeypatch):
+    """Critical pressure, pushed through another account of the plane,
+    evicts column-cache entries; their CUDA tensors are freed by the
+    eviction itself (memory_allocated falls by at least their bytes), with
+    the shards' legs on fetch workers and masks on the harvest thread."""
+    import weakref
+
+    from redpanda_tpu_torch.coproc import engine as engine_mod
+    from redpanda_tpu_torch.resource_mgmt import BudgetPlane
+
+    monkeypatch.setattr(engine_mod, "_SHARD_MIN_ROWS", 32)
+    rng = np.random.default_rng(10)
+    plane = BudgetPlane(64 << 20)
+    eng = TorchEngine(device=card, row_stride=128, device_column_cache_mb=1, host_workers=2,
+                      host_pool_probe=False, budget_plane=plane)
+    try:
+        assert eng.enable_coprocessors([(1, T.where(EXPRS[1]).to_json(), ("t",))]) == [0]
+        cc = eng.stats()["colcache"]
+        for w in range(16):  # distinct windows until the entries pass half the budget
+            items = [ProcessBatchItem(1, NTP.kafka("t", p), [RecordBatch.build(
+                [Record(offset_delta=i, value=v) for i, v in enumerate(_docs(rng, 1024))],
+                base_offset=w)]) for p in range(4)]
+            eng.process_batch(ProcessBatchRequest(items))
+            cc = eng.stats()["colcache"]
+            if cc["bytes"] > cc["budget_bytes"] // 2:
+                break
+        assert cc["bytes"] > cc["budget_bytes"] // 2
+        torch.cuda.synchronize(card)
+        held = {k: (sum(t.nbytes for t in e.cols_dev), [weakref.ref(t) for t in e.cols_dev])
+                for k, e in eng._colcache._entries.items()}
+        assert held and all(n > 0 for n, _ in held.values())
+        before = torch.cuda.memory_allocated(card)
+        storage = plane.account("storage")
+        got = storage.try_acquire(int(storage.limit * 0.95))
+        after = torch.cuda.memory_allocated(card)
+        evicted = set(held) - set(eng._colcache._entries)
+        assert evicted and eng.stats()["n_pressure_evictions"] == len(evicted)
+        assert all(r() is None for k in evicted for r in held[k][1])
+        assert before - after >= sum(held[k][0] for k in evicted)
+        storage.release(got)
+        assert plane.pressure() == "ok" and not eng.stats()["colcache"]["pressure"]
+    finally:
+        eng.shutdown()
