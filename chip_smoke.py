@@ -78,7 +78,8 @@ Phases, each of which exits non-zero on failure:
       whose device legs run on fetch workers, leave the engine's stats
       alone; and the default columnar and payload engines with their legs
       on fetch workers (as shipped) and inline, in turns, with the hop's
-      seconds (t_leg_hop) beside each rate.
+      seconds (t_leg_hop) beside each rate, and the copy-up interval
+      (t_dev_h2d) beside the host's enqueue of the copies (t_h2d_enqueue).
    h. the budget plane and admission (TorchEngine(budget_plane=)), at the
       bench's request (64 partitions x 32 records of ~1 KB, GROUP ticks a
       group): (a) on the default plane (512 MiB, coproc 128 MiB) a columnar
@@ -100,6 +101,22 @@ Phases, each of which exits non-zero on failure:
       release brings back ok and the whole budget; (e) the default
       columnar and payload lanes with a never-shedding plane and without,
       in turns: rates and n_shed_submits (information, no gate).
+   i. the columnar backend probe (TorchEngine.reset_columnar_probe() before
+      each probe and last): an unpinned engine's first launch times the
+      host predicate against K1's launch and fetch and publishes a
+      process-wide verdict, printed with t_host_s, t_device_s and the
+      probe's K1 launches (two), with exactly one COLUMNAR_BACKEND journal
+      record an engine: first one bench request (2048 rows), then a fresh
+      engine's full group as the lane sends it (GROUP x 2048 rows); after a
+      warm-up the second engine's lane follows its verdict, its replies
+      byte-identical to the CPU engine's; then force_mode="columnar_host"
+      and "columnar_device" lanes, both inline (host_workers=0), in turns,
+      two rounds, with each half's rate (the host half launches no K1 and
+      copies nothing up).
+   Every other card engine of this script pins K1 (force_mode=
+   "columnar_device"), so that a "host" verdict cannot take K1 off a path
+   whose launches are counted. Phase 3's payload lane prints the host's
+   enqueue of its copies up (t_h2d_enqueue) beside t_dev_h2d.
    Every engine of the other phases must end with no n_failures_* or
    n_retries count and every breaker closed.
    The host-ladder lanes (3a-3c) run inline (host_workers=0); phase 3's default
@@ -173,7 +190,7 @@ Phases, each of which exits non-zero on failure:
 11. Print the kernels line, the card's name and power limit, and last the
     {"ok": true, "device": ...} line.
 
-Phases 3, 3h, 5-8 and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
+Phases 3, 3h, 3i, 5-8 and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
 every launch count to 0 just before their path and fail if a kernel of that
 path was not launched in it.
 
@@ -205,6 +222,11 @@ VOTE_GROUPS = 256  # raft groups in a vote tally
 STEP_BATCHES, STEP_RECORDS = 4, 512  # K10 per partition: batches of <= 16 KiB, ~1 KB records
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+# Every card engine of the phases that count K1's launches pins it: the
+# columnar backend probe's verdict (phase 3i) is process-wide, and a "host"
+# verdict would take K1 off their paths. Phase 3i's default engine alone runs
+# unpinned.
+PIN_K1 = {"force_mode": "columnar_device"}
 
 
 def log(*args) -> None:
@@ -743,7 +765,7 @@ def phase_engine(dev) -> dict:
         cpu.shutdown()  # its pool's threads must not outlive the reference
     engines = {}
     for sname, spec in specs.items():
-        eng = TorchEngine(device=dev, row_stride=ROW_STRIDE)
+        eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE)
         if eng.enable_coprocessors([(1, spec.to_json(), ("bench",))]) != [0]:
             fail(f"enable {sname}")
         run_stream(eng, work["bench"], GROUP + 1)  # warm-up
@@ -774,7 +796,9 @@ def phase_engine(dev) -> dict:
                           if k.startswith(("t_", "n_", "bytes_"))}
                 log(f"engine {sname} bench: {rate:.1f} record_batches/s over {n_ticks} ticks "
                     f"(GROUP {GROUP}, DEPTH {DEPTH}); H2D {st.get('bytes_h2d', 0):.0f} B "
-                    f"in {st.get('t_dev_h2d', 0) * 1e3:.3f} ms, D2H {st.get('bytes_d2h', 0):.0f} B "
+                    f"in {st.get('t_dev_h2d', 0) * 1e3:.3f} ms (of which the host's enqueue "
+                    f"{st.get('t_h2d_enqueue', 0) * 1e3:.3f} ms, host clock), "
+                    f"D2H {st.get('bytes_d2h', 0):.0f} B "
                     f"in {st.get('t_dev_d2h', 0) * 1e3:.3f} ms, kernel "
                     f"{st.get('t_dev_kernel', 0) * 1e3:.3f} ms")
                 busy = (st.get("t_dev_h2d", 0) + st.get("t_dev_kernel", 0)
@@ -841,7 +865,6 @@ def phase_host_ladder(dev, engine_run) -> dict:
             "passthrough": {w: [reply_bytes(t.result()) for t in cpu.submit_group([r] * GROUP)]
                             for w, r in work.items()}}
     cpu.shutdown()
-    n_ticks_of = lambda w: TICKS if w == "bench" else 2 * GROUP  # noqa: E731
     # the inline ladders (host_workers=0): the pool lane is phase 3e's
     pinned = {"structural": dict(structural_probe=False, host_workers=0),
               "staged": dict(structural_parse=False, host_workers=0)}
@@ -853,7 +876,7 @@ def phase_host_ladder(dev, engine_run) -> dict:
     launches = {}
     for name, sname, kw in lanes:
         spec = columnar_spec() if sname == "columnar" else passthrough_spec()
-        eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, **kw)
+        eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, **kw)
         if eng.enable_coprocessors([(1, spec.to_json(), ("bench",))]) != [0]:
             fail(f"enable the {name} lane")
         run_stream(eng, work["bench"], GROUP + 1)  # warm-up
@@ -923,7 +946,7 @@ def phase_colcache(dev, work, want, n_ticks_of) -> int:
     from redpanda_tpu_torch import kernels
     from redpanda_tpu_torch.coproc.engine import TorchEngine
 
-    eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, device_column_cache_mb=32,
+    eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, device_column_cache_mb=32,
                       host_workers=0)
     eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))])
     for wname, req in work.items():  # one cold launch per window fills the cache
@@ -975,7 +998,6 @@ def phase_pool(dev, engine_run) -> int:
             "passthrough": {w: [reply_bytes(t.result()) for t in cpu.submit_group([r] * GROUP)]
                             for w, r in work.items()}}
     cpu.shutdown()
-    n_ticks_of = lambda w: TICKS if w == "bench" else 2 * GROUP  # noqa: E731
     lanes = {"inline": dict(host_workers=0), "pool": dict(host_workers=4, host_pool_probe=False),
              "probed": dict(host_workers=4)}
     turns = ((1, "inline"), (1, "pool"), (2, "inline"), (2, "pool"))
@@ -986,7 +1008,7 @@ def phase_pool(dev, engine_run) -> int:
     k1 = 0
     for sname, lane, i in order:
         spec = specs[sname]()
-        eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, **lanes[lane])
+        eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, **lanes[lane])
         if eng.enable_coprocessors([(1, spec.to_json(), ("bench",))]) != [0]:
             fail(f"enable the {sname} {lane} lane")
         run_stream(eng, work["bench"], GROUP + 1)  # warm-up
@@ -1047,7 +1069,7 @@ def seal_profile(dev, work, want) -> None:
     knobs = inspect.signature(TorchEngine.__init__).parameters
     windows = []
     for lane, kw in (("inline", {}), ("colcache hits", dict(device_column_cache_mb=32))):
-        kw = {k: v for k, v in dict(kw, host_workers=0).items() if k in knobs}
+        kw = {k: v for k, v in dict(kw, host_workers=0, **PIN_K1).items() if k in knobs}
         eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, **kw)
         eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))])
         run_stream(eng, work["bench"], GROUP + 1)  # warm-up (and the cold launches)
@@ -1090,9 +1112,11 @@ def gc_lanes(dev, work, want, rounds: int = 3) -> None:
 
     from redpanda_tpu_torch.coproc.engine import TorchEngine
 
-    lanes = {"default": {}}
-    if "host_workers" in inspect.signature(TorchEngine.__init__).parameters:
-        lanes["inline"] = dict(host_workers=0)
+    knobs = inspect.signature(TorchEngine.__init__).parameters
+    pin = {k: v for k, v in PIN_K1.items() if k in knobs}
+    lanes = {"default": pin}
+    if "host_workers" in knobs:
+        lanes["inline"] = dict(pin, host_workers=0)
     for r in range(rounds):
         for lane, kw in lanes.items():
             eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, **kw)
@@ -1180,7 +1204,8 @@ def fault_lane(dev, sname, spec, kernel, domains, req, want) -> None:
     from redpanda_tpu_torch.finjector import honey_badger
     from redpanda_tpu_torch.observability import probes
 
-    eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, breaker_cooldown_ms=FAULT_COOLDOWN_MS)
+    eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE,
+                      breaker_cooldown_ms=FAULT_COOLDOWN_MS)
     if eng.enable_coprocessors([(1, spec.to_json(), ("bench",))]) != [0]:
         fail(f"fault envelope: enable {sname}")
     run_stream(eng, req, GROUP + 1)  # warm-up: the probes decide before any fault
@@ -1226,7 +1251,7 @@ def fault_lane(dev, sname, spec, kernel, domains, req, want) -> None:
     if failures_total() != total + n:
         fail(f"fault envelope {sname}: {n} exhausted launches made "
              f"{failures_total() - total:.0f} samples of coproc_failures_total")
-    dereg = TorchEngine(device=dev, row_stride=ROW_STRIDE, host_workers=0)
+    dereg = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, host_workers=0)
     dereg.enable_coprocessors([(1, spec.to_json(), ("bench",), ErrorPolicy.deregister)])
     reply, _ = one_tick(dereg, req)
     if reply.deregistered != [1] or dereg.heartbeat() != 0:
@@ -1297,7 +1322,7 @@ def probe_keeps_no_stats(dev, req) -> None:
     counts = [b.header.record_count for b in batches]
     for sname, spec, kernel in (("columnar", columnar_spec(), kernels.PREDICATE),
                                 ("payload", payload_spec(), kernels.PAYLOAD_TRANSFORM)):
-        eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, host_workers=4,
+        eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, host_workers=4,
                           host_pool_probe=False)
         eng.enable_coprocessors([(1, spec.to_json(), ("bench",))])
         run_stream(eng, req, 2)  # warm-up
@@ -1332,7 +1357,7 @@ def hop_lanes(dev, engine_run, rounds: int = 2) -> None:
                              ("payload", payload_spec, "n_kernel_payload_transform")):
         for r in range(rounds):
             for legs in (("worker", "inline") if r % 2 == 0 else ("inline", "worker")):
-                eng = TorchEngine(device=dev, row_stride=ROW_STRIDE)
+                eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE)
                 eng._leg_deadlines = legs == "worker"
                 eng.enable_coprocessors([(1, spec().to_json(), ("bench",))])
                 run_stream(eng, work["bench"], GROUP + 1)  # warm-up (and the pool probe)
@@ -1349,7 +1374,9 @@ def hop_lanes(dev, engine_run, rounds: int = 2) -> None:
                     f"record_batches/s; t_leg_hop {hop:.6f} s over {n_legs:.0f} legs "
                     f"({hop / n_legs * 1e6:.1f} us a leg) of {st['n_launches']:.0f} launches; "
                     f"t_dispatch {st.get('t_dispatch', 0.0):.6f} t_harvest_wait "
-                    f"{st.get('t_harvest_wait', 0.0):.6f} t_fetch {st.get('t_fetch', 0.0):.6f}")
+                    f"{st.get('t_harvest_wait', 0.0):.6f} t_fetch {st.get('t_fetch', 0.0):.6f}; "
+                    f"copy-up interval t_dev_h2d {st.get('t_dev_h2d', 0.0):.6f} s, of which "
+                    f"the host's enqueue t_h2d_enqueue {st.get('t_h2d_enqueue', 0.0):.6f} s")
 
 
 def wedge_lane(dev, req, want) -> None:
@@ -1361,7 +1388,7 @@ def wedge_lane(dev, req, want) -> None:
     from redpanda_tpu_torch.observability import probes
 
     # inline and a fixed deadline: one envelope per tick, none raised
-    eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, host_workers=0,
+    eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, host_workers=0,
                       device_deadline_ms=WEDGE_DEADLINE_MS, adaptive_deadline=False)
     eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))])
     run_stream(eng, req, 2)  # warm-up
@@ -1399,6 +1426,94 @@ def wedge_lane(dev, req, want) -> None:
         f"{WEDGE_DEADLINE_MS} raised DeadlineExceeded into the policy after "
         f"{st.get('n_retries', 0):.0f} retries; tick {t_wedged * 1e3:.3f} ms against the "
         f"envelope bound {bound * 1e3:.3f} ms (+ a clean tick's {t_clean * 1e3:.3f} ms)")
+
+
+def phase_columnar_backend(dev, engine_run) -> int:
+    """Phase 3i: the process-wide columnar backend probe on the card, then
+    the two halves the probe weighs (module docstring). Returns the phase's
+    K1 launches (the probe's among them)."""
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.coproc import governor
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+
+    work, want = engine_run["work"], engine_run["want"]
+    kernels.reset_launches()  # the probe's path starts here
+
+    def probe(label: str, k: int):
+        """A fresh unpinned engine whose first launch is k bench requests:
+        it probes. Returns the engine and its verdict."""
+        TorchEngine.reset_columnar_probe()
+        n0 = kernels.PREDICATE.launches
+        eng = TorchEngine(device=dev, row_stride=ROW_STRIDE)  # unpinned: it probes
+        if eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))]) != [0]:
+            fail("columnar backend: enable")
+        replies = [t.result() for t in eng.submit_group([work["bench"]] * k)]
+        if any(reply_bytes(r) != want["columnar", "bench"][j] for j, r in enumerate(replies)):
+            fail(f"columnar backend: the probing launch's replies ({label}) differ from the "
+                 "CPU engine's")
+        st = eng.stats()
+        backend, rec = st.get("columnar_backend"), st.get("columnar_probe")
+        probe_k1 = kernels.PREDICATE.launches - n0 - st.get("n_kernel_predicate", 0)
+        if backend not in ("host", "device") or probe_k1 != 2:
+            fail(f"columnar backend: no verdict after a {label} launch ({backend}, {rec}, "
+                 f"{probe_k1} probe launches)")
+        mine = [e for e in governor.journal.entries() if e["domain"] == governor.COLUMNAR_BACKEND
+                and e["engine"] == eng.governor.engine_tag]
+        if len(mine) != 1 or mine[0]["inputs"] != rec or mine[0]["verdict"] != backend:
+            fail(f"columnar backend: {len(mine)} COLUMNAR_BACKEND records, not one ({mine})")
+        log(f"columnar backend probe on the card, first launch {label}: verdict {backend}; host "
+            f"predicate t_host_s {rec['t_host_s']}, K1 launch + fetch t_device_s "
+            f"{rec['t_device_s']} (the device must win {rec['margin']}x); {probe_k1} K1 "
+            f"launches by the probe; one COLUMNAR_BACKEND record: {mine[0]['reason']}")
+        return eng, backend
+
+    # one bench request (2048 rows), then a full group as the lane sends it
+    # (GROUP x 2048 rows), whose verdict the default lane then follows
+    eng, _ = probe("of one request (2048 rows)", 1)
+    eng.shutdown()
+    eng, backend = probe(f"of a group ({GROUP} x 2048 rows)", GROUP)
+    run_stream(eng, work["bench"], GROUP + 1)  # warm-up (and the pool probe), as every lane
+    eng.reset_stats()
+    rates, st = drive_lane("columnar backend default", eng, work, want_of(want, "columnar"),
+                           n_ticks_of)
+    eng.shutdown()
+    host_lane = backend == "host"
+    if ("n_host_predicate" in st) != host_lane or ("n_kernel_predicate" in st) == host_lane:
+        fail(f"columnar backend: the default lane did not follow its verdict {lane_stats(st)}")
+    log(f"columnar backend default lane (verdict {backend}): bench {rates['bench']:.1f} "
+        f"record_batches/s over {TICKS} ticks, short_msgs {rates['short_msgs']:.1f}; replies "
+        f"byte-identical to TorchEngine(cpu)")
+    # the two halves, each pinned on its own engine, in turns (bench.py's
+    # halves), both inline so that they differ in the predicate alone
+    for i, mode in enumerate(("columnar_host", "columnar_device") * 2):
+        eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, force_mode=mode, host_workers=0)
+        eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))])
+        run_stream(eng, work["bench"], GROUP + 1)  # warm-up
+        eng.reset_stats()
+        n0 = kernels.PREDICATE.launches
+        rates, st = drive_lane(f"columnar backend {mode}", eng, work,
+                               want_of(want, "columnar"), n_ticks_of)
+        eng.shutdown()
+        k1 = kernels.PREDICATE.launches - n0
+        if mode == "columnar_host" and (k1 or st.get("bytes_h2d") or not st.get("n_host_predicate")):
+            fail(f"columnar_host lane: {k1} K1 launches {lane_stats(st)}")
+        if mode == "columnar_device" and (not k1 or "n_host_predicate" in st):
+            fail(f"columnar_device lane: {k1} K1 launches {lane_stats(st)}")
+        log(f"columnar backend {mode} #{i // 2 + 1}: bench {rates['bench']:.1f} "
+            f"record_batches/s over {TICKS} ticks, short_msgs {rates['short_msgs']:.1f}; "
+            f"t_dispatch {st.get('t_dispatch', 0.0) + st.get('t_shard_dispatch', 0.0):.6f} s; "
+            f"K1 launches {k1}, host predicates {st.get('n_host_predicate', 0):.0f}, "
+            f"{st['n_launches']:.0f} launches")
+    TorchEngine.reset_columnar_probe()
+    return path_launches("columnar backend", kernels.PREDICATE)["predicate"]
+
+
+def want_of(want: dict, sname: str) -> dict:
+    return {w: r for (s, w), r in want.items() if s == sname}
+
+
+def n_ticks_of(wname: str) -> int:
+    return TICKS if wname == "bench" else 2 * GROUP
 
 
 ADMIT_NEVER_SHEDS = 1 << 40  # a plane whose coproc account (256 GiB) never fills
@@ -1449,7 +1564,7 @@ def admission_flood(dev, sname, spec, kernel, engine_run) -> None:
     log(f"admission flood {sname}: a request reserves {r} B, a group of {GROUP} {group} B, the "
         f"coproc account {acct.limit} B: predicted first shed at group {k_pred} (0-based), "
         f"admitted again after {m_pred} harvested tickets")
-    eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, budget_plane=plane)
+    eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, budget_plane=plane)
     try:
         if eng.enable_coprocessors([(1, spec.to_json(), ("bench",))]) != [0]:
             fail(f"admission flood: enable {sname}")
@@ -1519,7 +1634,7 @@ def admission_parity(dev, engine_run) -> None:
     for sname, spec in (("columnar", columnar_spec()), ("payload", payload_spec())):
         got = {}
         for label, plane in (("plane", BudgetPlane(ADMIT_NEVER_SHEDS)), ("plane-less", None)):
-            eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, budget_plane=plane)
+            eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, budget_plane=plane)
             eng.enable_coprocessors([(1, spec.to_json(), ("bench",))])
             for wname, req in work.items():
                 replies, _ = run_stream(eng, req, 2 * GROUP)
@@ -1556,7 +1671,7 @@ def admission_faults(dev, engine_run) -> None:
         for domain in (faults.DEVICE_DISPATCH, faults.HARVEST):
             plane = BudgetPlane()
             acct = plane.account("coproc")
-            eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, budget_plane=plane,
+            eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, budget_plane=plane,
                               retry_backoff_ms=1)
             eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))])
             run_stream(eng, req, 2)  # warm-up: the probes decide before the fault
@@ -1607,7 +1722,7 @@ def admission_pressure(dev, engine_run) -> None:
                     fail(f"admission pressure {wname}: a reply differs from the CPU engine's")
 
     # the two entries' bytes, on an engine whose cache holds both at ease
-    probe = TorchEngine(device=dev, row_stride=ROW_STRIDE, host_workers=0,
+    probe = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, host_workers=0,
                         device_column_cache_mb=256)
     probe.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))])
     fill(probe)
@@ -1616,7 +1731,7 @@ def admission_pressure(dev, engine_run) -> None:
     del probe
     budget_mb = -(-two // (1 << 20))  # holds both; the halved budget holds one
     plane = BudgetPlane()
-    eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, host_workers=0,
+    eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, host_workers=0,
                       device_column_cache_mb=budget_mb, budget_plane=plane)
     try:
         eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",))])
@@ -1689,7 +1804,7 @@ def admission_cost(dev, engine_run, rounds: int = 2) -> None:
         for r in range(rounds):
             for label in (("plane", "none") if r % 2 == 0 else ("none", "plane")):
                 plane = BudgetPlane(ADMIT_NEVER_SHEDS) if label == "plane" else None
-                eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, budget_plane=plane)
+                eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, budget_plane=plane)
                 eng.enable_coprocessors([(1, spec().to_json(), ("bench",))])
                 run_stream(eng, work["bench"], GROUP + 1)  # warm-up (and the pool probe)
                 eng.reset_stats()
@@ -1721,7 +1836,7 @@ def phase_card_failures(dev, work) -> None:
         raise RuntimeError("injected failure")
 
     def run(policy):
-        eng = TorchEngine(device=dev, row_stride=ROW_STRIDE, host_workers=4,
+        eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, host_workers=4,
                           host_pool_probe=False)
         eng.enable_coprocessors([(1, columnar_spec().to_json(), ("bench",), policy)])
         reply = eng.submit_group([req] * 2)[0].result()  # 4096 records: four shards
@@ -2736,7 +2851,7 @@ def phase_engine_mesh(dev, mesh, engine_run) -> dict:
 
     spec = columnar_spec()
     # the shards' ladders run on the host-stage pool
-    eng = TorchEngine(device=dev, mesh=mesh, mesh_probe=False, row_stride=ROW_STRIDE,
+    eng = TorchEngine(device=dev, **PIN_K1, mesh=mesh, mesh_probe=False, row_stride=ROW_STRIDE,
                       host_workers=4)
     if eng.enable_coprocessors([(1, spec.to_json(), ("bench",))]) != [0]:
         fail("enable on the mesh")
@@ -2787,7 +2902,7 @@ def phase_engine_mesh(dev, mesh, engine_run) -> dict:
         f"{st.get('t_dispatch', 0):.6f} s "
         f"({launches['predicate_stacked']} stacked predicate launches for {n_mesh} mesh launches, "
         f"one per card chunk), single lane {engine_run['dispatch']['columnar']:.6f} s (phase 3)")
-    probing = TorchEngine(device=dev, mesh=mesh, mesh_probe=True, row_stride=ROW_STRIDE)
+    probing = TorchEngine(device=dev, **PIN_K1, mesh=mesh, mesh_probe=True, row_stride=ROW_STRIDE)
     probing.enable_coprocessors([(1, spec.to_json(), ("bench",))])
     replies, _ = run_stream(probing, engine_run["work"]["bench"], GROUP)
     if any(reply_bytes(r) != engine_run["want"]["columnar", "bench"][k % GROUP]
@@ -2899,6 +3014,7 @@ def main() -> int:
     phase_fault_envelope(dev, engine_run)
     for name, n in phase_admission(dev, engine_run).items():
         launches[name] += n
+    launches["predicate"] += phase_columnar_backend(dev, engine_run)
     launches["payload_transform"] += phase_policy(dev)
     launches.update(phase_payload_entry(dev))
     measured.update(phase_crc_kernels(dev))

@@ -4,7 +4,7 @@ CUDA card.
 
     python3 chip_tools/phase3_ab.py [--root DIR] [--no-harvest] [--windows N]
 
-Builds the default TorchEngine of DIR's redpanda_tpu_torch (default: this
+Builds phase 3's TorchEngine of DIR's redpanda_tpu_torch (default: this
 checkout; an unpacked checkout of another commit, e.g. `git archive
 <commit> | tar -x -C build/parent`, runs that commit's engine under the
 same measurement code) as phase 3 does -- the columnar spec at the
@@ -64,7 +64,10 @@ def main() -> int:
     want = [cs.reply_bytes(t.result()) for t in cpu.submit_group([req] * cs.GROUP)]
     if hasattr(cpu, "shutdown"):
         cpu.shutdown()
-    eng = TorchEngine(device=torch.device("cuda", 0), row_stride=cs.ROW_STRIDE)
+    # K1 pinned as in phase 3, where the engine has the knob
+    pin = {k: v for k, v in cs.PIN_K1.items()
+           if k in inspect.signature(TorchEngine.__init__).parameters}
+    eng = TorchEngine(device=torch.device("cuda", 0), row_stride=cs.ROW_STRIDE, **pin)
     eng.enable_coprocessors([(1, cs.columnar_spec().to_json(), ("bench",))])
     cs.run_stream(eng, req, cs.GROUP + 1)  # warm-up, as phase 3
     lane = ("default" + (", harvest thread off" if args.no_harvest and harvest else "")

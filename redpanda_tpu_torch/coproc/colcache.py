@@ -58,7 +58,8 @@ class Entry:
     ``exploded`` is kept only for passthrough plans, whose harvest gathers
     output bytes from the joined blob; projection plans keep the packed
     rows and the ok mask instead. Entries are read-only once put, which is
-    what makes a hit bit-identical to a cold run."""
+    what makes a hit bit-identical to a cold run, save that their device
+    tensors can be dropped (``DeviceColumnCache.drop_device``)."""
 
     __slots__ = (
         "n", "n_pad", "ranges", "cols", "cols_dev", "proj_data", "proj_ok",
@@ -167,6 +168,19 @@ class DeviceColumnCache:
                 self._evictions += 1
                 return False
         return True
+
+    def drop_device(self, key: tuple, entry: Entry) -> int:
+        """Drop a cached entry's device tensors, whose predicate now runs on
+        the host, and stop charging them (a launch that holds them keeps its
+        own reference). Returns the bytes released."""
+        with self._lock:
+            if self._entries.get(key) is not entry or entry.cols_dev is None:
+                return 0
+            entry.cols_dev = None
+            freed = entry.nbytes - entry._measure()
+            entry.nbytes -= freed
+            self._bytes -= freed
+            return freed
 
     def invalidate(self, script_id: int | None = None) -> int:
         """Drop entries (every script's when script_id is None); returns the

@@ -17,7 +17,10 @@ expression tree, once, into the flat postfix program the predicate kernel
 ``predicate_blocks`` is that kernel's wrapper (``predicate`` its one-block
 case, ``predicate_stacked`` the mesh's one launch per card), and
 ``predicate_plain`` is the same function in plain PyTorch (the JAX
-package's ``_build_expr`` / ``_contains`` / ``_packbits``). Extraction and
+package's ``_build_expr`` / ``_contains`` / ``_packbits``). ``eval_host_mask``
+is the host predicate, the same function in numpy (the JAX package's numpy
+twin of its device program): a backend the engine can choose, not the
+kernel's plain version. Extraction and
 assembly are the JAX package's, over the port's own binding of the same
 native library.
 """
@@ -365,6 +368,20 @@ class ColumnarPlan:
                 bits[d] = out[i : i + 1]
         return Sharded(mesh, bits)
 
+    def eval_host_mask(self, cols) -> np.ndarray:
+        """The host predicate: the same tree over the same host columns
+        (numpy arrays, ``extract_device_inputs`` order), evaluated in numpy
+        -> packed keep bits uint8 [n_pad/8], MSB-first. A backend of its
+        own, as the host CRC is ``CrcBackend``'s: the engine runs it for a
+        measured "host" verdict or ``force_mode="columnar_host"``; it is not
+        the kernel's plain version (``predicate_plain``), whose bits it
+        equals."""
+        keep = _build_expr(self.spec.where, self._bind_slots(cols),
+                           _prepare_cmp_consts(self.spec.where), np)
+        if keep.shape[0] % 8:
+            raise ValueError(f"row count {keep.shape[0]} is not a multiple of 8")
+        return np.packbits(keep)
+
     def zero_device_inputs(self, n_pad: int) -> list[np.ndarray]:
         """All-padding device inputs: the dtypes, shapes and arity of
         ``extract_device_inputs`` with zero records (str vlen -1 = absent).
@@ -678,40 +695,43 @@ def _packbits(keep: torch.Tensor) -> torch.Tensor:
     return (b * weights[None, :]).sum(dim=1).to(torch.uint8)
 
 
-def _contains(bytes_col, vlen, needle: bytes, window: int):
+def _contains(bytes_col, vlen, needle: bytes, window: int, xp=torch):
     """needle in raw[:window]; scan limited to min(vlen, window). The column
     may be wider than this predicate's window when another expression on the
     same path merged a larger width -- the scan honours THIS window."""
-    n, w = bytes_col.shape
-    weff = min(window, w)
+    weff = min(window, bytes_col.shape[1])
     l = len(needle)
     present = vlen >= 0
     if l == 0:
         return present
     if l > weff:
-        return torch.zeros_like(present)
-    span = torch.clamp(vlen, max=weff)
+        return xp.zeros_like(present)
+    span = vlen.clip(max=weff)
     nwin = weff - l + 1
-    match = torch.ones((n, nwin), dtype=torch.bool, device=bytes_col.device)
-    for i, ch in enumerate(needle):
+    match = bytes_col[:, 0:nwin] == needle[0]
+    for i, ch in enumerate(needle[1:], 1):
         match &= bytes_col[:, i : i + nwin] == ch
-    starts = torch.arange(nwin, dtype=torch.int32, device=bytes_col.device)
+    on = {} if xp is np else {"device": bytes_col.device}
+    starts = xp.arange(nwin, dtype=xp.int32, **on)
     match &= starts[None, :] <= (span - l)[:, None]
-    return present & match.any(dim=1)
+    return present & match.any(1)
 
 
-def _build_expr(expr, slots, consts):
+def _build_expr(expr, slots, consts, xp=torch):
+    """The predicate tree over bound columns -> bool [n]: torch tensors
+    (``predicate_plain``) or numpy arrays (``eval_host_mask``), ``xp``
+    being the columns' array module."""
     if isinstance(expr, E.And):
-        return _build_expr(expr.a, slots, consts) & _build_expr(expr.b, slots, consts)
+        return _build_expr(expr.a, slots, consts, xp) & _build_expr(expr.b, slots, consts, xp)
     if isinstance(expr, E.Or):
-        return _build_expr(expr.a, slots, consts) | _build_expr(expr.b, slots, consts)
+        return _build_expr(expr.a, slots, consts, xp) | _build_expr(expr.b, slots, consts, xp)
     if isinstance(expr, E.Not):
-        return ~_build_expr(expr.a, slots, consts)
+        return ~_build_expr(expr.a, slots, consts, xp)
     if isinstance(expr, E.Exists):
         return slots[("exists", expr.path)] != 0
     if isinstance(expr, E.StrContains):
         bytes_col, vlen = slots[("str", expr.path)]
-        return _contains(bytes_col, vlen, expr.needle, expr.window)
+        return _contains(bytes_col, vlen, expr.needle, expr.window, xp)
     v = expr.value
     if isinstance(v, (str, bytes)):
         raw = v.encode() if isinstance(v, str) else bytes(v)
@@ -736,7 +756,7 @@ def _build_expr(expr, slots, consts):
     if i32c is not None:
         int_exact = (flags & E.F_INT_EXACT) != 0
         icmp = E._cmp_num(expr.op, i32, int(i32c))
-        return isnum & torch.where(int_exact, icmp, fcmp)
+        return isnum & xp.where(int_exact, icmp, fcmp)
     return isnum & fcmp
 
 

@@ -82,6 +82,17 @@ re-raises out of ``submit_group``. On the CPU the plain versions run
 synchronously on the calling thread: the legs are retried and judged there
 too, with no deadline (nothing is in flight to abandon).
 
+Where a columnar predicate runs is the JAX engine's choice too:
+``force_mode`` pins it ("columnar_host": the host predicate,
+``ColumnarPlan.eval_host_mask``; "columnar_device": K1), and unpinned a card
+engine follows a process-wide backend measured once, on the first launch of
+``_PROBE_MIN_ROWS`` padded rows its single-card leg runs
+(``_probe_columnar_backend``: the host predicate against K1's launch and
+fetch, the device to win by ``_PROBE_DEVICE_MARGIN``). A probe whose device
+leg fails raises into the script's error policy and decides nothing; a
+measured "host" verdict is journaled and shown in ``stats()``. A host
+predicate's bits reach harvest as a completed mask: no launch, no copy.
+
 With a budget plane (``budget_plane=``, resource_mgmt/budgets.py) every
 submit is admitted first, as in the JAX engine: each request's payload bytes
 are reserved from the plane's ``coproc`` account, all or nothing per group,
@@ -296,6 +307,9 @@ class _Launch:
         self.fits: np.ndarray | None = None
         self.pending: _Pending | None = None  # the payload lane's packed rows
         self.mask: _MaskSlot | None = None  # the columnar lanes' keep bits
+        # where the columnar predicate runs ("host" | "device" | None: not
+        # measured yet), settled once per launch (_settled_backend)
+        self.backend: str | None = None
         # one-batch mesh lane: the records of each shard's block, in order
         self.mesh_rows: list[int] | None = None
         self.shards: list[_HostShard] | None = None
@@ -532,10 +546,13 @@ def _fit_cols(cols, n_pad: int) -> list:
     return out
 
 
-def _launches_kernel(plan) -> bool:
-    """Whether a plan's launches run a kernel, and so cross the dispatch
-    domain's breaker."""
-    return isinstance(plan, PayloadPlan) or (isinstance(plan, ColumnarPlan) and bool(plan.dev_cols))
+def _launches_kernel(launch: _Launch) -> bool:
+    """Whether a launch runs a kernel, and so crosses the dispatch domain's
+    breaker (a columnar launch whose predicate runs on the host does not)."""
+    plan = launch.plan
+    if isinstance(plan, PayloadPlan):
+        return True
+    return isinstance(plan, ColumnarPlan) and bool(plan.dev_cols) and launch.backend != "host"
 
 
 def _explode_shard(explode, batches):
@@ -555,9 +572,21 @@ def _join_shards(shards: list[_HostShard]) -> tuple[list[tuple[int, int]], int]:
     return ranges, n
 
 
-# The parse-path probe: a launch under this many records does not pin the
-# ladder (it is not representative of steady state).
+# The parse-path probe and the columnar backend probe: a launch under this
+# many records (the backend probe: padded rows) pins neither choice (it is not
+# representative of steady state).
 _PROBE_MIN_ROWS = 1024
+# The columnar backend probe's device leg (the predicate kernel's build, a
+# warm-up launch and a timed launch with its fetch) must end within this, or
+# it fails as a wedged leg.
+_PROBE_DEVICE_TIMEOUT_S = 120.0
+# The probe times only the predicate leg; a device launch also pays costs
+# the probe cannot see (the harvest thread's hand-off, the GIL between the
+# fetch worker and host assembly, dispatch bookkeeping), so the device must
+# beat the host predicate by this factor to be chosen (the JAX engine's).
+_PROBE_DEVICE_MARGIN = 4.0
+
+_FORCE_MODES = (None, "payload", "columnar_host", "columnar_device")
 
 # Per-slot dispositions inside a Ticket.
 _UNKNOWN, _EMPTY, _DEREGISTERED, _LAUNCHED = range(4)
@@ -715,9 +744,42 @@ class TorchEngine:
     from its ``coproc`` account or shed (``ShedError``), and its pressure
     transitions trim the arena and the column cache (module docstring).
 
+    ``force_mode`` (None) pins every script to one execution mode, as the
+    JAX engine's does: "payload" gives a where-less spec the payload plan
+    (K4), "columnar_host" evaluates every columnar predicate with the host
+    predicate (``ColumnarPlan.eval_host_mask``: no K1 launch, nothing
+    copied up, never the mesh lane) and "columnar_device" launches K1
+    wherever the engine runs a predicate.
+
+    Unpinned, where a card engine's single-card leg evaluates the predicate
+    is a measured, process-wide decision: the first such launch of
+    ``_PROBE_MIN_ROWS`` padded rows or more times the host predicate against
+    K1's launch and fetch over the same columns (``_probe_columnar_backend``)
+    and every engine of the process then keeps the verdict
+    (``stats()["columnar_backend"]``, ``["columnar_probe"]``; the
+    COLUMNAR_BACKEND journal entry); ``reset_columnar_probe()`` forgets it.
+    Departures from the JAX engine: a probe whose device leg fails raises
+    into the script's error policy and publishes no verdict (the JAX engine
+    then picks the host); only engines on a card (``_backend_probe``) run the
+    probe or read the verdict, so a CPU engine runs K1's plain version
+    unless pinned to "columnar_host"; a launch under the probe's size
+    before a verdict launches K1 and pins nothing (the JAX engine evaluates
+    it on the host); a launch the mesh lane takes never probes.
+
     ``shutdown()`` stops the mask-harvest thread and the pool's threads, and
     removes the engine's pressure listener from the plane.
     """
+
+    # The process-wide columnar backend ("device" | "host" | None: not
+    # measured yet) and its probe's record: the link between host and card
+    # does not change per engine. Two locks with distinct jobs: the run lock
+    # serializes the probe itself (two concurrent first launches probe once;
+    # the loser waits and adopts the verdict), the field lock guards the
+    # two-field publish and every read, and is never held across the probe.
+    _columnar_backend: str | None = None
+    _columnar_probe: dict | None = None
+    _columnar_probe_run_lock = threading.Lock()
+    _columnar_probe_lock = threading.Lock()
 
     def __init__(
         self,
@@ -745,11 +807,19 @@ class TorchEngine:
         adaptive_deadline_margin: float | None = None,
         governor_journal_capacity: int | None = None,
         budget_plane: rm_budgets.BudgetPlane | None = None,
+        force_mode: str | None = None,
     ):
+        if force_mode not in _FORCE_MODES:
+            raise ValueError(f"force_mode {force_mode!r} is not one of {_FORCE_MODES}")
         self.device = resolve_device(device)
         self._stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(device=self.device)
+        self._force_mode = force_mode
+        # whether unpinned launches probe for, and follow, the process-wide
+        # columnar backend: engines on a card only (tests set it on a CPU
+        # engine to drive the probe over the plain version)
+        self._backend_probe = self.device.type == "cuda"
         if mesh is None and mesh_devices is not None and int(mesh_devices) >= 2:
             mesh = partition_mesh(int(mesh_devices), device=self.device.type)
         self._meshrunner: meshrunner.MeshRunner | None = None
@@ -789,6 +859,7 @@ class TorchEngine:
             "retry_backoff_ms": round(self._fault_policy.backoff_s * 1e3),
             "breaker_threshold": threshold,
             "breaker_cooldown_ms": round(cooldown_s * 1e3),
+            "force_mode": force_mode,
             "gather_frame": bool(gather_frame),
             "adaptive_deadline": adaptive,
         })
@@ -894,6 +965,11 @@ class TorchEngine:
             try:
                 spec = TransformSpec.from_json(spec_json)
                 plan = plan_spec(spec)  # validates the tree and compiles its program
+                if (self._force_mode == "payload" and not isinstance(plan, PayloadPlan)
+                        and spec.where is None):
+                    # v1-expressible specs only: a where spec has no payload
+                    # program and keeps its columnar plan
+                    plan = PayloadPlan(spec)
                 if isinstance(plan, ColumnarPlan) and self._stream is not None:
                     plan.program.on(self.device)
                 elif isinstance(plan, PayloadPlan):
@@ -1049,7 +1125,12 @@ class TorchEngine:
         budget plane: ``n_shed_submits`` (submits shed), ``n_pressure_trims``
         and ``n_pressure_evictions`` (critical transitions and the cache
         entries they evicted) and the ``admission`` block (the controller's
-        admits, sheds, throttle and account)."""
+        admits, sheds, throttle and account). ``n_host_predicate`` counts
+        the host predicate's evaluations; on an engine that follows the
+        process-wide columnar backend, ``columnar_backend`` and
+        ``columnar_probe`` (its probe's times, margin and verdict) appear
+        once it is measured. ``t_h2d_enqueue`` is the host's enqueue of the
+        copies up (host clock), inside ``t_dev_h2d``'s interval."""
         with self._stats_lock:
             out = dict(self._stats)
         out["device"] = str(self.device)
@@ -1077,7 +1158,29 @@ class TorchEngine:
             out["admission"] = self._admission.snapshot()
         if self._meshrunner is not None:
             out["mesh"] = self._meshrunner.stats()
+        if self._backend_probe:
+            with TorchEngine._columnar_probe_lock:  # the two fields, coherent
+                backend, probe = TorchEngine._columnar_backend, TorchEngine._columnar_probe
+            if probe is not None:
+                out["columnar_backend"] = backend
+                out["columnar_probe"] = dict(probe)
         return out
+
+    @classmethod
+    def sticky_columnar_backend(cls) -> str | None:
+        """The process-wide columnar backend, read under the field lock (one
+        coherent read, not the class attribute around a probe's publish)."""
+        with cls._columnar_probe_lock:
+            return cls._columnar_backend
+
+    @classmethod
+    def reset_columnar_probe(cls) -> None:
+        """Forget the process-wide columnar backend, so that the next
+        eligible launch probes again (ablations, and tests that need a
+        fresh measurement instead of an inherited verdict)."""
+        with cls._columnar_probe_lock:
+            cls._columnar_backend = None
+            cls._columnar_probe = None
 
     def reset_stats(self) -> None:
         with self._stats_lock:
@@ -1449,10 +1552,12 @@ class TorchEngine:
         launch, else the host-stage pool when it shards it, else inline."""
         plan = launch.plan
         store_key = None
+        if isinstance(plan, ColumnarPlan) and plan.dev_cols:
+            launch.backend = self._settled_backend()
         if isinstance(plan, ColumnarPlan) and self._meshrunner is not None and \
                 self._dispatch_mesh(launch, plan, batches):
             return
-        if batches and _launches_kernel(plan) and self._breaker.state == faults.STATE_OPEN:
+        if batches and _launches_kernel(launch) and self._breaker.state == faults.STATE_OPEN:
             # fail fast: no host stage runs for a launch the breaker refuses
             raise faults.DeviceUnavailable(faults.DEVICE_DISPATCH)
         if isinstance(plan, ColumnarPlan):
@@ -1464,7 +1569,7 @@ class TorchEngine:
                 entry = self._colcache.lookup(key)
                 self._count_colcache(entry is not None)
                 if entry is not None:
-                    self._dispatch_columnar_cached(launch, plan, entry)
+                    self._dispatch_columnar_cached(launch, plan, key, entry)
                     return
                 store_key = key
         if self._dispatch_sharded(launch, plan, batches):
@@ -1636,7 +1741,8 @@ class TorchEngine:
             structural = self._parse_path(plan, batches) == "structural"
             paths = plan.flat_paths()
             shards = self._probe_run([(lambda s=s, e=e: self._probe_shard(
-                plan, batches[s:e], paths, structural)) for s, e in cuts])
+                plan, batches[s:e], paths, structural, launch.backend == "host"))
+                for s, e in cuts])
             probe.r_out = plan.r_out
             keeps = [probe._shard_keep(shard) for shard in shards]
             parts = self._probe_run([(lambda s=shard, k=keep: probe._frame_shard(s, k))
@@ -1671,13 +1777,15 @@ class TorchEngine:
 
         return self._host_pool.run([(lambda fn=fn: quiet(fn)) for fn in fns])
 
-    def _probe_shard(self, plan: ColumnarPlan, batches, paths, structural: bool) -> _HostShard:
-        """A probe pass's shard: the ladder and the predicate launch, with
-        no column cache."""
+    def _probe_shard(self, plan: ColumnarPlan, batches, paths, structural: bool,
+                     host_mask: bool = False) -> _HostShard:
+        """A probe pass's shard: the ladder and the predicate (the launch,
+        or the host predicate), with no column cache."""
         shard = _HostShard()
         cols, _ = self._shard_ladder(shard, plan, batches, paths, structural)
         if shard.n and cols is not None:
-            shard.mask = self._predicate_mask(plan, cols)
+            shard.mask = (self._host_mask(plan, cols) if host_mask
+                          else self._predicate_mask(plan, cols))
         return shard
 
     def _calibrate_host_pool(self, launch: _Launch, batches, counts) -> None:
@@ -1728,13 +1836,19 @@ class TorchEngine:
         shardable launches, under one lock. While the dispatch breaker is not
         closed a columnar launch stays inline: its one launch is the
         half-open probe. A shard refused by the breaker, or an unretried
-        failure, fails the launch instead of degrading it."""
+        failure, fails the launch instead of degrading it. The shards'
+        predicate follows ``force_mode`` or the process-wide columnar backend;
+        while an engine that follows the backend has no verdict, a columnar
+        launch stays inline, where it probes (and then the pool probe, if it
+        runs, times the predicate the shards will run)."""
         pool = self._host_pool
         if pool is None or len(batches) < 2:
             return False
-        if (isinstance(plan, ColumnarPlan) and plan.dev_cols
-                and self._breaker.state != faults.STATE_CLOSED):
-            return False
+        if isinstance(plan, ColumnarPlan) and plan.dev_cols:
+            if launch.backend is None:
+                return False  # no verdict yet: this launch probes inline
+            if launch.backend == "device" and self._breaker.state != faults.STATE_CLOSED:
+                return False
         counts = [b.header.record_count for b in batches]
         if sum(counts) < _SHARD_MIN_ROWS:
             return False
@@ -1888,8 +2002,9 @@ class TorchEngine:
         """One shard on a pool worker: its column-cache consult (a hit skips
         the ladder), its ladder, the predicate over its own columns (on a
         card one K1 launch on the engine's stream, handed to the harvest
-        thread, so it overlaps the other shards' extraction), and its cache
-        entry."""
+        thread, so it overlaps the other shards' extraction; the host
+        predicate under a "host" backend: a hit's device tensors are then
+        dropped from the cache), and its cache entry."""
         faults.inject(faults.SHARD_WORKER)
         shard = _HostShard()
         key = self._shard_cache_key(launch.script_id, batches)
@@ -1906,7 +2021,11 @@ class TorchEngine:
             cols, n_pad = self._shard_ladder(shard, plan, batches, paths, structural)
             if key is not None and shard.n and cols is not None:
                 store_entry = self._shard_cache_entry(shard, plan, cols, n_pad, structural)
-        if shard.n and cols is not None:
+        if shard.n and cols is not None and launch.backend == "host":
+            shard.mask = self._host_mask(plan, cols, "t_shard_dispatch", launch.trace_id)
+            if dev_cols is not None:
+                self._colcache.drop_device(key, entry)
+        elif shard.n and cols is not None:
             shard.mask = self._predicate_mask(plan, cols, store_entry, dev_cols,
                                               stage="t_shard_dispatch", trace_id=launch.trace_id)
             with launch._lock:
@@ -1980,10 +2099,12 @@ class TorchEngine:
         if entry is not None:
             self._store(store_key, entry)
 
-    def _dispatch_columnar_cached(self, launch, plan: ColumnarPlan, entry) -> None:
+    def _dispatch_columnar_cached(self, launch, plan: ColumnarPlan, key, entry) -> None:
         """A column-cache hit: no host dispatch stage runs, and the predicate
         reads the entry's columns -- on a card the tensors the cold launch
-        left there, so nothing is copied up. The arrays are the cold
+        left there, so nothing is copied up (under a "host" backend the host
+        predicate reads the host columns, and the device tensors, which no
+        launch will read again, leave the cache). The arrays are the cold
         launch's, so the reply is bit-identical."""
         self._count_launch(launch, list(entry.ranges), entry.n)
         launch.r_out = plan.r_out
@@ -1993,6 +2114,8 @@ class TorchEngine:
         else:
             launch.proj_data, launch.proj_ok = entry.proj_data, entry.proj_ok
         self._dispatch_predicate(launch, plan, entry.cols, dev_cols=entry.cols_dev)
+        if entry.cols_dev is not None and launch.backend == "host":
+            self._colcache.drop_device(key, entry)
 
     def _store(self, key, entry: colcache.Entry) -> None:
         entry.nbytes = entry._measure()  # with the device tensors, once copied up
@@ -2001,15 +2124,123 @@ class TorchEngine:
     def _dispatch_predicate(self, launch, plan: ColumnarPlan, cols, entry=None,
                             dev_cols=None) -> None:
         """The predicate over a launch's columns: the one-batch mesh lane
-        when it takes the launch, else one launch on the engine's stream.
-        ``entry`` (a cache entry being built) keeps the tensors the columns
-        are copied into; ``dev_cols`` are such tensors from a hit, launched
-        as they are."""
+        when it takes the launch, else the single-card leg: the host
+        predicate when ``force_mode`` or the columnar backend says so, else
+        one launch on the engine's stream. ``entry`` (a cache entry being
+        built) keeps the tensors the columns are copied into; ``dev_cols``
+        are such tensors from a hit, launched as they are. ``cols`` are
+        always the host columns (the probe's and the host predicate's)."""
         if not plan.dev_cols:
             return
         if dev_cols is None and self._dispatch_mesh_blocks(launch, plan, cols):
             return
+        if self._predicate_on_host(launch, plan, cols):
+            launch.mask = self._host_mask(plan, cols, trace_id=launch.trace_id)
+            return
         launch.mask = self._predicate_mask(plan, cols, entry, dev_cols, trace_id=launch.trace_id)
+
+    # ------------------------------------------------------ columnar backend
+    def _settled_backend(self) -> str | None:
+        """Where this engine's columnar predicate runs, when that is settled:
+        "host" under ``force_mode="columnar_host"``, "device" under another
+        pin or on an engine that does not follow the process-wide backend,
+        else that backend (None while it is not measured). An engine that
+        follows the backend notes a verdict it adopts as posture (the probe
+        that made it journaled it)."""
+        backend = TorchEngine.sticky_columnar_backend() if self._backend_probe else None
+        if backend is not None:
+            self.governor.note_posture(governor.COLUMNAR_BACKEND, backend)
+        if self._force_mode == "columnar_host":
+            return "host"
+        if self._force_mode is not None or not self._backend_probe:
+            return "device"
+        return backend
+
+    def _predicate_on_host(self, launch, plan: ColumnarPlan, cols) -> bool:
+        """The single-card leg's choice: the launch's settled backend. With
+        no verdict yet, a launch of ``_PROBE_MIN_ROWS`` padded rows or more
+        probes, double-checked under the run lock (concurrent first launches
+        probe once; the losers adopt the winner's verdict), and settles on
+        the verdict; a smaller one launches K1 and pins nothing."""
+        if launch.backend is None and len(cols[0]) >= _PROBE_MIN_ROWS:
+            with TorchEngine._columnar_probe_run_lock:
+                if TorchEngine.sticky_columnar_backend() is None:
+                    self._probe_columnar_backend(plan, cols)
+            launch.backend = self._settled_backend()
+        return launch.backend == "host"
+
+    def _probe_host_leg(self, plan: ColumnarPlan, cols) -> float:
+        """The probe's host leg: seconds of one host predicate."""
+        t0 = time.perf_counter()
+        plan.eval_host_mask(cols)
+        return time.perf_counter() - t0
+
+    def _probe_device_leg(self, plan: ColumnarPlan, cols) -> float:
+        """The probe's device leg, run on a fetch worker on a card: the
+        columns pinned, a warm-up launch of K1 through ``_run_device`` with
+        its fetch (the kernel's build on a first use), then the seconds of
+        one more launch and fetch, timed inside the leg (the worker's
+        hand-offs are not the leg's). Its stats are not kept; its launches
+        count under the kernel."""
+        was, _probing.on = getattr(_probing, "on", False), True
+        try:
+            faults.inject(faults.DEVICE_DISPATCH)
+            inputs = [torch.from_numpy(c) for c in cols]
+            if self._stream is not None:
+                inputs = [t.pin_memory() for t in inputs]
+            self._run_device(inputs, plan.predicate, "predicate").wait(self)
+            t0 = time.perf_counter()
+            self._run_device(inputs, plan.predicate, "predicate").wait(self)
+            return time.perf_counter() - t0
+        finally:
+            _probing.on = was
+
+    def _probe_columnar_backend(self, plan: ColumnarPlan, cols) -> None:
+        """Measure the process-wide columnar backend on this launch's host
+        columns: the host predicate against K1's launch and fetch; the
+        device must win by ``_PROBE_DEVICE_MARGIN``. The verdict is
+        published under the field lock and journaled (COLUMNAR_BACKEND). A
+        device leg that fails, errs or outlives ``_PROBE_DEVICE_TIMEOUT_S``
+        is one ``coproc_failures_total{domain="columnar_probe"}`` sample and
+        raises into the script's error policy, with no verdict published:
+        the next eligible launch probes again (the JAX engine picks the
+        host). The caller holds the run lock."""
+        t_host = self._probe_host_leg(plan, cols)
+        deadline = _PROBE_DEVICE_TIMEOUT_S if self._leg_deadlines else None
+        try:
+            t_dev = faults.fetch_with_deadline(lambda: self._probe_device_leg(plan, cols),
+                                               deadline)
+        except Exception as exc:
+            exc.rp_counted = True  # the policy boundary does not count it again
+            faults.note_failure("columnar_probe", exc)
+            raise
+        chosen = "device" if t_dev * _PROBE_DEVICE_MARGIN < t_host else "host"
+        probe = {
+            "t_host_s": round(t_host, 6),
+            "t_device_s": round(t_dev, 6),
+            "margin": _PROBE_DEVICE_MARGIN,
+            "chosen": chosen,
+        }
+        with TorchEngine._columnar_probe_lock:
+            TorchEngine._columnar_backend = chosen
+            TorchEngine._columnar_probe = probe
+        logger.info("columnar backend probe: %s", probe)
+        self.governor.record(
+            governor.COLUMNAR_BACKEND, chosen,
+            f"measured predicate leg: host {t_host * 1e3:.3f} ms vs device "
+            f"{t_dev * 1e3:.3f} ms (device must win {_PROBE_DEVICE_MARGIN}x; process-sticky)",
+            dict(probe))
+
+    def _host_mask(self, plan: ColumnarPlan, cols, stage: str = "t_dispatch",
+                   trace_id: int | None = None) -> _MaskSlot:
+        """The host predicate over a launch's host columns: no K1 launch,
+        nothing copied up; the bits reach harvest as a completed slot."""
+        t0 = time.perf_counter()
+        slot = _MaskSlot(None, trace_id)
+        slot.bits = plan.eval_host_mask(cols)
+        self._stat(stage, t0)
+        self._stat_add("n_host_predicate", 1)
+        return slot
 
     def _predicate_mask(self, plan: ColumnarPlan, cols, entry=None, dev_cols=None,
                         stage: str = "t_dispatch", trace_id: int | None = None) -> _MaskSlot:
@@ -2036,7 +2267,8 @@ class TorchEngine:
         shard's column-cache consult, parse and extraction at the launch's
         common row bucket (on the pool when there is one), then the stacked
         predicate (K2), one launch per card. False sends the launch down the
-        other lanes: no predicate, fewer than two batches or no record, a
+        other lanes: no predicate, ``force_mode="columnar_host"``, fewer
+        than two batches or no record, a
         "single" decision, a launch too small to probe on (or, after a
         measured pin, to be worth the mesh), a calibration running, a
         faulted shard worker (``n_failures_shard_worker``; the mesh counts a
@@ -2044,7 +2276,7 @@ class TorchEngine:
         demotion, journaled). An exhausted mesh leg raises into the script's
         error policy, as a failed single-lane launch does."""
         runner = self._meshrunner
-        if not plan.dev_cols:
+        if not plan.dev_cols or self._force_mode == "columnar_host":
             return False
         decision = runner.decision
         counts = [b.header.record_count for b in batches]
@@ -2161,6 +2393,7 @@ class TorchEngine:
         runner = self._meshrunner
         n = launch.n
         if (runner is None or n == 0 or len(launch.ranges) >= 2
+                or self._force_mode == "columnar_host"
                 or runner.decision != "mesh" or runner.probe_enabled):
             return False
         if self.governor.breaker_for(faults.MESH_DISPATCH).state == faults.STATE_OPEN:
@@ -2276,7 +2509,11 @@ class TorchEngine:
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
             marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             marks[0].record()
+            t_enq = time.perf_counter()
             dev = inputs if resident else [t.to(self.device, non_blocking=True) for t in inputs]
+            if not resident:
+                # the host's share of the copy-up interval between marks 0 and 1
+                self._stat("t_h2d_enqueue", t_enq)
             marks[1].record()
             out = run(dev)
             marks[2].record()

@@ -360,7 +360,7 @@ def measure_probe(n_records: int = 64, record_size: int = 512, reps: int = 2,
                 lz4_block_decompress(c, record_size)
         host_mb_s = total / 1e6 / ((time.perf_counter() - t0) / 20)
     device_mb_s = total / 1e6 / dev_s
-    return {
+    probe = {
         "device": str(dev),
         "records": n_records,
         "record_size": record_size,
@@ -370,3 +370,16 @@ def measure_probe(n_records: int = 64, record_size: int = 512, reps: int = 2,
         "ratio_device_vs_host": None if host_mb_s is None else round(device_mb_s / host_mb_s, 6),
         "decision": "host" if host_mb_s is not None and host_mb_s >= device_mb_s else "device",
     }
+    # the keep-or-kill verdict is a governed decision: it lands in the
+    # process decision journal. Imported here: ops/ must not import coproc/
+    # when it is imported.
+    from redpanda_tpu_torch.coproc import governor
+
+    governor.journal_record(
+        governor.DEVICE_LZ4,
+        probe["decision"],
+        f"device block decode {probe['device_mb_s']} MB/s vs host liblz4 "
+        f"{probe['host_mb_s']} MB/s (ratio {probe['ratio_device_vs_host']}x)",
+        dict(probe),
+    )
+    return probe

@@ -133,7 +133,8 @@ class RaftDevicePlane:
     def _calibrate(self, regions, rows, lens, claimed) -> str:
         """Host-vs-device pin on representative rows. Times the host leg
         that serves a "host" pin (_host_validate, unpadded) against the
-        device leg; raises when the device leg fails or disagrees."""
+        device leg; raises when the device leg fails or disagrees. The
+        measured verdict is journaled (mesh domain)."""
         t0 = time.perf_counter()
         host_ok = _host_validate(regions, claimed)
         t_host = time.perf_counter() - t0
@@ -159,6 +160,18 @@ class RaftDevicePlane:
         with self._lock:
             self._decision = decision
             self._probe = probe
+        # journaled under the mesh domain, as the JAX plane does; imported
+        # here: raft/ does not import coproc/ when it is imported
+        from redpanda_tpu_torch.coproc import governor
+
+        governor.journal_record(
+            governor.MESH,
+            decision,
+            f"raft batched CRC/vote probe: host {t_host * 1e3:.3f} ms vs "
+            f"device ({self.n_devices} dev) {t_dev * 1e3:.3f} ms (device "
+            f"must win {PROBE_MARGIN}x; process-sticky)",
+            dict(probe),
+        )
         return decision
 
     # ------------------------------------------------------------ API

@@ -35,6 +35,15 @@ def card():
     return torch.device("cuda", 0)
 
 
+@pytest.fixture(autouse=True)
+def _no_columnar_verdict():
+    """The engines' columnar backend is process-wide: every test starts and
+    ends with none measured, so that no test inherits another's verdict."""
+    TorchEngine.reset_columnar_probe()
+    yield
+    TorchEngine.reset_columnar_probe()
+
+
 def _docs(rng, n):
     out = []
     for i in range(n):
@@ -891,8 +900,10 @@ def test_pressure_eviction_frees_the_cached_cuda_columns(card, monkeypatch):
     monkeypatch.setattr(engine_mod, "_SHARD_MIN_ROWS", 32)
     rng = np.random.default_rng(10)
     plane = BudgetPlane(64 << 20)
+    # K1 pinned: the cached entries must hold CUDA columns whatever the
+    # columnar backend probe would choose
     eng = TorchEngine(device=card, row_stride=128, device_column_cache_mb=1, host_workers=2,
-                      host_pool_probe=False, budget_plane=plane)
+                      host_pool_probe=False, budget_plane=plane, force_mode="columnar_device")
     try:
         assert eng.enable_coprocessors([(1, T.where(EXPRS[1]).to_json(), ("t",))]) == [0]
         cc = eng.stats()["colcache"]
@@ -919,5 +930,107 @@ def test_pressure_eviction_frees_the_cached_cuda_columns(card, monkeypatch):
         assert before - after >= sum(held[k][0] for k in evicted)
         storage.release(got)
         assert plane.pressure() == "ok" and not eng.stats()["colcache"]["pressure"]
+    finally:
+        eng.shutdown()
+
+
+# ------------------------------------------------------------------ columnar backend
+def _probe_request(rng, n_items=4, n=400):
+    items = []
+    for p in range(n_items):
+        recs = [Record(offset_delta=i, value=v) for i, v in enumerate(_docs(rng, n))]
+        items.append(ProcessBatchItem(1, NTP.kafka("t", p), [RecordBatch.build(recs)]))
+    return ProcessBatchRequest(items)  # 1600 records: 2048 padded rows
+
+
+@pytest.mark.cuda
+def test_columnar_probe_on_the_card_publishes_a_verdict(card):
+    """A default engine's first launch of 2048 padded rows probes: the host
+    predicate against K1's launch and fetch (two K1 launches, not the
+    engine's); the verdict is published, journaled once and followed, and
+    the replies are the CPU engine's."""
+    from redpanda_tpu_torch.coproc import governor
+
+    governor.reset_journal()
+    req = _probe_request(np.random.default_rng(12))
+    spec = T.where(EXPRS[0]) | T.map_project(T.Int("code"), T.Str("msg", 24))
+    replies, stats = [], []
+    for dev in (card, "cpu"):
+        eng = TorchEngine(device=dev, row_stride=128, host_workers=0)
+        assert eng.enable_coprocessors([(1, spec.to_json(), ("t",))]) == [0]
+        before = kernels.PREDICATE.launches
+        replies.append([[b.encode_internal() for it in eng.process_batch(req).items
+                         for b in it.batches] for _ in range(2)])
+        stats.append((eng.stats(), kernels.PREDICATE.launches - before))
+        eng.shutdown()
+    assert replies[0] == replies[1] and any(replies[1][0])
+    (st, k1), (cpu_st, _) = stats
+    backend, probe = st["columnar_backend"], st["columnar_probe"]
+    assert backend in ("host", "device") and probe["chosen"] == backend
+    assert probe["t_host_s"] > 0 and probe["t_device_s"] > 0 and probe["margin"] == 4.0
+    own = st.get("n_kernel_predicate", 0)
+    assert own == (2 if backend == "device" else 0) and k1 == own + 2
+    assert st.get("n_host_predicate", 0) == (2 if backend == "host" else 0)
+    assert "columnar_backend" not in cpu_st  # a CPU engine neither probes nor reads it
+    entries = [e for e in governor.journal.entries() if e["domain"] == "columnar_backend"]
+    assert len(entries) == 1 and entries[0]["inputs"] == probe
+    assert not any(k.startswith("n_failures") for k in st)
+    governor.reset_journal()
+
+
+@pytest.mark.cuda
+def test_columnar_pins_on_the_card(card):
+    """Under a host verdict, "columnar_device" still launches K1 every launch
+    and "columnar_host" launches nothing and copies nothing up; both give
+    the CPU engine's replies."""
+    req = _probe_request(np.random.default_rng(13))
+    spec = T.where(EXPRS[1])
+    with TorchEngine._columnar_probe_lock:
+        TorchEngine._columnar_backend = "host"
+        TorchEngine._columnar_probe = {"chosen": "host"}
+    replies = {}
+    for mode in ("columnar_device", "columnar_host", "cpu"):
+        dev = "cpu" if mode == "cpu" else card
+        eng = TorchEngine(device=dev, row_stride=128, host_workers=0,
+                          force_mode=None if mode == "cpu" else mode)
+        assert eng.enable_coprocessors([(1, spec.to_json(), ("t",))]) == [0]
+        before = kernels.PREDICATE.launches
+        replies[mode] = [[b.encode_internal() for it in eng.process_batch(req).items
+                          for b in it.batches] for _ in range(3)]
+        st = eng.stats()
+        eng.shutdown()
+        if mode == "columnar_device":
+            assert kernels.PREDICATE.launches == before + 3 and st["n_kernel_predicate"] == 3
+        elif mode == "columnar_host":
+            assert kernels.PREDICATE.launches == before and st["n_host_predicate"] == 3
+            assert "bytes_h2d" not in st and "n_kernel_predicate" not in st
+    assert replies["columnar_device"] == replies["cpu"] == replies["columnar_host"]
+
+
+@pytest.mark.cuda
+def test_a_host_verdict_frees_cached_device_columns_on_the_card(card):
+    """A window under the probe's size launches K1 before any verdict and
+    caches its CUDA columns; after a "host" verdict its hit runs the host
+    predicate, makes no K1 launch, and the columns leave the cache and its
+    charge."""
+    req = _probe_request(np.random.default_rng(14), n_items=1, n=100)  # 128 padded rows
+    spec = T.where(EXPRS[1])
+    eng = TorchEngine(device=card, row_stride=128, host_workers=0, device_column_cache_mb=16)
+    try:
+        assert eng.enable_coprocessors([(1, spec.to_json(), ("t",))]) == [0]
+        cold = [b.encode_internal() for it in eng.process_batch(req).items for b in it.batches]
+        [entry] = eng._colcache._entries.values()
+        assert entry.cols_dev is not None and TorchEngine.sticky_columnar_backend() is None
+        charged, held = entry.nbytes, sum(t.nbytes for t in entry.cols_dev)
+        with TorchEngine._columnar_probe_lock:
+            TorchEngine._columnar_backend = "host"
+            TorchEngine._columnar_probe = {"chosen": "host"}
+        before = kernels.PREDICATE.launches
+        hit = [b.encode_internal() for it in eng.process_batch(req).items for b in it.batches]
+        st = eng.stats()
+        assert hit == cold and kernels.PREDICATE.launches == before
+        assert st["n_colcache_hit"] == 1 and st["n_host_predicate"] == 1
+        assert entry.cols_dev is None and entry.nbytes == charged - held
+        assert st["colcache"]["bytes"] == entry.nbytes
     finally:
         eng.shutdown()
