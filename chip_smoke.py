@@ -8,8 +8,16 @@ Phases, each of which exits non-zero on failure:
 1. Build every CUDA kernel from redpanda_tpu_torch/csrc/ with nvcc (one
    nvcc per source, all started together) and print the build times.
 2. Hold each kernel against its plain PyTorch version on the same CUDA
-   tensors, bit for bit: the predicate (K1) over the DOCS x EXPRS table,
-   a tree deeper than one stack word, and the bench's 32768 rows; the
+   tensors, bit for bit: the predicate (K1, rp_predicate_leg) over the
+   DOCS x EXPRS table and a tree deeper than one stack word, as one
+   crossing from a pinned block (copy up, kernel, bits down, events) and
+   over the block left resident; 200 legs of an engine on fresh columns
+   through its reused staging slots and a column-cache entry's block
+   launched over as a hit, against the host predicate; the bench's 32768
+   rows (the call over the launch's block resident on the card, as a cache
+   hit runs it, and the C entry alone), and K1's whole leg (host
+   columns packed, one crossing, the bits copied out) at 2048 and 32768
+   rows beside the host predicate (eval_host_mask) on the same columns; the
    payload transform (K3/K4) over the hand-made edge rows of
    ops/transforms.py edge_cases with their specs and over the bench's rows,
    packed (stride 1160) with the buffer at every offset mod 16 and
@@ -112,7 +120,9 @@ Phases, each of which exits non-zero on failure:
       byte-identical to the CPU engine's; then force_mode="columnar_host"
       and "columnar_device" lanes, both inline (host_workers=0), in turns,
       two rounds, with each half's rate (the host half launches no K1 and
-      copies nothing up).
+      copies nothing up) and its stages beside t_dispatch: t_leg_hop,
+      t_harvest_wait, t_fetch, t_dev_h2d / t_dev_kernel / t_dev_d2h and
+      t_leg_enqueue (the host's time in K1's crossings).
    Every other card engine of this script pins K1 (force_mode=
    "columnar_device"), so that a "host" verdict cannot take K1 off a path
    whose launches are counted. Phase 3's payload lane prints the host's
@@ -390,62 +400,176 @@ def phase_predicate(dev) -> dict:
     import numpy as np
     import torch
 
-    from redpanda_tpu_torch.coproc import batch_codec
-    from redpanda_tpu_torch.coproc.column_plan import plan_spec, predicate_plain
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.coproc import batch_codec, colcache
+    from redpanda_tpu_torch.coproc.column_plan import LegEvents, plan_spec, predicate_plain
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
     from redpanda_tpu_torch.ops.exprs import host_eval
     from redpanda_tpu_torch.ops.transforms import where
 
-    def cols_for(plan, vals, n_pad):
+    def host_cols(plan, vals, n_pad):
         joined = b"".join(vals)
         offsets = np.cumsum([0] + [len(v) for v in vals[:-1]]).astype(np.int64)
         sizes = np.array([len(v) for v in vals], np.int32)
-        return [torch.from_numpy(c).to(dev) for c in plan.extract_device_inputs(
-            joined, offsets, sizes, n_pad)]
+        return plan.extract_device_inputs(joined, offsets, sizes, n_pad)
+
+    events = LegEvents()
+
+    def crossing(plan, cols, n_pad):
+        """One rp_predicate_leg crossing from a pinned block, then one over
+        the block it left resident (a cache hit's launch): the bits of
+        each."""
+        lay = plan.block_layout(n_pad)
+        host = torch.empty(lay.total, dtype=torch.uint8, pin_memory=True)
+        lay.pack(cols, host.numpy())
+        bits_host = torch.empty(n_pad // 8, dtype=torch.uint8, pin_memory=True)
+        words = plan.spill_words() * n_pad
+        block = torch.empty(lay.total, dtype=torch.uint8, device=dev)
+        bits = torch.empty(n_pad // 8, dtype=torch.uint8, device=dev)
+        scratch = torch.empty(words, dtype=torch.int64, device=dev) if words else None
+        plan.predicate_leg(n_pad, block, bits, host_block=host, bits_host=bits_host,
+                           events=events, scratch=scratch)
+        events.wait()
+        bits.zero_()
+        plan.predicate_leg(n_pad, block, bits, scratch=scratch)
+        return bits_host, bits.cpu()
 
     vals, exprs = docs_and_exprs()
-    for i, expr in enumerate(exprs):
-        plan = plan_spec(where(expr))
-        cols = cols_for(plan, vals, 24)
-        got = plan.predicate(cols)
-        torch.cuda.synchronize()
-        if not torch.equal(got, predicate_plain(plan, cols)):
-            fail(f"predicate kernel != plain on EXPRS[{i}]")
-        oracle = np.array([host_eval(expr, v) for v in vals])
-        if not (np.unpackbits(got.cpu().numpy())[: len(vals)].astype(bool) == oracle).all():
-            fail(f"predicate kernel != host oracle on EXPRS[{i}]")
     deep = plan_spec(where(deep_expr()))
     rng = np.random.default_rng(5)
     deep_vals = [b'{"code":%d}' % int(c) for c in rng.integers(-100, 100, 2003)]
-    cols = cols_for(deep, deep_vals, 2008)
-    if not torch.equal(deep.predicate(cols), predicate_plain(deep, cols)):
-        fail("predicate kernel != plain on the deep tree")
-    log(f"K1 parity: {len(exprs)} DOCS x EXPRS cases and a depth-{deep.program.depth} "
-        "tree bit-identical to the plain version")
+    cases = [(f"EXPRS[{i}]", plan_spec(where(e)), vals, 24, e) for i, e in enumerate(exprs)]
+    cases.append(("the deep tree", deep, deep_vals, 2008, None))
+    for label, plan, vs, n_pad, expr in cases:
+        cols = host_cols(plan, vs, n_pad)
+        want = predicate_plain(plan, [torch.from_numpy(c) for c in cols])
+        copied, resident = crossing(plan, cols, n_pad)
+        if not torch.equal(copied, want):
+            fail(f"K1's crossing from a pinned block != plain on {label}")
+        if not torch.equal(resident, want):
+            fail(f"K1 over a resident block != plain on {label}")
+        if expr is not None:
+            oracle = np.array([host_eval(expr, v) for v in vs])
+            if not (np.unpackbits(want.numpy())[: len(vs)].astype(bool) == oracle).all():
+                fail(f"predicate plain != host oracle on {label}")
+    log(f"K1 parity (rp_predicate_leg): {len(exprs)} DOCS x EXPRS cases and a "
+        f"depth-{deep.program.depth} tree bit-identical to the plain version, as one crossing "
+        "from a pinned block and over the block left resident")
+
+    # an engine's legs through its staging slots: 200 fresh launches, three in
+    # flight at a time, and a column-cache entry's block launched over as a hit
+    eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, host_workers=0)
+    plan = plan_spec(where(exprs[19]))
+    inflight, checked = [], 0
+    for k in range(200):
+        n = int(rng.integers(100, 1900))
+        vs = [b'{"level":"%s","code":%d}' % (
+            [b"error", b"info", b"errorx"][int(rng.integers(0, 3))], int(rng.integers(-50, 300)))
+            for _ in range(n)]
+        cols = host_cols(plan, vs, 2048)
+        inflight.append((eng._run_leg(plan, cols), cols))
+        if len(inflight) == 3 or k == 199:
+            for pending, c in inflight:
+                if not np.array_equal(pending.wait(eng), plan.eval_host_mask(c)):
+                    fail(f"K1 leg {checked} through a reused slot != the host predicate")
+                checked += 1
+            inflight = []
+    slots = eng.leg_slot_stats()
+    if slots["slots"] > 3 or slots["held"]:
+        fail(f"K1 legs: staging slots {slots}")
+    entry = colcache.Entry(n=n, n_pad=2048, ranges=[(0, n)], cols=cols)
+    want = plan.eval_host_mask(cols)
+    cold = eng._run_leg(plan, cols, entry=entry).wait(eng)
+    eng._run_leg(plan, host_cols(plan, vs[::-1], 2048)).wait(eng)
+    hit = eng._run_leg(plan, cols, dev_block=entry.cols_dev).wait(eng)
+    if not (np.array_equal(cold, want) and np.array_equal(hit, want)):
+        fail("K1 leg over a cached block != the host predicate")
+    log(f"K1 legs: {checked} fresh launches through {slots['slots']} reused staging slots "
+        f"({slots['bytes']} B, {slots['grows']} growths) and a cache hit over an entry's block, "
+        "all equal to the host predicate")
 
     # the bench's launch: GROUP ticks x 64 partitions x 32 records
     req = build_request(short_msgs=False)
     batches = [b for it in req.items for b in it.batches] * GROUP
     plan = plan_spec(columnar_spec())
-    ex, types, vs, ve = batch_codec.explode_and_find(batches, plan.flat_paths())
-    cache = plan.make_cache_from_tables(ex, plan.flat_paths(), types, vs, ve)
+    ex, types, vs_, ve = batch_codec.explode_and_find(batches, plan.flat_paths())
+    cache = plan.make_cache_from_tables(ex, plan.flat_paths(), types, vs_, ve)
     n = len(ex.sizes)
-    cols = [torch.from_numpy(c).to(dev) for c in plan.extract_device_inputs(
-        ex.joined, ex.offsets, ex.sizes, n, cache)]
-    got = plan.predicate(cols)
+    bench_cols = plan.extract_device_inputs(ex.joined, ex.offsets, ex.sizes, n, cache)
+    # K1 over the launch's block resident on the card, as a cache hit runs it
+    lay = plan.block_layout(n)
+    packed = np.zeros(lay.total, np.uint8)
+    lay.pack(bench_cols, packed)
+    block = torch.from_numpy(packed).to(dev)
+    cols = lay.views(block)
+    bits = torch.empty(n // 8, dtype=torch.uint8, device=dev)
+    plan.predicate_leg(n, block, bits)
+    got = bits.clone()
     want = predicate_plain(plan, cols)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         fail("predicate kernel != plain at the bench shape")
-    ms = cuda_ms(lambda: plan.predicate(cols), 200)
+    ms = cuda_ms(lambda: plan.predicate_leg(n, block, bits), 200)
+    launch_ms = cuda_ms(raw_leg_launch(plan, n, block, bits, dev), 200)
     plain_ms = cuda_ms(lambda: predicate_plain(plan, cols), 20)
-    nbytes = sum(c.nbytes for c in cols) + n // 8
+    nbytes = sum(c.nbytes for c in bench_cols) + n // 8
     b_ms, b_by = bound_ms(nbytes, n * len(plan.program.code))
-    log(f"K1 bench shape: n={n} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b_ms * 1e3:.3f} us ({b_by}, {nbytes} B)")
+    log(f"K1 bench shape: n={n} resident call {ms:.4f} ms (rp_predicate_leg alone "
+        f"{launch_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms * 1e3:.3f} us ({b_by}, "
+        f"{nbytes} B)")
+    # the whole leg, host columns to bits copied out of pinned memory, beside
+    # the host predicate on the same columns (host clock, median of 200 each,
+    # in turns)
+    legs = {}
+    for rows in (2048, n):
+        cols_h = [c[:rows] for c in bench_cols] if rows < n else bench_cols
+        cols_h = [np.ascontiguousarray(c) for c in cols_h]
+        eng._run_leg(plan, cols_h).wait(eng)
+        t_leg, t_host = [], []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            bits = eng._run_leg(plan, cols_h).wait(eng)
+            t_leg.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            host_bits = plan.eval_host_mask(cols_h)
+            t_host.append(time.perf_counter() - t0)
+        if not np.array_equal(bits, host_bits):
+            fail(f"K1 leg at {rows} rows != the host predicate")
+        legs[rows] = (sorted(t_leg)[100] * 1e3, sorted(t_host)[100] * 1e3)
+        log(f"K1 whole leg at {rows} rows (pack, one crossing, wait, bits copied out): median "
+            f"{legs[rows][0]:.4f} ms against the host predicate's {legs[rows][1]:.4f} ms on the "
+            f"same columns (median of 200 each, host clock; ratio "
+            f"{legs[rows][1] / legs[rows][0]:.3f})")
+    st = eng.stats()
+    eng.shutdown()
+    events.close()
     return {"max_abs_err": max_abs_err([(got, want)]), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by,
-            "parity": f"bit-identical on {len(exprs)} EXPRS cases, a depth-{deep.program.depth} "
-                      f"tree and the bench shape (n={n})"}
+            "bound_ms": b_ms, "bound_by": b_by, "launch_ms": launch_ms,
+            "leg_ms": {str(r): v[0] for r, v in legs.items()},
+            "host_ms": {str(r): v[1] for r, v in legs.items()},
+            "parity": f"bit-identical on {len(exprs)} EXPRS cases and a depth-"
+                      f"{deep.program.depth} tree (resident and from a pinned block), "
+                      f"{checked} legs through reused slots, a cache hit and the bench shape "
+                      f"(n={n}); t_dev_kernel {st.get('t_dev_kernel', 0):.6f} s"}
+
+
+def raw_leg_launch(plan, n_pad, block, bits, dev):
+    """rp_predicate_leg over a resident block with the C entry point called
+    directly (no wrapper, not counted, no copies, no events)."""
+    from redpanda_tpu_torch import kernels
+
+    code, needles = plan.program.on(dev)
+    lay = plan.block_layout(n_pad)
+    argv = (None, block.data_ptr(), 0, lay.c_off, len(lay.parts), code.data_ptr(),
+            code.shape[0], needles.data_ptr(), n_pad, None, bits.data_ptr(), None, None,
+            kernels.stream_handle(dev))
+    fn = kernels.PREDICATE.fn()
+
+    def run():
+        if fn(*argv) != 0:
+            fail("rp_predicate_leg refused its launch")
+
+    return run
 
 
 # torch.profiler sessions run after every path (phase_device_times), so that
@@ -1499,9 +1623,13 @@ def phase_columnar_backend(dev, engine_run) -> int:
             fail(f"columnar_host lane: {k1} K1 launches {lane_stats(st)}")
         if mode == "columnar_device" and (not k1 or "n_host_predicate" in st):
             fail(f"columnar_device lane: {k1} K1 launches {lane_stats(st)}")
+        split = {k: round(st.get(k, 0.0), 6) for k in (
+            "t_leg_hop", "t_harvest_wait", "t_fetch", "t_dev_h2d", "t_dev_kernel", "t_dev_d2h",
+            "t_leg_enqueue")}
         log(f"columnar backend {mode} #{i // 2 + 1}: bench {rates['bench']:.1f} "
             f"record_batches/s over {TICKS} ticks, short_msgs {rates['short_msgs']:.1f}; "
-            f"t_dispatch {st.get('t_dispatch', 0.0) + st.get('t_shard_dispatch', 0.0):.6f} s; "
+            f"t_dispatch {st.get('t_dispatch', 0.0) + st.get('t_shard_dispatch', 0.0):.6f} s "
+            f"beside the stages {json.dumps(split)} (bench workload); "
             f"K1 launches {k1}, host predicates {st.get('n_host_predicate', 0):.0f}, "
             f"{st['n_launches']:.0f} launches")
     TorchEngine.reset_columnar_probe()
@@ -1740,7 +1868,7 @@ def admission_pressure(dev, engine_run) -> None:
         if cc["entries"] != 2 or cc["bytes"] <= cc["budget_bytes"] // 2:
             fail(f"admission pressure: the cache did not fill over two submits {cc}")
         torch.cuda.synchronize(dev)
-        dev_bytes = {k: sum(t.nbytes for t in e.cols_dev) for k, e in
+        dev_bytes = {k: e.cols_dev.nbytes for k, e in
                      eng._colcache._entries.items() if e.cols_dev is not None}
         if set(dev_bytes) != set(keys.values()):
             fail("admission pressure: a cached entry holds no CUDA tensors")
@@ -3048,7 +3176,7 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m.get("library_ms"), "parity": m["parity"],
         }
-        for extra in ("launch_ms", "device_ms"):
+        for extra in ("launch_ms", "device_ms", "leg_ms", "host_ms"):
             if extra in m:
                 row[extra] = m[extra]
         line.append(row)

@@ -7,8 +7,8 @@ ladder again -- decompress, parse, find, extract -- plus the copy up of the
 very same predicate columns. The cache keys one launch's products by
 ``(script_id, content fingerprint of the batch list)`` and hands them back
 whole: a hit skips every host dispatch stage, and once the predicate has run
-on the card the entry's ``cols_dev`` tensors are already there, so not a
-byte crosses the link.
+on the card the entry's ``cols_dev`` block is already there, so not a byte
+crosses the link.
 
 Staleness is impossible by construction of the key: the fingerprint covers
 each batch's payload CRC, base offset, record count, payload length and
@@ -53,13 +53,14 @@ class Entry:
     """One launch's cached columnar products.
 
     ``cols`` are the host predicate column arrays (always present);
-    ``cols_dev`` the CUDA tensors the first device launch copied them into,
-    kept so that later hits launch with no copy up (None on the CPU).
+    ``cols_dev`` the CUDA block the first device launch copied them into
+    (one uint8 tensor in ``ColumnarPlan.block_layout(n_pad)``), kept so
+    that later hits launch over it with no copy up (None on the CPU).
     ``exploded`` is kept only for passthrough plans, whose harvest gathers
     output bytes from the joined blob; projection plans keep the packed
     rows and the ok mask instead. Entries are read-only once put, which is
     what makes a hit bit-identical to a cold run, save that their device
-    tensors can be dropped (``DeviceColumnCache.drop_device``)."""
+    block can be dropped (``DeviceColumnCache.drop_device``)."""
 
     __slots__ = (
         "n", "n_pad", "ranges", "cols", "cols_dev", "proj_data", "proj_ok",
@@ -84,8 +85,8 @@ class Entry:
         total = 0
         for c in self.cols or ():
             total += getattr(c, "nbytes", 0)
-        for t in self.cols_dev or ():
-            total += t.nbytes
+        if self.cols_dev is not None:
+            total += self.cols_dev.nbytes
         if self.proj_ok is not None:
             total += self.proj_ok.nbytes
         for item in self.proj_data or ():
@@ -170,9 +171,9 @@ class DeviceColumnCache:
         return True
 
     def drop_device(self, key: tuple, entry: Entry) -> int:
-        """Drop a cached entry's device tensors, whose predicate now runs on
-        the host, and stop charging them (a launch that holds them keeps its
-        own reference). Returns the bytes released."""
+        """Drop a cached entry's device block, whose predicate now runs on
+        the host, and stop charging it (a launch that holds it keeps its own
+        reference). Returns the bytes released."""
         with self._lock:
             if self._entries.get(key) is not entry or entry.cols_dev is None:
                 return 0

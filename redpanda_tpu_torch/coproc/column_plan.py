@@ -13,11 +13,16 @@
 
 `plan_spec` is the single decision point. A columnar plan compiles its
 expression tree, once, into the flat postfix program the predicate kernel
-(csrc/predicate.cu) interprets over a table of column blocks;
-``predicate_blocks`` is that kernel's wrapper (``predicate`` its one-block
-case, ``predicate_stacked`` the mesh's one launch per card), and
-``predicate_plain`` is the same function in plain PyTorch (the JAX
-package's ``_build_expr`` / ``_contains`` / ``_packbits``). ``eval_host_mask``
+(csrc/predicate.cu) interprets. K1, one engine launch's predicate, has the
+wrapper ``predicate_leg``: the launch's columns in one block
+(``block_layout``: each column at a 16-byte-aligned offset), copied up,
+evaluated and the bits copied down in one native crossing
+(``rp_predicate_leg``), or evaluated where a resident block lies. K2 has
+``predicate_blocks`` (a table of column blocks, ``predicate`` its one-block
+case, ``predicate_stacked`` the mesh's one launch per card). ``predicate_plain`` is the same function
+in plain PyTorch (the JAX package's ``_build_expr`` / ``_contains`` /
+``_packbits``); on the CPU ``predicate_leg`` runs it over views of the same
+block layout the card reads. ``eval_host_mask``
 is the host predicate, the same function in numpy (the JAX package's numpy
 twin of its device program): a backend the engine can choose, not the
 kernel's plain version. Extraction and
@@ -104,6 +109,9 @@ OP_EXISTS, OP_STR_EQ, OP_CONTAINS, OP_BOOL, OP_NULL, OP_NUM, OP_AND, OP_OR, OP_N
 _CMP = {"eq": 0, "ne": 1, "lt": 2, "le": 3, "gt": 4, "ge": 5}
 MAX_COL_ARRAYS = 64  # csrc/predicate.cu kMaxCols: column arrays a block reads
 MAX_TABLE_PTRS = 480  # csrc/predicate.cu kMaxPtrs: the block table a launch takes by value
+LEG_ALIGN = 16  # bytes: every column of a launch's block starts on this boundary
+_NP_DTYPE = {torch.uint8: np.dtype(np.uint8), torch.int32: np.dtype(np.int32),
+             torch.float32: np.dtype(np.float32)}
 
 
 class PredicateProgram:
@@ -206,6 +214,92 @@ def block_chunks(n_blocks: int, n_cols: int) -> list[tuple[int, int]]:
     return [(lo, min(lo + cap, n_blocks)) for lo in range(0, n_blocks, cap)]
 
 
+class BlockLayout:
+    """One launch's predicate columns in one block of bytes, the layout K1's
+    leg copies up whole: column array k (``extract_device_inputs`` order:
+    str bytes [n_pad, w] and vlen int32, num float32, int32 and flags,
+    exists uint8) at byte ``offsets[k]``, each aligned to ``LEG_ALIGN``;
+    ``total`` bytes in all."""
+
+    __slots__ = ("parts", "offsets", "total", "c_off")
+
+    def __init__(self, kinds, n_pad: int):
+        self.parts = []  # (offset, torch dtype, numpy dtype, shape, bytes) per array
+        off = 0
+        for dtype, w in kinds:
+            shape = (n_pad,) if w is None else (n_pad, w)
+            nbytes = n_pad * (1 if w is None else w) * _NP_DTYPE[dtype].itemsize
+            self.parts.append((off, dtype, _NP_DTYPE[dtype], shape, nbytes))
+            off += -(-nbytes // LEG_ALIGN) * LEG_ALIGN
+        self.total = off
+        self.offsets = tuple(p[0] for p in self.parts)
+        self.c_off = (ctypes.c_longlong * len(self.parts))(*self.offsets)
+
+    def views(self, block) -> list:
+        """The column arrays as views of ``block``, a uint8 numpy array or
+        tensor of at least ``total`` bytes."""
+        if isinstance(block, np.ndarray):
+            return [block[o : o + nb].view(nd).reshape(shape) for o, _, nd, shape, nb in self.parts]
+        return [block[o : o + nb].view(td).view(shape) for o, td, _, shape, nb in self.parts]
+
+    def pack(self, cols, block: np.ndarray) -> None:
+        """Copy the numpy column arrays into their places in ``block``: one
+        host copy each. Raises ValueError for a missing array or one of
+        another dtype or shape."""
+        if len(cols) != len(self.parts):
+            raise ValueError(f"the block takes {len(self.parts)} column arrays, got {len(cols)}")
+        if block.nbytes < self.total:
+            raise ValueError(f"a block of {block.nbytes} B cannot hold {self.total} B")
+        for c, (o, _, nd, shape, nb) in zip(cols, self.parts):
+            if c.dtype != nd or c.shape != shape:
+                raise ValueError(f"column {c.shape} {c.dtype}: expected {shape} {nd}")
+            block[o : o + nb].view(nd).reshape(shape)[...] = c
+
+
+class LegEvents:
+    """The four CUDA timing events of one staging slot (csrc/predicate.cu
+    ``rp_leg_events``), created once on the current device and recorded by
+    every ``rp_predicate_leg`` crossing over the slot: start, copy up done,
+    kernel done, copy down done. The last one fences the leg."""
+
+    __slots__ = ("handles",)
+
+    def __init__(self):
+        self.handles = (ctypes.c_void_p * 4)()
+        _check_cuda("rp_leg_events", kernels.PREDICATE.symbol(
+            "rp_leg_events", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int])(self.handles, 4, 1))
+
+    def done(self) -> bool:
+        """Whether the last leg recorded on these events has completed (a
+        leg that ended in a CUDA error raises)."""
+        rc = kernels.PREDICATE.symbol("rp_leg_query", [ctypes.c_void_p])(self.handles[3])
+        if rc == _CUDA_NOT_READY:
+            return False
+        _check_cuda("rp_leg_query", rc)
+        return True
+
+    def wait(self) -> tuple[float, float, float]:
+        """Wait for the last leg to end; its copy up, kernel and copy down
+        in seconds (CUDA events)."""
+        ms = (ctypes.c_float * 3)()
+        _check_cuda("rp_leg_wait", kernels.PREDICATE.symbol(
+            "rp_leg_wait", [ctypes.c_void_p, ctypes.c_void_p])(self.handles, ms))
+        return ms[0] / 1e3, ms[1] / 1e3, ms[2] / 1e3
+
+    def close(self) -> None:
+        if self.handles[0]:
+            kernels.PREDICATE.symbol("rp_leg_events", [ctypes.c_void_p, ctypes.c_int,
+                                                       ctypes.c_int])(self.handles, 4, 0)
+
+
+_CUDA_NOT_READY = 600  # cudaErrorNotReady
+
+
+def _check_cuda(what: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
 # ------------------------------------------------------------------ plans
 @dataclass
 class ColumnarPlan:
@@ -216,6 +310,7 @@ class ColumnarPlan:
     passthrough: bool  # no projection: output = input value bytes
     program: PredicateProgram = dc_field(init=False, repr=False)
     _kinds: list = dc_field(init=False, repr=False)
+    _layouts: dict = dc_field(init=False, repr=False, default_factory=dict)
 
     mode = "columnar"
 
@@ -280,7 +375,20 @@ class ColumnarPlan:
         return slots
 
     # ------------------------------------------------------------ predicate
-    def predicate(self, arrays: list[torch.Tensor], kernel=kernels.PREDICATE) -> torch.Tensor:
+    def block_layout(self, n_pad: int) -> BlockLayout:
+        """Where a launch of ``n_pad`` rows keeps each column in its block
+        (made once per row count)."""
+        lay = self._layouts.get(n_pad)
+        if lay is None:
+            lay = self._layouts[n_pad] = BlockLayout(self._kinds, n_pad)
+        return lay
+
+    def spill_words(self) -> int:
+        """The kernel's spill words a row: stack words past the register's."""
+        return (self.program.depth + 63) // 64 - 1
+
+    def predicate(self, arrays: list[torch.Tensor],
+                  kernel=kernels.PREDICATE_STACKED) -> torch.Tensor:
         """The predicate over one block: the ordered column tensors ->
         packed keep bits uint8 [n_pad/8], MSB-first. CPU tensors run
         ``predicate_plain``; CUDA tensors are ``predicate_blocks`` over the
@@ -289,6 +397,63 @@ class ColumnarPlan:
             self._check_arrays(arrays)
             return predicate_plain(self, arrays)
         return self.predicate_blocks([arrays], kernel)[0]
+
+    def predicate_leg(self, n_pad: int, block: torch.Tensor, bits: torch.Tensor, *,
+                      host_block: torch.Tensor | None = None,
+                      bits_host: torch.Tensor | None = None,
+                      scratch: torch.Tensor | None = None, events: LegEvents | None = None,
+                      stream: int | None = None) -> None:
+        """K1's wrapper: the predicate over one launch's block of ``n_pad``
+        rows (``block_layout(n_pad)``) into ``bits`` (uint8, its first
+        n_pad/8 bytes). On a card, one crossing of ``rp_predicate_leg`` on
+        ``stream`` (default: the current one): ``host_block`` (pinned) copied
+        into ``block`` first unless None (a resident block), the launch, the
+        bits copied down into ``bits_host`` (pinned) unless None, and
+        ``events`` recorded between the steps; ``scratch`` holds
+        ``spill_words() * n_pad`` int64 for trees deeper than 64. A refused
+        argument or launch raises RuntimeError, with no launch counted.
+        A CPU ``block`` (and only that) runs ``predicate_plain`` over views
+        of it; no host block, events or scratch then."""
+        lay = self.block_layout(n_pad)
+        nb = n_pad // 8
+        if block.device.type == "cpu":
+            if host_block is not None or events is not None:
+                raise ValueError("a CPU block is evaluated where it lies: no copy, no events")
+            got = self.predicate(lay.views(block))
+            bits[:nb] = got
+            if bits_host is not None:
+                bits_host[:nb] = got
+            return
+        if block.device.type != "cuda":
+            raise ValueError(f"unsupported device {block.device}")
+        dev = block.device
+        if block.dtype != torch.uint8 or not block.is_contiguous() or block.numel() < lay.total:
+            raise ValueError(f"block {tuple(block.shape)} {block.dtype}: expected contiguous "
+                             f"uint8 of at least {lay.total} B")
+        if bits.device != dev or bits.dtype != torch.uint8 or bits.numel() < nb:
+            raise ValueError(f"bits: expected uint8 of at least {nb} B on {dev}")
+        if host_block is not None and (host_block.device.type != "cpu" or not host_block.is_pinned()
+                                       or host_block.dtype != torch.uint8
+                                       or host_block.numel() < lay.total):
+            # a pageable source would make the copy up synchronous
+            raise ValueError(f"host_block: expected pinned uint8 of at least {lay.total} B")
+        if bits_host is not None and (bits_host.device.type != "cpu" or not bits_host.is_pinned()
+                                      or bits_host.numel() < nb):
+            raise ValueError(f"bits_host: expected pinned uint8 of at least {nb} B")
+        words = self.spill_words()
+        if words > 0 and (scratch is None or scratch.device != dev
+                          or scratch.dtype != torch.int64 or scratch.numel() < words * n_pad):
+            raise ValueError(f"scratch: expected int64 of at least {words * n_pad} on {dev}")
+        code, needles = self.program.on(dev)
+        kernels.PREDICATE.launch(
+            None if host_block is None else host_block.data_ptr(), block.data_ptr(),
+            lay.total if host_block is not None else 0, lay.c_off, len(self._kinds),
+            code.data_ptr(), code.shape[0], needles.data_ptr(), n_pad,
+            scratch.data_ptr() if words > 0 else None, bits.data_ptr(),
+            None if bits_host is None else bits_host.data_ptr(),
+            None if events is None else events.handles,
+            kernels.stream_handle(dev) if stream is None else stream,
+        )
 
     def predicate_blocks(self, blocks, kernel=kernels.PREDICATE_STACKED) -> torch.Tensor:
         """The predicate kernel's wrapper: a list of blocks, each the

@@ -24,9 +24,9 @@ The host ladder before and after the device is the JAX engine's:
     pointers, then one fused extraction crossing, ``rp_extract_cols2``);
     which one is a measured per-engine decision (``_parse_path``);
   * the column cache (coproc/colcache.py, off by default) keeps a launch's
-    columns -- on a card, the tensors they were copied into -- keyed by the
-    batch window's content, so a repeat launch skips the host ladder and
-    the copy up;
+    columns -- on a card, the device block they were copied into -- keyed
+    by the batch window's content, so a repeat launch skips the host ladder
+    and the copy up;
   * payload plans stage from a pointer table: each batch's records are
     packed straight from its payload into the pinned staging tensor;
   * byte-identity plans (columnar passthrough, identity) frame their output
@@ -45,9 +45,18 @@ The host ladder before and after the device is the JAX engine's:
 Device work runs on the engine's own CUDA stream, never synchronously: the
 inputs are packed into pinned host memory, copied up, the kernel runs, the
 result is copied down into pinned memory, and one CUDA event marks the end.
-A pool worker enters the engine's device and stream itself (both are per
-thread in PyTorch). On a card the mask-harvest thread waits on each
-predicate launch's end event off the dispatch path and publishes its keep
+A columnar launch's predicate (K1) is one native crossing
+(``ColumnarPlan.predicate_leg``) over a staging slot of the engine's pool
+(``_LegSlots``): the launch's columns are packed into the slot's pinned
+block (``ColumnarPlan.block_layout``), and the copy up into the slot's
+device block, the kernel, the bits' copy down into the slot's pinned output
+and four timing events are enqueued in one C call. A slot is made once and
+grows to the largest launch; it is reused only once its last event has
+completed, and the bits are copied out of it when the mask is fetched. A
+column-cache entry keeps its own device block, which a hit launches over
+with no copy up. A pool worker enters the engine's device and stream itself
+(both are per thread in PyTorch). On a card the mask-harvest thread waits on
+each predicate launch's end event off the dispatch path and publishes its keep
 bits; ``Ticket.result()`` then finds them ready, so several launches stay in
 flight while the host explodes, extracts and frames others. A failed harvest
 is kept on its mask and raised at harvest into the script's error policy:
@@ -100,9 +109,10 @@ before any host ladder, copy up or launch, whichever lane the launch then
 takes. A submit the account cannot hold raises a retriable ``ShedError``
 having run nothing (shed-before-ack); the bytes come back when the ticket
 harvests, or at once when the submit raises. The engine listens to the
-plane's pressure: on critical it trims its framing arena and halves the
-column cache's budget (the evicted entries' device tensors are freed with
-them); back at ok the cache gets its whole budget again.
+plane's pressure: on critical it trims its framing arena, frees its free K1
+staging slots and halves the column cache's budget (the evicted entries'
+device blocks are freed with them); back at ok the cache gets its whole
+budget again.
 
 Error policies mirror the public SDK: SkipOnFailure drops the failing batch
 but keeps the script; Deregister removes the script on first failure.
@@ -125,7 +135,7 @@ import torch
 from redpanda_tpu_torch import native
 from redpanda_tpu_torch import kernels
 from redpanda_tpu_torch.coproc import batch_codec, colcache, faults, governor, host_pool, meshrunner
-from redpanda_tpu_torch.coproc.column_plan import ColumnarPlan, PayloadPlan, plan_spec
+from redpanda_tpu_torch.coproc.column_plan import ColumnarPlan, LegEvents, PayloadPlan, plan_spec
 from redpanda_tpu_torch.device import resolve_device
 from redpanda_tpu_torch.hashing.xx import xxhash64
 from redpanda_tpu_torch.models.fundamental import NTP
@@ -229,14 +239,21 @@ class _Pending:
     """One device result in flight: the pinned host tensor it lands in, for
     each stream it runs on (one, or one per card of the mesh) four timing events
     (start, H2D done, kernel done, D2H done), and the tensors the streams
-    still read or write."""
+    still read or write. A K1 leg's result (``slot``: its staging slot, ``nb``
+    its bytes) lands in the slot's output instead, timed by the slot's
+    events: ``wait`` copies the bits out and gives the slot back, once, under
+    ``lock``, however many waiters there are (a retried fetch runs ``wait``
+    again on another worker while the first may still run)."""
 
-    __slots__ = ("host", "marks", "refs")
+    __slots__ = ("host", "marks", "refs", "slot", "nb", "lock", "__weakref__")
 
-    def __init__(self, host: torch.Tensor, marks=None, refs=None):
+    def __init__(self, host: torch.Tensor | None, marks=None, refs=None, slot=None, nb: int = 0):
         self.host = host
         self.marks = marks
         self.refs = refs
+        self.slot = slot
+        self.nb = nb
+        self.lock = threading.Lock() if slot is not None else None
 
     def wait(self, engine: "TorchEngine") -> np.ndarray:
         if self.marks is not None:
@@ -246,7 +263,181 @@ class _Pending:
                 engine._stat_add("t_dev_kernel", m[1].elapsed_time(m[2]) / 1e3)
                 engine._stat_add("t_dev_d2h", m[2].elapsed_time(m[3]) / 1e3)
             self.marks = self.refs = None
+        if self.lock is not None:
+            # a second waiter finds the slot given back and the bits copied
+            # out; it never reads a slot another leg may hold by then
+            with self.lock:
+                slot = self.slot
+                if slot is not None:
+                    if slot.events is not None:
+                        h2d, kern, d2h = slot.events.wait()
+                        engine._stat_many((("t_dev_h2d", h2d), ("t_dev_kernel", kern),
+                                           ("t_dev_d2h", d2h)))
+                    # a copy: the slot's output is the next launch's
+                    self.host = torch.from_numpy(slot.bits_np[: self.nb].copy())
+                    self.slot = self.refs = None
+                    engine._leg_slots.release(slot, self)
         return self.host.numpy()
+
+    def abandon(self, engine: "TorchEngine") -> None:
+        """Nobody fetches this result: its slot goes back to the pool, to be
+        reused once its last event has completed. A waiter still running
+        (an abandoned fetch) gives the slot back itself."""
+        if self.lock is None or not self.lock.acquire(blocking=False):
+            return
+        try:
+            slot, self.slot = self.slot, None
+            if slot is not None:
+                self.refs = None
+                engine._leg_slots.release(slot, self)
+        finally:
+            self.lock.release()
+
+
+def _held() -> bool:  # a slot's owner between its acquisition and its _Pending
+    return True
+
+
+class _LegSlot:
+    """One K1 leg's staging, made once and reused launch after launch: the
+    host block the launch's columns are packed into (pinned on a card), the
+    device block it is copied into, the keep bits on the card and their
+    host copy (pinned), the spill words, and four timing events (a card's,
+    ``LegEvents``). ``owner`` is a weak reference to the _Pending that holds
+    the slot (None: free)."""
+
+    def __init__(self):
+        self.host = self.host_np = self.dev = None
+        self.bits = self.bits_host = self.bits_np = self.scratch = None
+        self.events = None
+        self.cap = self.bits_cap = self.words_cap = 0
+        self.owner = None
+
+    @property
+    def nbytes(self) -> int:
+        """Host and device bytes the slot holds."""
+        if self.dev is None:  # the CPU's: one block, one buffer of bits
+            return self.cap + self.bits_cap
+        return 2 * self.cap + 2 * self.bits_cap + 8 * self.words_cap
+
+    def in_flight(self) -> bool:
+        """Whether the last leg over the slot may still read or write it."""
+        return self.events is not None and not self.events.done()
+
+
+class _LegSlots:
+    """The engine's pool of K1 staging slots. A launch takes a free slot (no
+    holder, and its last event completed) and grows it to its own block,
+    bits and spill words, or makes a new one; so at most as many slots live
+    as legs were ever in flight at once (the launch depth plus the pool's
+    shards). A slot goes back when its bits are fetched, when its mask is
+    abandoned, or when its _Pending is dropped unfetched. ``trim`` frees the
+    free slots (critical memory pressure), ``close`` every slot (shutdown,
+    after the stream has drained). ``bytes`` is the pool's charge: host and
+    device bytes of every slot."""
+
+    _GRAIN = 4096  # blocks grow in whole pages
+
+    def __init__(self, device: torch.device, stream):
+        self._device = device
+        self._stream = stream
+        self._lock = threading.Lock()
+        self._slots: list[_LegSlot] = []
+        self._grows = 0
+        self._trimmed = 0
+
+    def acquire(self, block: int, nb: int, words: int) -> _LegSlot:
+        """A free slot fitted to a launch of ``block`` bytes, ``nb`` bytes of
+        bits and ``words`` spill words, held until ``bind``/``release``."""
+        with self._lock:
+            free = [s for s in self._slots
+                    if (s.owner is None or s.owner() is None) and not s.in_flight()]
+            slot = next((s for s in free if s.cap >= block and s.bits_cap >= nb
+                         and s.words_cap >= words), free[0] if free else None)
+            if slot is None:
+                slot = _LegSlot()
+                self._slots.append(slot)
+            slot.owner = _held
+            try:
+                self._fit(slot, block, nb, words)
+            except BaseException:
+                slot.owner = None
+                raise
+        return slot
+
+    def _fit(self, slot: _LegSlot, block: int, nb: int, words: int) -> None:
+        cuda = self._device.type == "cuda"
+        grain = self._GRAIN
+        if slot.cap < block or slot.bits_cap < nb:
+            cap = max(slot.cap, -(-block // grain) * grain)
+            bcap = max(slot.bits_cap, -(-nb // grain) * grain)
+            slot.host = torch.empty(cap, dtype=torch.uint8, pin_memory=cuda)
+            slot.host_np = slot.host.numpy()
+            slot.bits_host = torch.empty(bcap, dtype=torch.uint8, pin_memory=cuda)
+            slot.bits_np = slot.bits_host.numpy()
+            if cuda:
+                with torch.cuda.device(self._device), torch.cuda.stream(self._stream):
+                    slot.dev = torch.empty(cap, dtype=torch.uint8, device=self._device)
+                    slot.bits = torch.empty(bcap, dtype=torch.uint8, device=self._device)
+            else:
+                slot.bits = slot.bits_host  # the plain version writes the bits where they are read
+            slot.cap, slot.bits_cap = cap, bcap
+            self._grows += 1
+        if cuda and slot.words_cap < words:
+            with torch.cuda.device(self._device), torch.cuda.stream(self._stream):
+                slot.scratch = torch.empty(words, dtype=torch.int64, device=self._device)
+            slot.words_cap = words
+        if cuda and slot.events is None:
+            with torch.cuda.device(self._device):
+                slot.events = LegEvents()
+
+    def bind(self, slot: _LegSlot, pending: _Pending) -> None:
+        slot.owner = weakref.ref(pending)
+
+    def release(self, slot: _LegSlot, holder: _Pending | None = None) -> None:
+        """Give ``slot`` back: from its _Pending ``holder``, or before it was
+        bound (None). A slot another leg holds by now is left as it is."""
+        with self._lock:
+            owner = slot.owner
+            if holder is None:
+                mine = owner is _held
+            else:
+                mine = owner is not None and owner() is holder
+            if mine:
+                slot.owner = None
+
+    def trim(self) -> int:
+        """Free every free slot; returns the bytes they held."""
+        with self._lock:
+            gone = [s for s in self._slots
+                    if (s.owner is None or s.owner() is None) and not s.in_flight()]
+            self._slots = [s for s in self._slots if s not in gone]
+            self._trimmed += len(gone)
+        freed = sum(s.nbytes for s in gone)
+        for s in gone:
+            _free_slot(s)
+        return freed
+
+    def close(self) -> None:
+        """Free every slot (the caller has drained the stream)."""
+        with self._lock:
+            gone, self._slots = self._slots, []
+        for s in gone:
+            _free_slot(s)
+
+    def stats(self) -> dict:
+        with self._lock:
+            busy = sum(1 for s in self._slots if s.owner is not None and s.owner() is not None)
+            return {"slots": len(self._slots), "held": busy,
+                    "bytes": sum(s.nbytes for s in self._slots), "grows": self._grows,
+                    "trimmed": self._trimmed}
+
+
+def _free_slot(slot: _LegSlot) -> None:
+    """Destroy a slot's events and drop its buffers."""
+    if slot.events is not None:
+        slot.events.close()
+    slot.__init__()
 
 
 class _MaskSlot:
@@ -815,6 +1006,8 @@ class TorchEngine:
         self._stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(device=self.device)
+        # K1's staging slots (one native crossing a launch)
+        self._leg_slots = _LegSlots(self.device, self._stream)
         self._force_mode = force_mode
         # whether unpinned launches probe for, and follow, the process-wide
         # columnar backend: engines on a card only (tests set it on a CPU
@@ -1013,9 +1206,9 @@ class TorchEngine:
 
     def shutdown(self) -> None:
         """Stop the mask-harvest thread (a sentinel queued behind the masks
-        in flight, then a join) and the host-stage pool's threads, and wait
-        for every launch still on the engine's streams. The engine takes no
-        request after it."""
+        in flight, then a join) and the host-stage pool's threads, wait for
+        every launch still on the engine's streams and free every K1 staging
+        slot. The engine takes no request after it."""
         with self._stats_lock:
             t, self._harvester = self._harvester, None
         if t is not None and t.is_alive():
@@ -1029,6 +1222,7 @@ class TorchEngine:
             for stream in self._meshrunner.mesh.streams:
                 if stream is not None:
                     stream.synchronize()
+        self._leg_slots.close()
         with self._stats_lock:  # concurrent shutdowns: swap-then-remove once
             listener, self._pressure_listener = self._pressure_listener, None
         if self._budget_plane is not None and listener is not None:
@@ -1039,7 +1233,7 @@ class TorchEngine:
     # ------------------------------------------------------------ colcache
     def invalidate_columns(self, script_id: int | None = None) -> int:
         """Drop cached columns (every script's when script_id is None) and
-        their device tensors; returns entries dropped. The key is
+        their device blocks; returns entries dropped. The key is
         content-addressed, so this reclaims memory and never changes a
         reply."""
         if self._colcache is None:
@@ -1070,14 +1264,18 @@ class TorchEngine:
     def _on_memory_pressure(self, level: str, snap: dict) -> None:
         """Budget-plane pressure transition (fired by the plane on a level
         CHANGE, from whatever thread moved the occupancy). CRITICAL frees
-        reclaimable memory: the arena's free list is trimmed and the column
-        cache evicts down to half its budget (an evicted entry takes its
-        device tensors with it: nothing else holds them); OK restores the
-        whole cache budget. WARN only journals. Each transition is one
+        reclaimable memory: the arena's free list is trimmed, the free K1
+        staging slots are freed (``n_pressure_slot_bytes``: their bytes) and
+        the column cache evicts down to half its budget (an evicted entry
+        takes its device block with it: nothing else holds it); OK restores
+        the whole cache budget. WARN only journals. Each transition is one
         ADMISSION journal entry."""
-        trims = evicted = 0
+        trims = evicted = slot_bytes = 0
         if level == rm_budgets.PRESSURE_CRITICAL:
             trims = self._arena.trim()
+            slot_bytes = self._leg_slots.trim()
+            if slot_bytes:
+                self._stat_add("n_pressure_slot_bytes", float(slot_bytes))
             if self._colcache is not None:
                 evicted = self._colcache.set_pressure(True)
             self._stat_add("n_pressure_trims", 1.0)
@@ -1129,8 +1327,11 @@ class TorchEngine:
         the host predicate's evaluations; on an engine that follows the
         process-wide columnar backend, ``columnar_backend`` and
         ``columnar_probe`` (its probe's times, margin and verdict) appear
-        once it is measured. ``t_h2d_enqueue`` is the host's enqueue of the
-        copies up (host clock), inside ``t_dev_h2d``'s interval."""
+        once it is measured. ``t_h2d_enqueue`` is the host's time in the
+        calls that enqueue the payload lane's copies up (host clock, inside
+        ``t_dev_h2d``'s interval); ``t_leg_enqueue`` the host's time in K1's
+        native crossings (copy up, launch, copy down, events). K1's staging
+        pool reports apart (``leg_slot_stats``)."""
         with self._stats_lock:
             out = dict(self._stats)
         out["device"] = str(self.device)
@@ -1166,6 +1367,12 @@ class TorchEngine:
                 out["columnar_probe"] = dict(probe)
         return out
 
+    def leg_slot_stats(self) -> dict:
+        """K1's staging pool: its slots, those held by a leg in flight or
+        unfetched, the host and device bytes of all of them, the growths and
+        the slots freed by pressure."""
+        return self._leg_slots.stats()
+
     @classmethod
     def sticky_columnar_backend(cls) -> str | None:
         """The process-wide columnar backend, read under the field lock (one
@@ -1199,6 +1406,16 @@ class TorchEngine:
 
     def _stat(self, key: str, t0: float) -> None:
         self._stat_add(key, time.perf_counter() - t0)
+
+    def _stat_many(self, items) -> None:
+        """Several ``_stat_add``s, (key, value) pairs, under one lock."""
+        if getattr(_probing, "on", False):
+            return
+        with self._stats_lock:
+            for key, v in items:
+                self._stats[key] += v
+                if key.startswith("t_"):
+                    probes.coproc_stage_hist(key[2:]).record(int(v * 1e6))
 
     def _note_failure(self, domain: str, exc: BaseException) -> None:
         """One failure that meets an error policy or a degraded lane:
@@ -1365,13 +1582,17 @@ class TorchEngine:
 
     def _abandon_pending_masks(self, launch: _Launch) -> None:
         """Mark a degraded sharded launch's still-queued shard masks
-        abandoned: the harvest thread skips them."""
+        abandoned: the harvest thread skips them, and their staging slots go
+        back to the pool (reused once their last event has completed)."""
         with launch._lock:
             slots, launch.pending_slots = launch.pending_slots, []
         with _mask_claim_lock:
-            for slot in slots:
-                if slot.state == "queued":
-                    slot.state = "abandoned"
+            gone = [slot for slot in slots if slot.state == "queued"]
+            for slot in gone:
+                slot.state = "abandoned"
+        for slot in gone:
+            if slot.pending is not None:
+                slot.pending.abandon(self)
 
     # ------------------------------------------------------------ seal
     def _seal_jobs(self, jobs: list[tuple]) -> list:
@@ -2001,14 +2222,14 @@ class TorchEngine:
                             structural: bool) -> _HostShard:
         """One shard on a pool worker: its column-cache consult (a hit skips
         the ladder), its ladder, the predicate over its own columns (on a
-        card one K1 launch on the engine's stream, handed to the harvest
+        card one K1 leg on the engine's stream, handed to the harvest
         thread, so it overlaps the other shards' extraction; the host
-        predicate under a "host" backend: a hit's device tensors are then
+        predicate under a "host" backend: a hit's device block is then
         dropped from the cache), and its cache entry."""
         faults.inject(faults.SHARD_WORKER)
         shard = _HostShard()
         key = self._shard_cache_key(launch.script_id, batches)
-        entry = dev_cols = store_entry = None
+        entry = dev_block = store_entry = None
         if key is not None:
             entry = self._colcache.lookup(key)
             self._count_colcache(entry is not None)
@@ -2016,22 +2237,22 @@ class TorchEngine:
             n_pad = _bucket_rows(entry.n) if entry.n else 0
             cols = self._shard_from_entry(shard, plan, entry, n_pad)
             if entry.cols_dev is not None and entry.n_pad == n_pad:
-                dev_cols = entry.cols_dev
+                dev_block = entry.cols_dev
         else:
             cols, n_pad = self._shard_ladder(shard, plan, batches, paths, structural)
             if key is not None and shard.n and cols is not None:
                 store_entry = self._shard_cache_entry(shard, plan, cols, n_pad, structural)
         if shard.n and cols is not None and launch.backend == "host":
             shard.mask = self._host_mask(plan, cols, "t_shard_dispatch", launch.trace_id)
-            if dev_cols is not None:
+            if dev_block is not None:
                 self._colcache.drop_device(key, entry)
         elif shard.n and cols is not None:
-            shard.mask = self._predicate_mask(plan, cols, store_entry, dev_cols,
+            shard.mask = self._predicate_mask(plan, cols, store_entry, dev_block,
                                               stage="t_shard_dispatch", trace_id=launch.trace_id)
             with launch._lock:
                 launch.pending_slots.append(shard.mask)
         if store_entry is not None:
-            # after the launch, so that the entry holds its device tensors
+            # after the launch, so that the entry holds its device block
             self._store(key, store_entry)
         return shard
 
@@ -2101,11 +2322,11 @@ class TorchEngine:
 
     def _dispatch_columnar_cached(self, launch, plan: ColumnarPlan, key, entry) -> None:
         """A column-cache hit: no host dispatch stage runs, and the predicate
-        reads the entry's columns -- on a card the tensors the cold launch
-        left there, so nothing is copied up (under a "host" backend the host
-        predicate reads the host columns, and the device tensors, which no
-        launch will read again, leave the cache). The arrays are the cold
-        launch's, so the reply is bit-identical."""
+        reads the entry's columns -- on a card the device block the cold
+        launch left there, so nothing is copied up (under a "host" backend
+        the host predicate reads the host columns, and the device block,
+        which no launch will read again, leaves the cache). The arrays are
+        the cold launch's, so the reply is bit-identical."""
         self._count_launch(launch, list(entry.ranges), entry.n)
         launch.r_out = plan.r_out
         if plan.passthrough:
@@ -2113,31 +2334,32 @@ class TorchEngine:
             launch.exploded = entry.exploded
         else:
             launch.proj_data, launch.proj_ok = entry.proj_data, entry.proj_ok
-        self._dispatch_predicate(launch, plan, entry.cols, dev_cols=entry.cols_dev)
+        self._dispatch_predicate(launch, plan, entry.cols, dev_block=entry.cols_dev)
         if entry.cols_dev is not None and launch.backend == "host":
             self._colcache.drop_device(key, entry)
 
     def _store(self, key, entry: colcache.Entry) -> None:
-        entry.nbytes = entry._measure()  # with the device tensors, once copied up
+        entry.nbytes = entry._measure()  # with the device block, once copied up
         self._colcache.put(key, entry)
 
     def _dispatch_predicate(self, launch, plan: ColumnarPlan, cols, entry=None,
-                            dev_cols=None) -> None:
+                            dev_block=None) -> None:
         """The predicate over a launch's columns: the one-batch mesh lane
         when it takes the launch, else the single-card leg: the host
         predicate when ``force_mode`` or the columnar backend says so, else
-        one launch on the engine's stream. ``entry`` (a cache entry being
-        built) keeps the tensors the columns are copied into; ``dev_cols``
-        are such tensors from a hit, launched as they are. ``cols`` are
-        always the host columns (the probe's and the host predicate's)."""
+        one K1 leg on the engine's stream. ``entry`` (a cache entry being
+        built) keeps the device block the columns are copied into;
+        ``dev_block`` is such a block from a hit, launched over as it is.
+        ``cols`` are always the host columns (the probe's and the host
+        predicate's)."""
         if not plan.dev_cols:
             return
-        if dev_cols is None and self._dispatch_mesh_blocks(launch, plan, cols):
+        if dev_block is None and self._dispatch_mesh_blocks(launch, plan, cols):
             return
         if self._predicate_on_host(launch, plan, cols):
             launch.mask = self._host_mask(plan, cols, trace_id=launch.trace_id)
             return
-        launch.mask = self._predicate_mask(plan, cols, entry, dev_cols, trace_id=launch.trace_id)
+        launch.mask = self._predicate_mask(plan, cols, entry, dev_block, trace_id=launch.trace_id)
 
     # ------------------------------------------------------ columnar backend
     def _settled_backend(self) -> str | None:
@@ -2176,22 +2398,25 @@ class TorchEngine:
         return time.perf_counter() - t0
 
     def _probe_device_leg(self, plan: ColumnarPlan, cols) -> float:
-        """The probe's device leg, run on a fetch worker on a card: the
-        columns pinned, a warm-up launch of K1 through ``_run_device`` with
-        its fetch (the kernel's build on a first use), then the seconds of
-        one more launch and fetch, timed inside the leg (the worker's
-        hand-offs are not the leg's). Its stats are not kept; its launches
-        count under the kernel."""
+        """The probe's device leg, run on a fetch worker on a card: a
+        warm-up K1 leg through ``_run_leg`` with its fetch (the kernel's
+        build on a first use, the staging slot's growth), then the seconds
+        of one more leg and fetch -- host columns packed, copied up,
+        evaluated, the bits down and copied out -- timed inside the leg (the
+        worker's hand-offs are not the leg's). Its stats are not kept; its
+        launches count under the kernel."""
+        faults.inject(faults.DEVICE_DISPATCH)
+        self._unkept_leg(plan, cols)
+        t0 = time.perf_counter()
+        self._unkept_leg(plan, cols)
+        return time.perf_counter() - t0
+
+    def _unkept_leg(self, plan: ColumnarPlan, cols) -> np.ndarray:
+        """K1's leg and fetch (``_run_leg``) for a probe: its keep bits,
+        with its stats not kept; its launch counts under the kernel."""
         was, _probing.on = getattr(_probing, "on", False), True
         try:
-            faults.inject(faults.DEVICE_DISPATCH)
-            inputs = [torch.from_numpy(c) for c in cols]
-            if self._stream is not None:
-                inputs = [t.pin_memory() for t in inputs]
-            self._run_device(inputs, plan.predicate, "predicate").wait(self)
-            t0 = time.perf_counter()
-            self._run_device(inputs, plan.predicate, "predicate").wait(self)
-            return time.perf_counter() - t0
+            return self._run_leg(plan, cols).wait(self)
         finally:
             _probing.on = was
 
@@ -2242,21 +2467,14 @@ class TorchEngine:
         self._stat_add("n_host_predicate", 1)
         return slot
 
-    def _predicate_mask(self, plan: ColumnarPlan, cols, entry=None, dev_cols=None,
+    def _predicate_mask(self, plan: ColumnarPlan, cols, entry=None, dev_block=None,
                         stage: str = "t_dispatch", trace_id: int | None = None) -> _MaskSlot:
-        """One predicate launch over host columns (pinned, then copied up) or
-        a hit's device tensors, under the dispatch domain's envelope; its mask
-        is handed to the harvest thread."""
-        if dev_cols is None:
-            inputs = [torch.from_numpy(c) for c in cols]
-            if self._stream is not None:
-                inputs = [t.pin_memory() for t in inputs]
-        else:
-            inputs = dev_cols
-
+        """One K1 leg over host columns or a hit's device block, under the
+        dispatch domain's envelope; its mask is handed to the harvest
+        thread."""
         def leg():
             faults.inject(faults.DEVICE_DISPATCH)
-            return self._run_device(inputs, plan.predicate, "predicate", entry, stage)
+            return self._run_leg(plan, cols, entry, dev_block, stage)
 
         slot = _MaskSlot(self._try_device_leg(faults.DEVICE_DISPATCH, leg), trace_id)
         self._publish_mask(slot)
@@ -2321,7 +2539,7 @@ class TorchEngine:
             flat = [_fit_cols([np.concatenate([c[i][: sh.n] for sh, c in zip(shards, shard_cols)
                                                if c is not None])], _bucket_rows(n))[0]
                     for i in range(len(zeros))]
-            if runner.maybe_calibrate(plan, stacked, flat, self.device, n,
+            if runner.maybe_calibrate(plan, stacked, flat, self._unkept_leg, n,
                                       governor=self.governor) != "mesh":
                 return False
         launch.r_out = plan.r_out
@@ -2489,45 +2707,91 @@ class TorchEngine:
 
         launch.pending = self._try_device_leg(faults.DEVICE_DISPATCH, leg)
 
-    def _run_device(self, inputs: list[torch.Tensor], run, kernel: str, entry=None,
-                    stage: str = "t_dispatch") -> _Pending:
-        """Inputs -> device -> ``run`` (one kernel launch) -> pinned host
-        result, all enqueued on the engine's stream from any thread (the
+    def _run_device(self, inputs: list[torch.Tensor], run, kernel: str) -> _Pending:
+        """Host inputs -> device -> ``run`` (one kernel launch) -> pinned
+        host result, all enqueued on the engine's stream from any thread (the
         current device and stream are entered here, since PyTorch keeps them
         per thread); on the CPU device ``run`` executes the plain version at
-        once. Inputs already on the card (a cache hit's) are launched as they
-        are, with no copy; ``entry`` keeps the device copies of host
-        inputs. The returned _Pending keeps every tensor the stream still
+        once. The returned _Pending keeps every tensor the stream still
         reads or writes until the result is fetched."""
         t0 = time.perf_counter()
         self._stat_add(f"n_kernel_{kernel}", 1)
         if self._stream is None:
             out = run(inputs)
-            self._stat(stage, t0)
+            self._stat("t_dispatch", t0)
             return _Pending(out)
-        resident = inputs[0].device.type == "cuda"
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
             marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             marks[0].record()
             t_enq = time.perf_counter()
-            dev = inputs if resident else [t.to(self.device, non_blocking=True) for t in inputs]
-            if not resident:
-                # the host's share of the copy-up interval between marks 0 and 1
-                self._stat("t_h2d_enqueue", t_enq)
+            dev = [t.to(self.device, non_blocking=True) for t in inputs]
+            # the host's share of the copy-up interval between marks 0 and 1
+            self._stat("t_h2d_enqueue", t_enq)
             marks[1].record()
             out = run(dev)
             marks[2].record()
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             marks[3].record()
-        if entry is not None:
-            # made on the engine's stream, which every hit launches on too
-            entry.cols_dev = dev
-        self._stat(stage, t0)
-        if not resident:
-            self._stat_add("bytes_h2d", sum(t.nbytes for t in inputs))
+        self._stat("t_dispatch", t0)
+        self._stat_add("bytes_h2d", sum(t.nbytes for t in inputs))
         self._stat_add("bytes_d2h", host.nbytes)
         return _Pending(host, [marks], (inputs, dev, out))
+
+    def _run_leg(self, plan: ColumnarPlan, cols, entry=None, dev_block=None,
+                 stage: str = "t_dispatch") -> _Pending:
+        """K1's leg over a launch's host columns (numpy, ``n_pad`` rows):
+        they are packed into a staging slot's host block, one host copy a
+        column (``ColumnarPlan.block_layout``), and on a card one native
+        crossing (``ColumnarPlan.predicate_leg``) enqueues on the engine's
+        stream the copy up into the slot's device block, the kernel, the
+        bits' copy down into the slot's pinned output and the slot's four
+        events; on the CPU the plain version runs over views of the block.
+        ``entry`` (a cache entry being built) gets a device block of its own
+        for the copy up, which it keeps; ``dev_block`` (a hit's) is launched
+        over with no copy up. ``t_leg_enqueue`` is the host's time in the
+        crossing. The _Pending holds the slot until its bits are fetched."""
+        t0 = time.perf_counter()
+        n_pad = len(cols[0])
+        lay = plan.block_layout(n_pad)
+        nb = n_pad // 8
+        slot = self._leg_slots.acquire(lay.total, nb, plan.spill_words() * n_pad)
+        stats = [("n_kernel_predicate", 1)]
+        try:
+            if self._stream is None:
+                lay.pack(cols, slot.host_np)
+                plan.predicate_leg(n_pad, slot.host, slot.bits)
+                copied = False
+            else:
+                copied = dev_block is None
+                with torch.cuda.device(self.device):
+                    if copied:
+                        lay.pack(cols, slot.host_np)
+                        dev_block = slot.dev
+                        if entry is not None:
+                            with torch.cuda.stream(self._stream):
+                                dev_block = torch.empty(lay.total, dtype=torch.uint8,
+                                                        device=self.device)
+                    t_enq = time.perf_counter()
+                    plan.predicate_leg(n_pad, dev_block, slot.bits,
+                                       host_block=slot.host if copied else None,
+                                       bits_host=slot.bits_host, scratch=slot.scratch,
+                                       events=slot.events, stream=self._stream.cuda_stream)
+                    stats.append(("t_leg_enqueue", time.perf_counter() - t_enq))
+                stats += [("bytes_h2d", lay.total)] if copied else []
+                stats.append(("bytes_d2h", nb))
+        except BaseException:
+            self._leg_slots.release(slot)
+            self._stat_add("n_kernel_predicate", 1)
+            raise
+        if copied and entry is not None:
+            # made on the engine's stream, which every hit launches on too
+            entry.cols_dev = dev_block
+        stats.append((stage, time.perf_counter() - t0))
+        self._stat_many(stats)
+        pending = _Pending(None, refs=dev_block, slot=slot, nb=nb)
+        self._leg_slots.bind(slot, pending)
+        return pending
 
 
 def pack_staged(exploded, row_stride: int, staged: np.ndarray) -> None:

@@ -116,11 +116,12 @@ class MeshRunner:
             self._n_demotions += 1
 
     def maybe_calibrate(self, plan, stacked: list[np.ndarray], flat: list[np.ndarray],
-                        device: torch.device, n_rows: int, governor=None) -> str:
+                        single_leg, n_rows: int, governor=None) -> str:
         """The engine-sticky pin, measured on the first representative
         launch's own columns: ``stacked`` ([D, n_pad, ...] per column) over
-        the mesh against ``flat`` (the single lane's columns) on
-        ``device``. A launch under PROBE_MIN_ROWS, or one that finds another
+        the mesh against ``flat`` (the single lane's columns) through
+        ``single_leg(plan, flat)``, the engine's single-card leg (K1's
+        crossing) with its keep bits back on the host. A launch under PROBE_MIN_ROWS, or one that finds another
         launch calibrating, runs single without pinning. A failing probe
         raises. ``governor`` (the engine's) journals the pin."""
         with self._lock:
@@ -132,12 +133,12 @@ class MeshRunner:
             with self._lock:
                 if self._decision is not None:
                     return self._decision
-            return self._calibrate(plan, stacked, flat, device, governor)
+            return self._calibrate(plan, stacked, flat, single_leg, governor)
         finally:
             self._probe_run_lock.release()
 
-    def _calibrate(self, plan, stacked, flat, device, governor=None) -> str:
-        t_mesh, t_single = self._measure(plan, stacked, flat, device)
+    def _calibrate(self, plan, stacked, flat, single_leg, governor=None) -> str:
+        t_mesh, t_single = self._measure(plan, stacked, flat, single_leg)
         ratio = t_single / t_mesh if t_mesh > 0 else 0.0
         decision = "mesh" if ratio >= host_pool.PROBE_MARGIN else "single"
         probe = {
@@ -160,25 +161,21 @@ class MeshRunner:
             )
         return decision
 
-    def _measure(self, plan, stacked, flat, device) -> tuple[float, float]:
+    def _measure(self, plan, stacked, flat, single_leg) -> tuple[float, float]:
         """Best of two timed passes each (after one untimed pass), host
         columns in and keep bits back on the host, as a launch needs."""
         def mesh_leg():
             return np.asarray(plan.predicate_stacked(self.mesh, stacked))
 
-        def single_leg():
-            cols = [torch.from_numpy(c).to(device) for c in flat]
-            return plan.predicate(cols).cpu().numpy()
-
         mesh_leg()
-        single_leg()
+        single_leg(plan, flat)
         t_mesh = t_single = float("inf")
         for _ in range(2):
             t0 = time.perf_counter()
             mesh_leg()
             t_mesh = min(t_mesh, time.perf_counter() - t0)
             t0 = time.perf_counter()
-            single_leg()
+            single_leg(plan, flat)
             t_single = min(t_single, time.perf_counter() - t0)
         return t_mesh, t_single
 

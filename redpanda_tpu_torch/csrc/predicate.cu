@@ -1,5 +1,5 @@
 // The columnar predicate (K1) and the stacked predicate (K2) on Hopper: a
-// predicate interpreter over a table of column blocks.
+// predicate interpreter over a table of column pointers.
 //
 // Replaces the JAX programs redpanda_tpu/coproc/column_plan.py:213
 // (_compile_device_locked.predicate: _build_expr, _contains, _packbits, with
@@ -11,22 +11,33 @@
 // instruction per node: opcode, column slots, constants, needle offsets; see
 // coproc/column_plan.py compile_predicate) and keeps it on the device.
 //
-// One entry point serves both programs: rp_predicate_blocks evaluates the
-// program over n_blocks blocks of n_pad rows, block b reading its column k
-// at table[b * n_cols + k], into one contiguous uint8 [n_blocks, n_pad / 8]
-// output. K1 is the one-block case; K2 is one launch per card over the
-// blocks of that card's mesh shards (coproc/column_plan.py
-// predicate_blocks). The table goes by value in the launch's parameters:
-// 480 pointers (3840 B, inside the classic 4 KB parameter space with the
-// other arguments), so a launch takes at most 480 / n_cols blocks and the
-// wrapper cuts a card's shards into chunks of that many.
+// One kernel body serves two entry points, so that K1 and K2 cannot drift
+// apart (predicate_kernel, a template over the size of its pointer table):
 //
-// What bounds it on an H100: neither bytes nor operations. At the engine's
-// bench shape (32768 rows, one 5-byte string column) a launch reads about
-// 0.3 MB and writes 4 KB -- well under a microsecond at 3.35 TB/s -- so the
-// launch latency and the host's enqueue work around it set its time. The
-// design keeps it one launch per card with no host round trip: one thread
-// per row walks the program (uniform across the warp, so instruction reads
+//  * rp_predicate_leg (K1) is one engine launch's whole device leg in one
+//    native crossing: on the stream it is given, one copy of the launch's
+//    column block from a pinned host block into a device block, the kernel
+//    over the block's columns (the device base plus each column's offset,
+//    passed by value), one copy of the n_pad / 8 keep bytes down into pinned
+//    memory, and four timing events recorded between those steps. Without a
+//    host block it launches over a block already resident (a column-cache
+//    hit). K1 is bound by neither bytes nor
+//    operations -- at the bench's 32768 rows a launch reads about 0.3 MB and
+//    writes 4 KB, under a microsecond at 3.35 TB/s -- but by the host's work
+//    around the launch: one crossing from buffers made once per staging slot
+//    (coproc/engine.py) replaces a pinning, a copy and an allocation per
+//    column, four torch events and the wrapper's Python per launch.
+//  * rp_predicate_blocks (K2) evaluates the program over n_blocks blocks of
+//    n_pad rows, block b reading its column k at table[b * n_cols + k], into
+//    one contiguous uint8 [n_blocks, n_pad / 8] output: one launch per card
+//    over the blocks of that card's mesh shards (coproc/column_plan.py
+//    predicate_blocks). The table goes by value in the launch's parameters:
+//    480 pointers (3840 B, inside the classic 4 KB parameter space with the
+//    other arguments), so a launch takes at most 480 / n_cols blocks and the
+//    wrapper cuts a card's shards into chunks of that many.
+//
+// The kernel keeps each launch free of host round trips: one thread per row
+// walks the program (uniform across the warp, so instruction reads
 // broadcast) and evaluates it on a bit stack; grid (ceil(n_pad / 256),
 // n_blocks), so a block's rows never share a warp with another block's.
 //
@@ -43,8 +54,8 @@
 
 namespace {
 
-constexpr int kMaxCols = 64;   // column arrays a block may read
-constexpr int kMaxPtrs = 480;  // the table's pointers: 3840 B of parameters
+constexpr int kMaxCols = 64;   // column arrays a block may read (K1's table: 512 B)
+constexpr int kMaxPtrs = 480;  // K2's table: 3840 B of parameters
 constexpr int kInsn = 8;
 
 enum Op : int {
@@ -62,8 +73,9 @@ enum Op : int {
 // lattice flags of the numeric extractor (ops/exprs.py F_*)
 constexpr uint8_t F_PRESENT = 1, F_NUMBER = 2, F_INT_EXACT = 4, F_BOOL = 8, F_NULL = 16;
 
+template <int N>
 struct Table {
-  const void* p[kMaxPtrs];
+  const void* p[N];
 };
 
 template <typename T>
@@ -139,7 +151,8 @@ __device__ bool eval_leaf(const void* const* c, const int* ins, const uint8_t* n
   }
 }
 
-__global__ void predicate_kernel(const __grid_constant__ Table table, int n_cols,
+template <int N>
+__global__ void predicate_kernel(const __grid_constant__ Table<N> table, int n_cols,
                                  const int* __restrict__ code, int n_ops,
                                  const uint8_t* __restrict__ needles, int n_pad,
                                  unsigned long long* __restrict__ scratch,
@@ -205,12 +218,87 @@ extern "C" int rp_predicate_blocks(const void* const* table, int n_blocks, int n
       n_pad < 0 || n_pad % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (n_pad == 0) return 0;
-  Table t = {};
+  Table<kMaxPtrs> t = {};
   for (int k = 0; k < n_blocks * n_cols; ++k) t.p[k] = table[k];
   const int threads = 256;
   const dim3 grid((n_pad + threads - 1) / threads, n_blocks);
-  predicate_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  predicate_kernel<kMaxPtrs><<<grid, threads, 0, (cudaStream_t)stream>>>(
       t, n_cols, (const int*)code, n_ops, (const uint8_t*)needles, n_pad,
       (unsigned long long*)scratch, (uint8_t*)out);
   return (int)cudaGetLastError();
+}
+
+// K1's device leg over one block of n_pad rows, in one crossing, all on
+// `stream`:
+//   events[0]; host_block -> dev_block (block_bytes, when host_block is not
+//   null); events[1]; the kernel over the columns at dev_block + col_off[k]
+//   into bits (uint8 [n_pad / 8] on the card); events[2]; bits -> bits_host
+//   (when not null); events[3].
+// events (four cudaEvent_t, or null) time the copy up, the kernel and the
+// copy down; the last one fences the whole leg, so the caller reuses the
+// host block and bits_host only once it has completed. A refused argument
+// returns cudaErrorInvalidValue with nothing enqueued; a refused launch
+// records events[3] behind the copy already enqueued and returns its error.
+extern "C" int rp_predicate_leg(const void* host_block, void* dev_block, long long block_bytes,
+                                const long long* col_off, int n_cols, const void* code, int n_ops,
+                                const void* needles, int n_pad, void* scratch, void* bits,
+                                void* bits_host, void* const* events, void* stream) {
+  if (n_cols < 1 || n_cols > kMaxCols || n_pad < 0 || n_pad % 8 != 0 || block_bytes < 0 ||
+      dev_block == nullptr || bits == nullptr || col_off == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  Table<kMaxCols> t = {};
+  for (int k = 0; k < n_cols; ++k) t.p[k] = (const char*)dev_block + col_off[k];
+  cudaError_t err = cudaSuccess;
+  if (events != nullptr && (err = cudaEventRecord((cudaEvent_t)events[0], s)) != cudaSuccess)
+    return (int)err;
+  if (host_block != nullptr && block_bytes > 0 &&
+      (err = cudaMemcpyAsync(dev_block, host_block, (size_t)block_bytes, cudaMemcpyHostToDevice,
+                             s)) != cudaSuccess)
+    return (int)err;
+  if (events != nullptr && (err = cudaEventRecord((cudaEvent_t)events[1], s)) != cudaSuccess)
+    return (int)err;
+  if (n_pad > 0) {
+    const int threads = 256;
+    predicate_kernel<kMaxCols><<<dim3((n_pad + threads - 1) / threads, 1), threads, 0, s>>>(
+        t, n_cols, (const int*)code, n_ops, (const uint8_t*)needles, n_pad,
+        (unsigned long long*)scratch, (uint8_t*)bits);
+    if ((err = cudaGetLastError()) != cudaSuccess) {
+      if (events != nullptr) cudaEventRecord((cudaEvent_t)events[3], s);
+      return (int)err;
+    }
+  }
+  if (events != nullptr && (err = cudaEventRecord((cudaEvent_t)events[2], s)) != cudaSuccess)
+    return (int)err;
+  if (bits_host != nullptr && n_pad > 0 &&
+      (err = cudaMemcpyAsync(bits_host, bits, (size_t)(n_pad / 8), cudaMemcpyDeviceToHost, s)) !=
+          cudaSuccess)
+    return (int)err;
+  if (events != nullptr && (err = cudaEventRecord((cudaEvent_t)events[3], s)) != cudaSuccess)
+    return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// A staging slot's four timing events: created (create != 0) or destroyed.
+extern "C" int rp_leg_events(void** events, int n, int create) {
+  for (int k = 0; k < n; ++k) {
+    cudaError_t err = create ? cudaEventCreate((cudaEvent_t*)&events[k])
+                             : cudaEventDestroy((cudaEvent_t)events[k]);
+    if (err != cudaSuccess) return (int)err;
+    if (!create) events[k] = nullptr;
+  }
+  return 0;
+}
+
+// Whether the leg fenced by `event` has completed: 0 (done), cudaErrorNotReady
+// (600) while it runs, or the error that ended it.
+extern "C" int rp_leg_query(void* event) { return (int)cudaEventQuery((cudaEvent_t)event); }
+
+// Wait for a leg's last event, then its three intervals in ms: the copy up,
+// the kernel (with the host's enqueue of it) and the copy down.
+extern "C" int rp_leg_wait(void* const* events, float* ms) {
+  cudaError_t err = cudaEventSynchronize((cudaEvent_t)events[3]);
+  for (int k = 0; err == cudaSuccess && k < 3; ++k)
+    err = cudaEventElapsedTime(&ms[k], (cudaEvent_t)events[k], (cudaEvent_t)events[k + 1]);
+  return (int)err;
 }

@@ -13,7 +13,8 @@ passing silently.
 Every ``Kernel`` keeps a plain integer count of its launches; the wrappers
 add one where they launch, and nowhere else. Two ``Kernel`` rows may share
 one source and library (``lib``) when one kernel serves two JAX programs
-that are counted apart.
+that are counted apart; a library's helpers that launch nothing (``symbol``)
+are bound beside its entry point and counted nowhere.
 """
 
 from __future__ import annotations
@@ -78,6 +79,8 @@ class Kernel:
         self.launches = 0
         self.path: str | None = None
         self._fn = None
+        self._dll = None
+        self._helpers: dict = {}
         self._lock = threading.Lock()
 
     def fn(self):
@@ -92,11 +95,24 @@ class Kernel:
                     self.lib, source_files(src),
                     lambda out: [exe, *NVCC_FLAGS, "-I", CSRC, "-o", out, src],
                 )
-                fn = getattr(ctypes.CDLL(self.path), self.entry)
+                self._dll = ctypes.CDLL(self.path)
+                fn = getattr(self._dll, self.entry)
                 fn.restype = ctypes.c_int
                 fn.argtypes = self.argtypes
                 self._fn = fn
             return self._fn
+
+    def symbol(self, name: str, argtypes):
+        """Another C function of this kernel's library, returning a CUDA
+        error code: a helper that launches nothing, so no count."""
+        got = self._helpers.get(name)
+        if got is None:
+            self.fn()
+            got = getattr(self._dll, name)
+            got.restype = ctypes.c_int
+            got.argtypes = argtypes
+            self._helpers[name] = got
+        return got
 
     def build_log(self) -> str:
         if self.path is None or not os.path.exists(self.path + ".log"):
@@ -121,12 +137,16 @@ _L = ctypes.c_longlong
 # code, n_ops, needles, n_pad, scratch, out, stream
 _PREDICATE_ARGS = [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P]
 
+# K1: one launch's device leg in one crossing (copy up, kernel, copy down,
+# events): host_block, dev_block, block_bytes, col_off (host int64 array),
+# n_cols, code, n_ops, needles, n_pad, scratch, bits, bits_host, events
+# (host array of four events), stream
 PREDICATE = Kernel(
     "predicate",
     "redpanda_tpu_torch/csrc/predicate.cu",
     "redpanda_tpu/coproc/column_plan.py:213",
-    "rp_predicate_blocks",
-    _PREDICATE_ARGS,
+    "rp_predicate_leg",
+    [_P, _P, _L, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P],
 )
 
 # in, in_stride, lens, n, r_in, out, out_stride, out_len, keep, r_out,

@@ -147,8 +147,9 @@ def test_lru_eviction_under_budget():
 def test_entry_counts_device_bytes():
     e = colcache.Entry(n=4, n_pad=8, ranges=[(0, 4)], cols=[np.zeros(8, np.uint8)])
     assert e.nbytes == 8
-    e.cols_dev = [torch.zeros(8, dtype=torch.uint8), torch.zeros(8, dtype=torch.int32)]
-    assert e._measure() == 8 + 8 + 32
+    # one device block: a uint8 and an int32 column of 8 rows at 16-byte offsets
+    e.cols_dev = torch.zeros(16 + 32, dtype=torch.uint8)
+    assert e._measure() == 8 + 16 + 32
 
 
 def test_reset_hook_and_stats_shape():

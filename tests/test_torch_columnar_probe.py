@@ -403,14 +403,17 @@ def test_a_launch_under_the_probes_size_pins_nothing(monkeypatch):
 
 
 def _fake_device_cols(eng) -> None:
-    """Give every cache entry device copies of its columns and charge them,
-    as a card engine's K1 launches leave them (here CPU tensors, which the
-    plain version launches as they are)."""
+    """Give every cache entry a device block of its columns and charge it,
+    as a card engine's K1 leg leaves it (here a CPU tensor in the same
+    block layout)."""
     cache = eng._colcache
+    [plan] = eng._plans.values()
     for key, entry in list(cache._entries.items()):
         with cache._lock:  # out at its old charge, back in at the new one
             cache._bytes -= cache._entries.pop(key).nbytes
-        entry.cols_dev = [torch.from_numpy(c) for c in entry.cols]
+        lay = plan.block_layout(entry.n_pad)
+        entry.cols_dev = torch.zeros(lay.total, dtype=torch.uint8)
+        lay.pack(entry.cols, entry.cols_dev.numpy())
         eng._store(key, entry)
 
 

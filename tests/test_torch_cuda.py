@@ -68,6 +68,8 @@ EXPRS = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("idx", range(len(EXPRS)))
 def test_predicate_kernel_matches_plain(card, idx):
+    """The one-block call over resident column tensors, K2's entry
+    (rp_predicate_blocks) counted under K2; K1's entry has its own test."""
     rng = np.random.default_rng(idx)
     vals = _docs(rng, 1003)
     joined = b"".join(vals)
@@ -76,12 +78,147 @@ def test_predicate_kernel_matches_plain(card, idx):
     plan = plan_spec(T.where(EXPRS[idx]))
     cols = [torch.from_numpy(c).to(card) for c in plan.extract_device_inputs(
         joined, offsets, sizes, 1008)]  # a multiple of 8, not of 32
-    before = kernels.PREDICATE.launches
+    before = kernels.PREDICATE_STACKED.launches
     got = plan.predicate(cols)
-    assert kernels.PREDICATE.launches == before + 1
+    assert kernels.PREDICATE_STACKED.launches == before + 1
     assert torch.equal(got, predicate_plain(plan, cols))
     with pytest.raises(ValueError):
         plan.predicate([c.cpu() if i == 0 else c for i, c in enumerate(cols)])
+
+
+def _cols(plan, vals, n_pad):
+    """The extraction's host columns of ``vals`` at ``n_pad`` rows."""
+    joined = b"".join(vals)
+    offsets = np.cumsum([0] + [len(v) for v in vals[:-1]]).astype(np.int64)
+    sizes = np.array([len(v) for v in vals], np.int32)
+    return plan.extract_device_inputs(joined, offsets, sizes, n_pad)
+
+
+def _deep():
+    """A tree 70 deep: one spill word."""
+    deep = E.field("code") >= -600
+    for k in range(1, 70):
+        deep = E.And(E.field("code") >= k - 600, deep) if k % 2 else E.Or(E.field("code") < k, deep)
+    return deep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx", range(len(EXPRS) + 1))
+def test_predicate_leg_matches_plain(card, idx):
+    """One rp_predicate_leg crossing from a pinned block (copy up, kernel,
+    bits down into pinned memory, four events) and one over the block left
+    resident on the card, each one K1 launch, both equal to the plain
+    version; a pageable host block is refused before any launch."""
+    from redpanda_tpu_torch.coproc.column_plan import LegEvents
+
+    plan = plan_spec(T.where(EXPRS[idx] if idx < len(EXPRS) else _deep()))
+    cols = _cols(plan, _docs(np.random.default_rng(20 + idx), 1003), 1008)
+    want = predicate_plain(plan, [torch.from_numpy(c) for c in cols])
+    lay = plan.block_layout(1008)
+    host = torch.empty(lay.total, dtype=torch.uint8, pin_memory=True)
+    lay.pack(cols, host.numpy())
+    block = torch.empty(lay.total, dtype=torch.uint8, device=card)
+    bits = torch.empty(126, dtype=torch.uint8, device=card)
+    bits_host = torch.zeros(126, dtype=torch.uint8, pin_memory=True)
+    words = max(plan.spill_words(), 0) * 1008
+    scratch = torch.empty(max(words, 1), dtype=torch.int64, device=card)
+    events = LegEvents()
+    try:
+        before = kernels.PREDICATE.launches
+        plan.predicate_leg(1008, block, bits, host_block=host, bits_host=bits_host,
+                           scratch=scratch, events=events)
+        h2d, kern, d2h = events.wait()
+        assert kernels.PREDICATE.launches == before + 1 and events.done()
+        assert torch.equal(bits_host, want) and min(h2d, kern, d2h) >= 0
+        bits.zero_()
+        plan.predicate_leg(1008, block, bits, scratch=scratch)  # resident: no copy up
+        assert torch.equal(bits.cpu(), want) and kernels.PREDICATE.launches == before + 2
+        with pytest.raises(ValueError, match="pinned"):
+            plan.predicate_leg(1008, block, bits, host_block=host.clone(), scratch=scratch)
+        assert kernels.PREDICATE.launches == before + 2
+    finally:
+        events.close()
+
+
+@pytest.mark.cuda
+def test_predicate_leg_200_calls_through_reused_slots(card):
+    """200 legs of an engine on fresh columns each, three in flight at a
+    time, through the engine's staging slots (at most three, reused), each
+    result equal to the plain version: a slot reused too early would hand
+    over another launch's bits."""
+    plan = plan_spec(T.where(EXPRS[0]))
+    rng = np.random.default_rng(21)
+    eng = TorchEngine(device=card, row_stride=128, host_workers=0, force_mode="columnar_device")
+    try:
+        before = kernels.PREDICATE.launches
+        inflight = []
+        for k in range(200):
+            cols = _cols(plan, _docs(rng, int(rng.integers(100, 1000))), 1024)
+            inflight.append((eng._run_leg(plan, cols), cols))
+            if len(inflight) == 3 or k == 199:
+                for pending, c in inflight:
+                    got = pending.wait(eng)
+                    want = predicate_plain(plan, [torch.from_numpy(a) for a in c]).numpy()
+                    assert (got == want).all()
+                inflight = []
+        st = eng.leg_slot_stats()
+        assert kernels.PREDICATE.launches == before + 200
+        assert st["slots"] <= 3 and st["held"] == 0
+        assert eng.stats()["t_dev_kernel"] > 0
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_predicate_leg_over_a_cached_block(card):
+    """A cache miss copies its columns into a device block of the entry's
+    own; a hit launches over that block with no copy up; both equal the
+    plain version, and the entry's block outlives the slot's next use."""
+    from redpanda_tpu_torch.coproc import colcache
+
+    plan = plan_spec(T.where(EXPRS[2]))
+    rng = np.random.default_rng(22)
+    cols = _cols(plan, _docs(rng, 900), 1024)
+    other = _cols(plan, _docs(rng, 900), 1024)
+    want = predicate_plain(plan, [torch.from_numpy(c) for c in cols]).numpy()
+    eng = TorchEngine(device=card, row_stride=128, host_workers=0, force_mode="columnar_device")
+    try:
+        entry = colcache.Entry(n=900, n_pad=1024, ranges=[(0, 900)], cols=cols)
+        assert (eng._run_leg(plan, cols, entry=entry).wait(eng) == want).all()
+        block = entry.cols_dev
+        assert block.is_cuda and block.nbytes == plan.block_layout(1024).total
+        eng._run_leg(plan, other).wait(eng)  # the slot rewritten with other columns
+        st0 = eng.stats()
+        before = kernels.PREDICATE.launches
+        hit = eng._run_leg(plan, cols, dev_block=block).wait(eng)
+        st1 = eng.stats()
+        assert (hit == want).all() and kernels.PREDICATE.launches == before + 1
+        assert st1["bytes_h2d"] == st0["bytes_h2d"]  # nothing copied up
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_a_failing_leg_raises_with_no_launch_counted(card):
+    """rp_predicate_leg refuses a row count that is not a multiple of 8:
+    RuntimeError, no launch counted, and on an engine the slot goes back."""
+    plan = plan_spec(T.where(EXPRS[1]))
+    cols = _cols(plan, _docs(np.random.default_rng(23), 10), 12)
+    lay = plan.block_layout(12)
+    host = torch.empty(lay.total, dtype=torch.uint8, pin_memory=True)
+    lay.pack(cols, host.numpy())
+    block = torch.empty(lay.total, dtype=torch.uint8, device=card)
+    bits = torch.empty(2, dtype=torch.uint8, device=card)
+    before = kernels.PREDICATE.launches
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        plan.predicate_leg(12, block, bits, host_block=host)
+    eng = TorchEngine(device=card, row_stride=128, host_workers=0, force_mode="columnar_device")
+    try:
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            eng._run_leg(plan, cols)
+        assert kernels.PREDICATE.launches == before and eng.leg_slot_stats()["held"] == 0
+    finally:
+        eng.shutdown()
 
 
 SPECS = [
@@ -833,8 +970,8 @@ def test_engine_host_ladder_lanes_match_cpu_engine(card, lane):
                 if lane == "cached":
                     # one cold launch copied the columns up; two hits copied nothing
                     assert st["colcache"]["hits"] == 2
-                    assert st["bytes_h2d"] == sum(t.nbytes for t in eng._colcache._entries[
-                        next(iter(eng._colcache._entries))].cols_dev)
+                    assert st["bytes_h2d"] == eng._colcache._entries[
+                        next(iter(eng._colcache._entries))].cols_dev.nbytes
         assert replies[0] == replies[1]
         assert any(replies[1][0])
 
@@ -917,7 +1054,7 @@ def test_pressure_eviction_frees_the_cached_cuda_columns(card, monkeypatch):
                 break
         assert cc["bytes"] > cc["budget_bytes"] // 2
         torch.cuda.synchronize(card)
-        held = {k: (sum(t.nbytes for t in e.cols_dev), [weakref.ref(t) for t in e.cols_dev])
+        held = {k: (e.cols_dev.nbytes, [weakref.ref(e.cols_dev)])
                 for k, e in eng._colcache._entries.items()}
         assert held and all(n > 0 for n, _ in held.values())
         before = torch.cuda.memory_allocated(card)
@@ -1021,7 +1158,7 @@ def test_a_host_verdict_frees_cached_device_columns_on_the_card(card):
         cold = [b.encode_internal() for it in eng.process_batch(req).items for b in it.batches]
         [entry] = eng._colcache._entries.values()
         assert entry.cols_dev is not None and TorchEngine.sticky_columnar_backend() is None
-        charged, held = entry.nbytes, sum(t.nbytes for t in entry.cols_dev)
+        charged, held = entry.nbytes, entry.cols_dev.nbytes
         with TorchEngine._columnar_probe_lock:
             TorchEngine._columnar_backend = "host"
             TorchEngine._columnar_probe = {"chosen": "host"}
