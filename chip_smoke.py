@@ -123,6 +123,32 @@ Phases, each of which exits non-zero on failure:
       copies nothing up) and its stages beside t_dispatch: t_leg_hop,
       t_harvest_wait, t_fetch, t_dev_h2d / t_dev_kernel / t_dev_d2h and
       t_leg_enqueue (the host's time in K1's crossings).
+   j. lockwatch and leakwatch (coproc/lockwatch.py, coproc/leakwatch.py):
+      four rounds in turns, the recorders on, off, on, off (enabled before
+      the engines are built, as they must be), each driving the columnar
+      spec (K1 pinned) and the payload spec (K4), inline and on the pool
+      (host_workers=4, host_pool_probe=False), every engine with a budget
+      plane that never sheds, the bench and short_msgs workloads, every
+      reply compared with the CPU engine's and the first "on" round's with
+      the first "off" round's; in the first round each engine also takes a
+      one-shot fault on each coproc probe point (dispatch, the caller's mask
+      fetch, the harvest thread's copy down, a shard worker), retried to the
+      same reply. Then the observed lock-order edges (their number and
+      whether they are a subset of pandalint's static graph over
+      redpanda_tpu_torch/, which tools/pandalint builds here), every
+      balance (all zero) and the imbalances (0) are printed, and the bench
+      rate of each lane in each round (a cost figure, not a claim).
+   k. a sandboxed python transform (TorchEngine.enable_py_sandboxed, one
+      that keeps the "error" records and upper-cases them) over the bench
+      launch (GROUP requests in one launch) on the card's engine, inline
+      (host_workers=0) and on the default probed pool (host_workers=4,
+      whose probe times a python plan's explode only): replies
+      byte-identical to TorchEngine(device="cpu")'s, its record_batches/s
+      printed; a counting callable (enable_py_transform) runs once a record
+      of a launch; then a script that trips the ``**`` operand guard under
+      deregister: the reply deregisters it, one TREND watchdog_kill is
+      journaled, and the pool's measured decision stands. A python plan has
+      no device stage: nothing is launched.
    Every other card engine of this script pins K1 (force_mode=
    "columnar_device"), so that a "host" verdict cannot take K1 off a path
    whose launches are counted. Phase 3's payload lane prints the host's
@@ -200,7 +226,7 @@ Phases, each of which exits non-zero on failure:
 11. Print the kernels line, the card's name and power limit, and last the
     {"ok": true, "device": ...} line.
 
-Phases 3, 3h, 3i, 5-8 and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
+Phases 3, 3h, 3i, 3j, 5-8 and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
 every launch count to 0 just before their path and fail if a kernel of that
 path was not launched in it.
 
@@ -1634,6 +1660,239 @@ def phase_columnar_backend(dev, engine_run) -> int:
             f"{st['n_launches']:.0f} launches")
     TorchEngine.reset_columnar_probe()
     return path_launches("columnar backend", kernels.PREDICATE)["predicate"]
+
+
+RECORDER_PROBES = ("device_dispatch", "mask_fetch", "harvest", "shard_worker")
+
+
+def recorder_lanes(dev, engine_run, on: bool, faults_too: bool) -> dict:
+    """One round of phase 3j: the columnar (K1 pinned) and payload specs,
+    inline and on the pool, each engine with a budget plane that never
+    sheds, built after the recorders were turned on or off. Every reply is
+    compared with the CPU engine's. With ``faults_too`` each engine then
+    takes a one-shot fault on each coproc probe point. Returns
+    {(spec, lane, workload): (rate, reply bytes)}."""
+    from redpanda_tpu_torch.coproc import faults, leakwatch, lockwatch
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+    from redpanda_tpu_torch.finjector import honey_badger
+    from redpanda_tpu_torch.resource_mgmt import BudgetPlane
+
+    work, want = engine_run["work"], engine_run["want"]
+    out = {}
+    for sname, spec in (("columnar", columnar_spec()), ("payload", payload_spec())):
+        for lane, kw in (("inline", dict(host_workers=0)),
+                         ("pool", dict(host_workers=4, host_pool_probe=False))):
+            plane = BudgetPlane(ADMIT_NEVER_SHEDS)
+            eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, budget_plane=plane,
+                              **kw)
+            wrapped = isinstance(eng._stats_lock, lockwatch.WatchedLock) and isinstance(
+                eng._arena, leakwatch.WatchedArena)
+            if wrapped != on:
+                fail(f"recorders {sname} {lane}: wrapped {wrapped} with the recorders on={on}")
+            eng.enable_coprocessors([(1, spec.to_json(), ("bench",))])
+            run_stream(eng, work["bench"], GROUP + 1)  # warm-up
+            eng.reset_stats()
+            for wname, req in work.items():
+                replies, rate = run_stream(eng, req, n_ticks_of(wname))
+                got = [reply_bytes(x) for x in replies[:GROUP]]
+                if any(reply_bytes(x) != want[sname, wname][k % GROUP]
+                       for k, x in enumerate(replies)):
+                    fail(f"recorders on={on} {sname} {lane} {wname}: a reply differs from the "
+                         "CPU engine's")
+                out[sname, lane, wname] = (rate, got)
+            check_envelope(f"recorders on={on} {sname} {lane}", eng.stats())
+            if faults_too:
+                req, ref = work["short_msgs"], want[sname, "short_msgs"][0]
+                honey_badger.enable()
+                try:
+                    for probe in RECORDER_PROBES:
+                        if probe == faults.MASK_FETCH:
+                            eng._harvest_async = lambda: False  # the caller fetches its masks
+                        honey_badger.set_exception(faults.MODULE, probe, count=1)
+                        try:
+                            reply, _ = one_tick(eng, req)
+                        finally:
+                            honey_badger.unset(faults.MODULE, probe)
+                            eng.__dict__.pop("_harvest_async", None)
+                        if reply_bytes(reply) != ref:
+                            fail(f"recorders {sname} {lane}: a one-shot {probe} fault changed "
+                                 "the reply")
+                finally:
+                    honey_badger.disable()
+                st = eng.stats()
+                if on and (st["lockwatch"]["edges"] != len(lockwatch.edges())
+                           or st["leakwatch"]["imbalances"]):
+                    fail(f"recorders {sname} {lane}: stats {st['lockwatch']} {st['leakwatch']}")
+            eng.shutdown()
+            if plane.account("coproc").held:
+                fail(f"recorders {sname} {lane}: {plane.account('coproc').held} B still held")
+    return out
+
+
+def phase_recorders(dev, engine_run) -> dict:
+    """Phase 3j: lockwatch and leakwatch on the card (module docstring).
+    Returns the path's K1 and K4 launches."""
+    import ast
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.coproc import faults, leakwatch, lockwatch
+
+    kernels.reset_launches()  # the recorders' path starts here
+    lockwatch.reset_edges()
+    leakwatch.reset()
+    rounds = []
+    try:
+        for i, on in enumerate((True, False, True, False)):
+            if on:
+                lockwatch.enable()
+                leakwatch.enable()
+            try:
+                rounds.append((on, recorder_lanes(dev, engine_run, on, faults_too=i == 0)))
+            finally:
+                lockwatch.disable()
+                leakwatch.disable()
+            while faults.fetch_pool_stats()["free"] < faults.fetch_pool_stats()["created"]:
+                time.sleep(0.01)  # an abandoned leg must not launch into the next round
+        launches = path_launches("recorders", kernels.PREDICATE, kernels.PAYLOAD_TRANSFORM)
+        edges = lockwatch.edges()
+        from tools.pandalint.affinity import Program
+        from tools.pandalint.engine import iter_python_files
+        from tools.pandalint.lockgraph import LockGraph
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        mods = []
+        for path in iter_python_files([os.path.join(root, "redpanda_tpu_torch")]):
+            with open(path, encoding="utf-8") as fh:
+                mods.append((os.path.relpath(path, root).replace(os.sep, "/"),
+                             ast.parse(fh.read())))
+        static = LockGraph(Program(mods)).edge_set()
+        missing = [e for e in edges if e not in static]
+        log(f"lockwatch on the card: {len(edges)} lock-order edges observed {edges}; subset of "
+            f"pandalint's static graph over redpanda_tpu_torch/ ({len(static)} edges): "
+            f"{not missing}")
+        if not edges or missing:
+            fail(f"lockwatch: edges the static graph lacks {missing} (observed {edges})")
+        snap, bal = leakwatch.snapshot(), leakwatch.balances()
+        log(f"leakwatch on the card: balances {json.dumps(bal)} (all zero: "
+            f"{not any(bal.values())}); imbalances {snap['imbalances']}; "
+            f"{snap['sites']} acquire/release sites")
+        if not bal or any(bal.values()) or snap["imbalances"]:
+            fail(f"leakwatch: balances {bal}, {snap}")
+    finally:
+        lockwatch.disable()
+        leakwatch.disable()
+        lockwatch.reset_edges()
+        leakwatch.reset()
+    (_, first_on), (_, first_off) = rounds[0], rounds[1]
+    for key, (_, got) in first_on.items():
+        if got != first_off[key][1]:
+            fail(f"recorders: the {key} replies with the recorders on differ from those off")
+    log("recorders: every reply with lockwatch and leakwatch on byte-identical to the same "
+        "engines' with both off and to TorchEngine(cpu)'s; one-shot faults on "
+        f"{', '.join(RECORDER_PROBES)} retried to the same replies; launches over the four "
+        f"rounds {launches}")
+    for sname in ("columnar", "payload"):
+        for lane in ("inline", "pool"):
+            turns = ", ".join(f"{'on' if on else 'off'} {r[sname, lane, 'bench'][0]:.1f}"
+                              for on, r in rounds)
+            log(f"recorders cost, {sname} {lane} lane, bench record_batches/s over {TICKS} "
+                f"ticks in turns: {turns} (a cost figure, not a claim)")
+    return launches
+
+
+SANDBOX_SOURCE = (
+    "def transform(value):\n"
+    "    if b'\"level\":\"error\"' not in value:\n"
+    "        return None\n"
+    "    return value.upper()\n")
+SANDBOX_BURN = "def transform(value):\n    x = 10 ** 10 ** 8\n    return value\n"
+
+
+def phase_sandbox(dev, engine_run) -> None:
+    """Phase 3k: a sandboxed python transform over the bench launch on the
+    card's engine, inline and on the default probed pool (module
+    docstring)."""
+    from redpanda_tpu_torch.coproc import governor
+    from redpanda_tpu_torch.coproc.engine import (ErrorPolicy, ProcessBatchItem,
+                                                  ProcessBatchRequest, TorchEngine)
+
+    work = engine_run["work"]
+    cpu = TorchEngine(device="cpu", row_stride=ROW_STRIDE, host_workers=0)
+    if cpu.enable_py_sandboxed(1, SANDBOX_SOURCE, ("bench",)) != 0:
+        fail("sandbox: enable on the CPU engine")
+    want = {w: [reply_bytes(t.result()) for t in cpu.submit_group([req] * GROUP)]
+            for w, req in work.items()}
+    cpu.shutdown()
+    kept = sum(len(b) for _, _, b in want["bench"][0][0])
+    if not kept:
+        fail("sandbox: the transform kept no record")
+
+    def kills() -> list:
+        return [e for e in governor.journal.entries(domain=governor.TREND)
+                if e["verdict"] == "watchdog_kill"]
+
+    for lane, kw in (("inline", dict(host_workers=0)), ("probed pool", dict(host_workers=4))):
+        eng = TorchEngine(device=dev, **PIN_K1, row_stride=ROW_STRIDE, **kw)
+        if eng.enable_py_sandboxed(1, SANDBOX_SOURCE, ("bench",)) != 0:
+            fail(f"sandbox {lane}: enable on the card's engine")
+        calls = [0]
+
+        def count(value, calls=calls):
+            calls[0] += 1
+            return value
+
+        if eng.enable_py_transform(3, count, ("bench",)) != 0:
+            fail(f"sandbox {lane}: enable the counting callable")
+        rates = {}
+        for wname, req in work.items():
+            replies, rates[wname] = run_stream(eng, req, GROUP)
+            if [reply_bytes(x) for x in replies] != want[wname]:
+                fail(f"sandbox {lane} {wname}: a reply differs from TorchEngine(cpu)'s")
+        # the callable runs once a record of the launch, the pool probe's
+        # passes included
+        req = work["bench"]
+        counted = ProcessBatchRequest([ProcessBatchItem(3, it.ntp, it.batches)
+                                       for it in req.items])
+        n_records = GROUP * sum(b.header.record_count for it in req.items for b in it.batches)
+        for t in eng.submit_group([counted] * GROUP):
+            t.result()
+        if calls[0] != n_records:
+            fail(f"sandbox {lane}: the callable ran {calls[0]} times over {n_records} records")
+        st = eng.stats()
+        check_envelope(f"sandbox {lane}", st)
+        probe = st.get("host_pool_probe")
+        if kw["host_workers"] and (probe is None or probe["chosen"] != eng._pool_decision):
+            fail(f"sandbox {lane}: the pool decision was not measured: {probe}")
+        seen = {e["seq"] for e in kills()}
+        if eng.enable_py_sandboxed(2, SANDBOX_BURN, ("bench",), ErrorPolicy.deregister) != 0:
+            fail(f"sandbox {lane}: enable the burning script")
+        burn = ProcessBatchRequest([ProcessBatchItem(2, it.ntp, it.batches)
+                                    for it in work["short_msgs"].items])
+        t0 = time.perf_counter()
+        reply = eng.submit_group([burn])[0].result()
+        wall = time.perf_counter() - t0
+        new_kills = [e for e in kills() if e["seq"] not in seen]
+        if reply.deregistered != [2] or 2 in eng.scripts or len(new_kills) != 1 \
+                or new_kills[0]["inputs"]["layer"] != "guard":
+            fail(f"sandbox {lane}: the guard kill under deregister gave {reply.deregistered}, "
+                 f"scripts {sorted(eng.scripts)}, kills {new_kills}")
+        after = eng.stats()
+        if "n_failures_pool_calibration" in after or \
+                after.get("host_pool_probe") != st.get("host_pool_probe"):
+            fail(f"sandbox {lane}: the guard kill reached the pool's decision: "
+                 f"{after.get('host_pool_probe')} after {st.get('host_pool_probe')}")
+        eng.shutdown()
+        log(f"sandbox on the card's engine, {lane} (host_workers {kw['host_workers']}): the "
+            f"bench launch ({GROUP} x {len(work['bench'].items)} batches) through a sandboxed "
+            f"transform keeping the error records upper-cased: bench {rates['bench']:.1f} "
+            f"record_batches/s, short_msgs {rates['short_msgs']:.1f} over {GROUP} ticks (one "
+            f"launch each), {kept} output batches a tick, replies byte-identical to "
+            f"TorchEngine(cpu)'s; t_assemble {st.get('t_assemble', 0.0):.6f} s of "
+            f"{st['n_records']:.0f} records; a counting callable ran {calls[0]} times over "
+            f"{n_records} records; pool probe {json.dumps(probe)}; a guard kill "
+            f"(10 ** 10 ** 8) under deregister in {wall * 1e3:.3f} ms deregistered script "
+            f"{reply.deregistered} with one TREND watchdog_kill "
+            f"({new_kills[0]['inputs']['layer']})")
 
 
 def want_of(want: dict, sname: str) -> dict:
@@ -3143,6 +3402,9 @@ def main() -> int:
     for name, n in phase_admission(dev, engine_run).items():
         launches[name] += n
     launches["predicate"] += phase_columnar_backend(dev, engine_run)
+    for name, n in phase_recorders(dev, engine_run).items():
+        launches[name] += n
+    phase_sandbox(dev, engine_run)
     launches["payload_transform"] += phase_policy(dev)
     launches.update(phase_payload_entry(dev))
     measured.update(phase_crc_kernels(dev))

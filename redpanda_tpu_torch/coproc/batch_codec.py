@@ -27,6 +27,7 @@ import numpy as np
 
 from redpanda_tpu_torch import native
 from redpanda_tpu_torch.compression import compress, registry, uncompress
+from redpanda_tpu_torch.coproc import lockwatch
 from redpanda_tpu_torch.models.record import Compression, RecordBatch, RecordBatchHeader
 from redpanda_tpu_torch.utils.vint import decode_zigzag, encode_zigzag
 
@@ -44,7 +45,7 @@ class Arena:
     MAX_FREE = 8
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = lockwatch.wrap(threading.Lock(), "Arena._lock")
         self._free: list[np.ndarray] = []
         self._allocs = 0
         self._reuses = 0

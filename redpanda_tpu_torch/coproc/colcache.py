@@ -27,6 +27,7 @@ import struct
 import threading
 from collections import OrderedDict
 
+from redpanda_tpu_torch.coproc import lockwatch
 from redpanda_tpu_torch.hashing.xx import xxhash64
 
 
@@ -103,7 +104,7 @@ class DeviceColumnCache:
     """Keyed LRU over Entry objects with a byte budget."""
 
     def __init__(self, budget_bytes: int):
-        self._lock = threading.Lock()
+        self._lock = lockwatch.wrap(threading.Lock(), "DeviceColumnCache._lock")
         self._budget = max(0, int(budget_bytes))
         self._entries: "OrderedDict[tuple, Entry]" = OrderedDict()
         self._bytes = 0

@@ -746,21 +746,26 @@ class PayloadPlan:
 
 @dataclass
 class HostPlan:
-    """No device stage: identity / pure uppercase."""
+    """No device stage: identity / pure uppercase / a python transform."""
 
     spec: TransformSpec
-    kind: str  # identity | uppercase
+    kind: str  # identity | uppercase | python
+    fn: object = None  # python: callable(bytes) -> bytes | None
     mode = "host"
 
     @property
     def byte_identity(self) -> bool:
         # identity emits the input value bytes untouched (its keep rule,
-        # drop empty values, needs only the sizes); uppercase mutates them
+        # drop empty values, needs only the sizes); uppercase and python
+        # transforms mutate them
         return self.kind == "identity"
 
 
-def plan_spec(spec: TransformSpec):
-    """Pick the execution mode for a spec (see module docs)."""
+def plan_spec(spec: TransformSpec, py_fn=None):
+    """Pick the execution mode for a spec (see module docs); ``py_fn`` makes
+    a python host plan."""
+    if py_fn is not None:
+        return HostPlan(spec, "python", py_fn)
     if spec.where is not None:
         if spec.filters:
             raise ValueError("where-exprs cannot combine with raw filters")

@@ -14,7 +14,9 @@ package's (coproc/engine.py):
   * **payload plans** (v1 raw-byte specs) stage whole rows of
     ``row_stride`` bytes plus an LE32 length; the payload kernel
     (csrc/payload_transform.cu) returns packed output rows.
-  * **host plans** (identity, uppercase) have no device stage.
+  * **host plans** (identity, uppercase, and the python transforms of
+    ``enable_py_transform`` and ``enable_py_sandboxed``, coproc/sandbox.py)
+    have no device stage: they run on the host on every device.
 
 The host ladder before and after the device is the JAX engine's:
 
@@ -134,7 +136,8 @@ import torch
 
 from redpanda_tpu_torch import native
 from redpanda_tpu_torch import kernels
-from redpanda_tpu_torch.coproc import batch_codec, colcache, faults, governor, host_pool, meshrunner
+from redpanda_tpu_torch.coproc import (
+    batch_codec, colcache, faults, governor, host_pool, leakwatch, lockwatch, meshrunner)
 from redpanda_tpu_torch.coproc.column_plan import ColumnarPlan, LegEvents, PayloadPlan, plan_spec
 from redpanda_tpu_torch.device import resolve_device
 from redpanda_tpu_torch.hashing.xx import xxhash64
@@ -253,7 +256,7 @@ class _Pending:
         self.refs = refs
         self.slot = slot
         self.nb = nb
-        self.lock = threading.Lock() if slot is not None else None
+        self.lock = lockwatch.wrap(threading.Lock(), "_Pending.lock") if slot is not None else None
 
     def wait(self, engine: "TorchEngine") -> np.ndarray:
         if self.marks is not None:
@@ -341,7 +344,7 @@ class _LegSlots:
     def __init__(self, device: torch.device, stream):
         self._device = device
         self._stream = stream
-        self._lock = threading.Lock()
+        self._lock = lockwatch.wrap(threading.Lock(), "_LegSlots._lock")
         self._slots: list[_LegSlot] = []
         self._grows = 0
         self._trimmed = 0
@@ -517,7 +520,7 @@ class _Launch:
         self._framed = None
         # tickets of one submit_group share this launch and may harvest
         # from different threads
-        self._lock = threading.Lock()
+        self._lock = lockwatch.wrap(threading.Lock(), "_Launch._lock")
 
     def framed(self) -> list[tuple[bytes, int]]:
         """Per-range (payload, kept), framed launch-wide in one native
@@ -705,12 +708,46 @@ class _Launch:
         if self.n == 0:
             return np.zeros((0, 1), np.uint8), np.zeros(0, np.int32), np.zeros(0, bool)
         t0 = time.perf_counter()
-        rows, lens = _pack_values(ex, max(int(ex.sizes.max()), 1))
-        keep = ex.sizes > 0  # identity's rule: drop empty values
-        if self.plan.kind == "uppercase":
-            is_lower = (rows >= ord("a")) & (rows <= ord("z"))
-            rows = np.where(is_lower, rows - 32, rows).astype(np.uint8)
+        if self.plan.kind == "python":
+            rows, lens, keep = self._mat_python(ex)
+        else:
+            rows, lens = _pack_values(ex, max(int(ex.sizes.max()), 1))
+            keep = ex.sizes > 0  # identity's rule: drop empty values
+            if self.plan.kind == "uppercase":
+                is_lower = (rows >= ord("a")) & (rows <= ord("z"))
+                rows = np.where(is_lower, rows - 32, rows).astype(np.uint8)
         self.engine._stat("t_assemble", t0)
+        return rows, lens, keep
+
+    def _mat_python(self, ex):
+        """A python plan's records through its function, one at a time. This
+        is user code on the host on every device, as in the JAX engine: the
+        port's rule that no host answer stands in for a kernel on a card does
+        not apply, since there is no kernel. A script's Exception drops its
+        record under skip_on_failure (counted under ``host_plan``); under
+        deregister it propagates, marked as the script's (``rp_script``), so
+        that ``Ticket.result`` unloads the script."""
+        fn = self.plan.fn
+        outs = []
+        for i in range(self.n):
+            o = int(ex.offsets[i])
+            val = ex.joined[o : o + int(ex.sizes[i])]
+            try:
+                outs.append(fn(val))
+            except Exception as exc:
+                if self.policy == ErrorPolicy.deregister:
+                    exc.rp_script = True
+                    raise
+                faults.note_failure("host_plan", exc)
+                outs.append(None)
+        keep = np.array([o is not None for o in outs], dtype=bool)
+        stride = max(max((len(o) for o in outs if o is not None), default=1), 1)
+        rows = np.zeros((self.n, stride), dtype=np.uint8)
+        lens = np.zeros(self.n, dtype=np.int32)
+        for i, o in enumerate(outs):
+            if o is not None:
+                rows[i, : len(o)] = np.frombuffer(o, np.uint8)
+                lens[i] = len(o)
         return rows, lens, keep
 
 
@@ -1065,9 +1102,9 @@ class TorchEngine:
         self._plans: dict[int, object] = {}
         self._programs: dict = {}  # payload script_id -> TransformProgram
         self._stats: dict[str, float] = defaultdict(float)
-        self._stats_lock = threading.Lock()
+        self._stats_lock = lockwatch.wrap(threading.Lock(), "TorchEngine._stats_lock")
         self._gather_frame = bool(gather_frame)
-        self._arena = batch_codec.Arena()
+        self._arena = leakwatch.wrap(batch_codec.Arena(), "engine.arena")
         # the parse ladder: a measured per-engine decision unless pinned
         self._structural_enabled = True if structural_parse is None else bool(structural_parse)
         self._parse_decision: str | None = None
@@ -1080,10 +1117,12 @@ class TorchEngine:
             self.governor.note_posture(governor.PARSE_PATH, self._parse_decision)
         self.governor.update_config_snapshot(structural_parse=self._structural_enabled)
         self._parse_probe: dict | None = None
-        self._parse_decision_lock = threading.Lock()
+        self._parse_decision_lock = lockwatch.wrap(
+            threading.Lock(), "TorchEngine._parse_decision_lock")
         # serializes calibration runs only; never held while the decision
         # is read or published
-        self._parse_probe_run_lock = threading.Lock()
+        self._parse_probe_run_lock = lockwatch.wrap(
+            threading.Lock(), "TorchEngine._parse_probe_run_lock")
         cache_mb = 0 if device_column_cache_mb is None else max(0, int(device_column_cache_mb))
         self._colcache = colcache.DeviceColumnCache(cache_mb << 20) if cache_mb else None
         self.governor.update_config_snapshot(
@@ -1102,7 +1141,8 @@ class TorchEngine:
             self.governor.note_posture(governor.HOST_POOL, "sharded")  # a pin: posture only
         # held across a pool calibration, so concurrent first launches do
         # not measure against each other's load
-        self._pool_decision_lock = threading.Lock()
+        self._pool_decision_lock = lockwatch.wrap(
+            threading.Lock(), "TorchEngine._pool_decision_lock")
         self._host_pool_probe: dict | None = None
         self._host_pool_probe_prev: dict | None = None
         # set while a periodic recalibration is pending: it journals as one
@@ -1126,8 +1166,10 @@ class TorchEngine:
         if budget_plane is not None:
             acct = budget_plane.accounts.get("coproc")
             if acct is not None:
-                self._admission = rm_admission.AdmissionController(
-                    acct, "coproc", warn_pct=budget_plane.warn_pct)
+                self._admission = leakwatch.wrap(
+                    rm_admission.AdmissionController(
+                        acct, "coproc", warn_pct=budget_plane.warn_pct),
+                    "engine.admission")
             _ref = weakref.ref(self)
 
             def _pressure_listener(level, snap, _ref=_ref):
@@ -1181,6 +1223,57 @@ class TorchEngine:
             )
             out.append(EnableResponseCode.success)
         return out
+
+    def enable_py_transform(
+        self,
+        script_id: int,
+        fn,
+        topics: tuple[str, ...],
+        policy: ErrorPolicy = ErrorPolicy.skip_on_failure,
+    ) -> EnableResponseCode:
+        """Register an arbitrary python callable(value) -> bytes | str | None
+        as a host plan (None drops the record): the escape hatch for
+        transforms the declarative DSL cannot express. In-process trust
+        only; the wire-deployable form is ``enable_py_sandboxed``."""
+        if script_id in self._handles:
+            return EnableResponseCode.script_id_already_exists
+        if not topics:
+            return EnableResponseCode.script_contains_no_topics
+        spec = TransformSpec(name=f"py:{getattr(fn, '__name__', 'fn')}")
+        self._plans[script_id] = plan_spec(spec, py_fn=fn)
+        self._handles[script_id] = ScriptHandle(script_id, spec, tuple(topics), policy)
+        return EnableResponseCode.success
+
+    def enable_py_sandboxed(
+        self,
+        script_id: int,
+        source: str,
+        topics: tuple[str, ...],
+        policy: ErrorPolicy = ErrorPolicy.skip_on_failure,
+    ) -> EnableResponseCode:
+        """Register restricted-AST python source (coproc/sandbox.py),
+        validated and compiled here before registration, so that a refused
+        source never runs. A source that fails to validate or compile is
+        counted under ``sandbox_compile`` and refused with
+        ``internal_error``."""
+        from redpanda_tpu_torch.coproc.sandbox import SandboxViolation, compile_transform
+
+        if script_id in self._handles:
+            return EnableResponseCode.script_id_already_exists
+        if not topics:
+            return EnableResponseCode.script_contains_no_topics
+        try:
+            fn = compile_transform(source, script_id=script_id)
+        except SandboxViolation as exc:
+            faults.note_failure(faults.SANDBOX_COMPILE, exc)
+            return EnableResponseCode.internal_error
+        except Exception as exc:
+            # any other compile-time failure is a bad script too, not an
+            # engine fault: refuse the registration, with its traceback
+            faults.note_failure(faults.SANDBOX_COMPILE, exc)
+            logger.exception("sandboxed script %d failed to compile", script_id)
+            return EnableResponseCode.internal_error
+        return self.enable_py_transform(script_id, fn, topics, policy)
 
     def disable_coprocessors(self, script_ids: list[int]) -> list[DisableResponseCode]:
         out = []
@@ -1248,7 +1341,7 @@ class TorchEngine:
     def reset_arenas(self) -> None:
         """Swap in a fresh framing arena (deterministic reuse accounting;
         returns the held buffers to the allocator)."""
-        self._arena = batch_codec.Arena()
+        self._arena = leakwatch.wrap(batch_codec.Arena(), "engine.arena")
 
     # ------------------------------------------------------------ budget plane
     def _release_admission(self, ticket: Ticket) -> None:
@@ -1331,7 +1424,10 @@ class TorchEngine:
         calls that enqueue the payload lane's copies up (host clock, inside
         ``t_dev_h2d``'s interval); ``t_leg_enqueue`` the host's time in K1's
         native crossings (copy up, launch, copy down, events). K1's staging
-        pool reports apart (``leg_slot_stats``)."""
+        pool reports apart (``leg_slot_stats``). While lockwatch or leakwatch
+        is on (coproc/lockwatch.py, coproc/leakwatch.py), its block appears:
+        ``lockwatch`` (the observed lock-order edges) or ``leakwatch``
+        (outstanding balances, imbalances)."""
         with self._stats_lock:
             out = dict(self._stats)
         out["device"] = str(self.device)
@@ -1349,6 +1445,12 @@ class TorchEngine:
                 "launches_since": self._launches_since_cal,
             }
         out["arena"] = self._arena.stats()
+        if lockwatch.enabled():
+            # debug mode only: the count of observed lock-order edges
+            out["lockwatch"] = lockwatch.snapshot()
+        if leakwatch.enabled():
+            # debug mode only: outstanding balances and the imbalance count
+            out["leakwatch"] = leakwatch.snapshot()
         with self._parse_decision_lock:
             out["parse_path"] = self._parse_decision
             if self._parse_probe is not None:
@@ -1975,6 +2077,11 @@ class TorchEngine:
             merge = batch_codec.merge_ptrs if payload else batch_codec.merge_exploded
             ex = merge(self._probe_run([(lambda s=s, e=e: explode(batches[s:e]))
                                         for s, e in cuts]))
+            if getattr(plan, "kind", None) == "python":
+                # a python plan's probe times its explode only, as the JAX
+                # engine's does: the user's script runs once a record, in the
+                # launch, and its side effects and failures are its own
+                return
             self._count_launch(probe, ex.ranges, len(ex.sizes))
             if payload:
                 self._dispatch_payload_ptrs(probe, ex)

@@ -54,6 +54,7 @@ import time
 from dataclasses import dataclass, field
 
 from redpanda_tpu_torch.build import BuildError
+from redpanda_tpu_torch.coproc import lockwatch
 from redpanda_tpu_torch.finjector import ProbeTriggered, honey_badger
 from redpanda_tpu_torch.observability import probes
 
@@ -106,7 +107,10 @@ NEVER_RETRIED = PROGRAMMING_ERRORS + (BuildError, ValueError, TypeError)
 def unretried(exc: BaseException) -> bool:
     """Whether ``exc`` re-raises past every error policy: a programming
     error anywhere, a build failure, or a failure ``retry_call`` refused to
-    retry."""
+    retry. A python script's own exception (``rp_script``: a NameError in
+    user code, say) is the script's failure, never one of these."""
+    if getattr(exc, "rp_script", False):
+        return False
     return isinstance(exc, PROGRAMMING_ERRORS + (BuildError,)) or getattr(
         exc, "rp_unretried", False)
 
@@ -369,7 +373,7 @@ class CircuitBreaker:
             else self.cooldown_s
         )
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockwatch.wrap(threading.Lock(), "CircuitBreaker._lock")
         self._state = STATE_CLOSED
         self._consecutive = 0
         self._opened_at = 0.0

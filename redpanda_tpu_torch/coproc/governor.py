@@ -40,7 +40,7 @@ import threading
 import time
 import weakref
 
-from redpanda_tpu_torch.coproc import faults
+from redpanda_tpu_torch.coproc import faults, lockwatch
 from redpanda_tpu_torch.metrics import Counter, registry
 from redpanda_tpu_torch.observability import probes
 
@@ -301,7 +301,7 @@ class Governor:
             lambda domain: probes.coproc_device_leg_hist(domain).hist
         )
         self.engine_tag = engine_tag or f"engine-{next(_engine_tags)}"
-        self._lock = threading.Lock()
+        self._lock = lockwatch.wrap(threading.Lock(), "Governor._lock")
         # tests inject a private journal so scratch governors never
         # write the live process journal or its counters
         self._journal = journal_override if journal_override is not None else journal

@@ -23,6 +23,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from redpanda_tpu_torch.coproc import lockwatch
 from redpanda_tpu_torch.observability import probes
 
 
@@ -118,7 +119,7 @@ class HostStagePool:
     def __init__(self, workers: int):
         self.workers = int(workers)
         self._executor: ThreadPoolExecutor | None = None
-        self._lock = threading.Lock()
+        self._lock = lockwatch.wrap(threading.Lock(), "HostStagePool._lock")
 
     def _ensure_executor(self) -> ThreadPoolExecutor:
         # locked check-then-create: concurrent first launches must not each

@@ -40,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from redpanda_tpu_torch.coproc import host_pool
+from redpanda_tpu_torch.coproc import host_pool, lockwatch
 from redpanda_tpu_torch.observability import probes
 from redpanda_tpu_torch.parallel.mesh import PartitionMesh
 
@@ -63,10 +63,11 @@ class MeshRunner:
         # the mesh lane deterministically
         self._decision: str | None = None if probe else "mesh"
         self._probe: dict | None = None
-        self._lock = threading.Lock()
+        # the JAX package's MeshRunner names this lock _decision_lock
+        self._lock = lockwatch.wrap(threading.Lock(), "MeshRunner._lock")
         # serializes calibration runs only; never held while the decision
         # is read or published
-        self._probe_run_lock = threading.Lock()
+        self._probe_run_lock = lockwatch.wrap(threading.Lock(), "MeshRunner._probe_run_lock")
         self._n_launches = 0
         self._n_demotions = 0
         self._rows_per_device = [0] * self.n_devices

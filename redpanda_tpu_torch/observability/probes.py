@@ -80,6 +80,14 @@ coproc_retries_total = registry.counter(
     "coproc_device_retries_total",
     "Device interaction retry attempts (deadline/launch failures)",
 )
+coproc_lockwatch_edges = registry.counter(
+    "coproc_lockwatch_edges_total",
+    "Distinct lock-order edges observed by the coproc_lockwatch recorder",
+)
+coproc_leakwatch_imbalance = registry.counter(
+    "coproc_leakwatch_imbalance_total",
+    "Resource balances driven negative under the coproc_leakwatch recorder",
+)
 
 # ------------------------------------------------------ host-stage pool
 # Busy-worker gauge for the coproc host-stage pool (coproc/host_pool.py).
@@ -271,6 +279,8 @@ __all__ = [
     "coproc_device_leg_hist",
     "coproc_failure_counter",
     "coproc_host_pool_busy",
+    "coproc_leakwatch_imbalance",
+    "coproc_lockwatch_edges",
     "coproc_mesh_device_rows",
     "coproc_retries_total",
     "coproc_stage_hist",

@@ -242,13 +242,15 @@ class BudgetPlane:
         split = dict(split or DEFAULT_SPLIT)
         self.warn_pct = float(warn_pct)
         self.critical_pct = float(critical_pct)
-        # The JAX package hands each account out through leakwatch.wrap, a
-        # balance-recording proxy in its debug mode; with leakwatch off (its
-        # default) wrap returns the raw account. Leakwatch is not ported
-        # yet, so the accounts here are the raw ones: what the JAX package
-        # hands out by default.
+        # leakwatch (coproc/leakwatch.py) records each account's balance
+        # when on; off, wrap returns the raw account. Imported here:
+        # resource_mgmt must not pull coproc in when it is imported.
+        from redpanda_tpu_torch.coproc import leakwatch
+
         self.accounts: dict[str, MemoryAccount] = {
-            name: MemoryAccount(name, max(1, int(self.total_bytes * frac)), plane=self)
+            name: leakwatch.wrap(
+                MemoryAccount(name, max(1, int(self.total_bytes * frac)), plane=self),
+                f"account.{name}")
             for name, frac in split.items()
         }
         self._level = PRESSURE_OK
