@@ -174,6 +174,21 @@ Phases, each of which exits non-zero on failure:
 7. Recovery scan: a 32 MiB segment of ~4 KiB batches (8192 frames) with a
    torn tail and with a corrupt frame; scan_valid_prefix_device must equal
    scan_valid_prefix_host.
+   b. A broker restart over config 4's 64 partitions (the storage layer,
+      redpanda_tpu_torch/storage/): a LogManager with
+      LogConfig(use_device_recovery=True, recovery_device=the card) fills
+      each partition with 1024 of phase 7's ~4 KiB batches (4 MiB a tail,
+      256 MiB in all, at the default 128 MiB segment size) and stops; the
+      last frame of every tail is torn in half and one partition has a
+      payload byte flipped three frames from the end; the directory is
+      copied and reopened log by log, once with device recovery (DiskLog.open
+      -> recover_segment -> K5, exactly one crc32c launch a partition,
+      counted) and once, the copy, with host recovery. The offsets and cuts
+      must equal the host scan's, the last 32 batches of every log verify
+      their Kafka CRCs, one more append a log lands at dirty + 1 on both,
+      and every .log and .index file is byte-identical between the two.
+      Print both reopens' wall times, MB/s over the tails and each one's
+      median per-log open.
 8. LZ4 (K11): the block decoder against its plain version over valid,
    overflowing, truncated, bad-offset and empty streams (all three
    outputs), and over the edge streams of ops/lz4_device.py edge_streams
@@ -226,7 +241,7 @@ Phases, each of which exits non-zero on failure:
 11. Print the kernels line, the card's name and power limit, and last the
     {"ok": true, "device": ...} line.
 
-Phases 3, 3h, 3i, 3j, 5-8 and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
+Phases 3, 3h, 3i, 3j, 5-8 (7b too) and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
 every launch count to 0 just before their path and fail if a kernel of that
 path was not launched in it.
 
@@ -252,6 +267,7 @@ PRODUCE_BATCHES = 1024  # bench.py config 1: 64 batches x 16
 RAFT_PARTITIONS, RAFT_BATCHES = 256, 4  # config 5: batches per append
 RAFT_VALUE, RAFT_RECORDS = 1000, 16  # a region just under 16 KiB
 SEGMENT_FRAMES, SEGMENT_RECORDS, SEGMENT_VALUE = 8192, 4, 1000  # ~4 KiB frames, 32 MiB
+RESTART_BATCHES = 1024  # phase 7b: 4 MiB a partition's tail (the segment holds 128 MiB)
 LZ4_RECORDS, LZ4_RECORD = 16 * 1024, 1024  # config 2: 16 partitions x 1024 records
 MESH_SHARDS = 4  # the virtual mesh's shards on the one card
 VOTE_GROUPS = 256  # raft groups in a vote tally
@@ -2577,6 +2593,126 @@ def phase_recovery(dev) -> dict:
     return launches
 
 
+def tail_segment(log_dir: str) -> str:
+    stems = sorted((f for f in os.listdir(log_dir) if f.endswith(".log")),
+                   key=lambda f: int(f.split("-")[0]))
+    return os.path.join(log_dir, stems[-1])
+
+
+async def reopen_logs(config, ntps) -> tuple:
+    """A LogManager over ``config`` opening every NTP in turn, as a restart
+    does: (manager, logs, seconds of each open, seconds of all)."""
+    from redpanda_tpu_torch.storage import LogManager
+
+    mgr = LogManager(config)
+    logs, per_log = [], []
+    t_all = time.perf_counter()
+    for n in ntps:
+        t0 = time.perf_counter()
+        logs.append(await mgr.manage(n))
+        per_log.append(time.perf_counter() - t0)
+    return mgr, logs, per_log, time.perf_counter() - t_all
+
+
+def phase_restart(dev, partitions: int = P, batches: int = RESTART_BATCHES) -> dict:
+    """A broker restart over config 4's partitions: every log's tail
+    recovered through DiskLog.open -> recover_segment -> K5 on the card,
+    against the same directory reopened with host recovery."""
+    import asyncio
+    import shutil
+    import statistics
+    import tempfile
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.models import NTP
+    from redpanda_tpu_torch.storage import LogConfig, LogManager
+    from redpanda_tpu_torch.storage.recovery import scan_valid_prefix_host
+
+    fill = random_batches(batches, SEGMENT_RECORDS, SEGMENT_VALUE, 4)
+    frame = fill[0].size_bytes
+    ntps = [NTP.kafka("restart", p) for p in range(partitions)]
+    corrupt_p = partitions // 3
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-restart-") as tmp:
+        card_dir, host_dir = os.path.join(tmp, "card"), os.path.join(tmp, "host")
+        card_cfg = LogConfig(base_dir=card_dir, use_device_recovery=True,
+                             recovery_device=str(dev), fsync_on_append=False)
+        host_cfg = LogConfig(base_dir=host_dir, fsync_on_append=False)
+
+        async def fill_logs():
+            mgr = LogManager(card_cfg)
+            for n in ntps:
+                await (await mgr.manage(n)).append(list(fill))
+            await mgr.stop()
+
+        t0 = time.perf_counter()
+        asyncio.run(fill_logs())
+        t_fill = time.perf_counter() - t0
+        cuts, scanned = [], 0
+        for p, n in enumerate(ntps):
+            path = tail_segment(os.path.join(card_dir, n.path()))
+            with open(path, "rb") as f:
+                blob = bytearray(f.read())
+            if p == corrupt_p:
+                blob[len(blob) - 3 * frame + 300] ^= 0xFF  # a payload byte, third frame from the end
+            blob = bytes(blob[: len(blob) - frame // 2])  # the last frame torn in half
+            with open(path, "wb") as f:
+                f.write(blob)
+            cuts.append(scan_valid_prefix_host(blob))
+            scanned += len(blob)
+        shutil.copytree(card_dir, host_dir)
+
+        async def restart():
+            kernels.reset_launches()  # the restart's device path starts here
+            card = await reopen_logs(card_cfg, ntps)
+            launches = path_launches("restart", kernels.CRC32C)  # ... and ends here
+            host = await reopen_logs(host_cfg, ntps)
+            try:
+                for p, (lc, lh) in enumerate(zip(card[1], host[1])):
+                    oc, oh = lc.offsets(), lh.offsets()
+                    if oc != oh or oc.dirty_offset != cuts[p][1]:
+                        fail(f"restart: partition {p} offsets {oc} (card) / {oh} (host), the "
+                             f"host scan cuts at {cuts[p]}")
+                    if lc.segments[-1].size_bytes != cuts[p][0]:
+                        fail(f"restart: partition {p} tail cut at {lc.segments[-1].size_bytes} B, "
+                             f"the host scan names {cuts[p][0]}")
+                    tail = await lc.read(oc.dirty_offset + 1 - 32 * SEGMENT_RECORDS, 1 << 30)
+                    if len(tail) != 32 or not all(b.verify_kafka_crc() for b in tail):
+                        fail(f"restart: partition {p}'s last 32 batches do not verify")
+                    rc = await lc.append([fill[0]])
+                    rh = await lh.append([fill[0]])
+                    if rc.base_offset != oc.dirty_offset + 1 or rh.base_offset != rc.base_offset:
+                        fail(f"restart: partition {p} appended at {rc.base_offset} / "
+                             f"{rh.base_offset}, want {oc.dirty_offset + 1}")
+            finally:
+                await card[0].stop()
+                await host[0].stop()
+            return launches, card, host
+
+        launches, card, host = asyncio.run(restart())
+        if launches["crc32c"] != partitions:
+            fail(f"restart: {launches['crc32c']} crc32c launches on the card's reopen, want one "
+                 f"a partition ({partitions})")
+        for n in ntps:
+            names = sorted(os.listdir(os.path.join(card_dir, n.path())))
+            if names != sorted(os.listdir(os.path.join(host_dir, n.path()))):
+                fail(f"restart: {n.path()} holds other files after the two reopens")
+            for name in names:
+                with open(os.path.join(card_dir, n.path(), name), "rb") as a, \
+                        open(os.path.join(host_dir, n.path(), name), "rb") as b:
+                    if a.read() != b.read():
+                        fail(f"restart: {n.path()}/{name} differs between the two reopens")
+    t_card, t_host = card[3], host[3]
+    log(f"restart (config 4's {partitions} partitions x {batches} batches of {frame} B, "
+        f"{scanned / 2**20:.1f} MiB of tails, every tail torn, partition {corrupt_p} with a "
+        f"corrupt frame): fill {t_fill:.2f} s; reopen with device recovery {t_card:.3f} s "
+        f"({scanned / t_card / 1e6:.1f} MB/s, median {statistics.median(card[2]) * 1e3:.2f} ms a "
+        f"log), with host recovery {t_host:.3f} s ({scanned / t_host / 1e6:.1f} MB/s, median "
+        f"{statistics.median(host[2]) * 1e3:.2f} ms a log); crc32c launches {launches['crc32c']}; "
+        f"cuts, offsets and files equal on both, the last 32 batches verified and one more "
+        f"batch appended at dirty + 1 in every log")
+    return launches
+
+
 # ------------------------------------------------------------------ LZ4 phase
 def phase_lz4(dev) -> tuple[dict, dict]:
     import numpy as np
@@ -3409,7 +3545,7 @@ def main() -> int:
     launches.update(phase_payload_entry(dev))
     measured.update(phase_crc_kernels(dev))
     launches.update(phase_produce(dev))
-    crc_paths = [phase_raft(dev), phase_recovery(dev)]
+    crc_paths = [phase_raft(dev), phase_recovery(dev), phase_restart(dev)]
     launches["crc32c"] = sum(p["crc32c"] for p in crc_paths)
     measured["lz4_block"], lz4_launches = phase_lz4(dev)
     launches.update(lz4_launches)

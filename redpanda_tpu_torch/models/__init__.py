@@ -9,6 +9,11 @@ from redpanda_tpu_torch.models.record import (
     RecordHeader,
     TimestampType,
 )
+from redpanda_tpu_torch.models.reader import (
+    RecordBatchReader,
+    make_generator_reader,
+    make_memory_reader,
+)
 
 __all__ = [
     "NTP",
@@ -24,4 +29,7 @@ __all__ = [
     "Compression",
     "TimestampType",
     "INTERNAL_HEADER_SIZE",
+    "RecordBatchReader",
+    "make_memory_reader",
+    "make_generator_reader",
 ]

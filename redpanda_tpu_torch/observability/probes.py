@@ -1,6 +1,7 @@
-"""The coproc engine's probes over the metrics registry (the JAX package's
+"""The port's probes over the metrics registry (the JAX package's
 observability/probes.py, its coproc series: the fault domains, the device
-legs, the engine's stages, the host-stage pool and the mesh).
+legs, the engine's stages, the host-stage pool and the mesh; and its two
+storage series: the log's append and the manager's housekeeping).
 
 Unlike the tracer (trace.py) these are always on: a histogram record is a
 dict lookup plus integer bucket math. The series names are the JAX
@@ -21,6 +22,16 @@ import weakref
 from redpanda_tpu_torch.metrics import Counter, Histogram, registry, series_key
 from redpanda_tpu_torch.observability.trace import tracer
 from redpanda_tpu_torch.utils.hdr import _bucket_of, _bucket_upper
+
+# ------------------------------------------------------------ broker path
+# the storage layer's two series (storage/log.py, storage/log_manager.py)
+storage_append_hist = registry.histogram(
+    "storage_append_latency_us", "Storage log append latency (us)"
+)
+storage_housekeeping_hist = registry.histogram(
+    "storage_housekeeping_latency_us",
+    "One compaction/retention housekeeping pass over a log (us)",
+)
 
 # ------------------------------------------------------ multi-chip meshrunner
 # per-device record counters, created lazily per mesh device index so the
@@ -292,4 +303,6 @@ __all__ = [
     "observe_us",
     "record_us",
     "reset_exemplars",
+    "storage_append_hist",
+    "storage_housekeeping_hist",
 ]

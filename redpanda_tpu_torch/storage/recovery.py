@@ -9,8 +9,10 @@ staging array and validates all Kafka CRCs in one launch of the CRC kernel
 (ops/crc32c_device.py) on the card.
 
 The segment is cut at the first corrupt frame (everything after a torn
-write is discarded, as the reference does). ``recover_segment``, which
-truncates the file and rebuilds its index, comes with the storage layer.
+write is discarded, as the reference does): ``recover_segment`` truncates
+the file there and rebuilds its index. ``DiskLog.open`` runs it on the
+tail segment of every log, on the card when its ``LogConfig`` asks for
+device recovery.
 """
 
 from __future__ import annotations
@@ -84,3 +86,26 @@ def scan_valid_prefix_device(blob: bytes, row_stride: int = 4096, device="cuda")
         return 0, -1
     end_pos, last_hdr = frames[valid - 1]
     return end_pos + last_hdr.size_bytes, last_hdr.base_offset + last_hdr.last_offset_delta
+
+
+def recover_segment(seg, *, use_device: bool = False, device="cuda") -> None:
+    """Truncate `seg` after its last intact batch and rebuild its index.
+
+    Single read: the blob is scanned once for CRC validity and the surviving
+    prefix is handed to rebuild_index (which also resets dirty_offset and
+    max_timestamp — crucial when the whole tail is corrupt and the stale
+    index footer would otherwise claim offsets that no longer exist).
+    With ``use_device`` the scan's CRCs run on ``device`` (the card unless
+    the caller asks for the CPU); a failed build or launch raises, and
+    nothing is scanned on the host in its place."""
+    blob = seg.read_from(0)
+    if use_device:
+        valid_len, _last_offset = scan_valid_prefix_device(blob, device=device)
+    else:
+        valid_len, _last_offset = scan_valid_prefix_host(blob)
+    if valid_len < len(blob):
+        with open(seg.data_path, "r+b") as f:
+            f.truncate(valid_len)
+        seg.size_bytes = valid_len
+        blob = blob[:valid_len]
+    seg.rebuild_index(blob)
