@@ -189,6 +189,26 @@ Phases, each of which exits non-zero on failure:
       and every .log and .index file is byte-identical between the two.
       Print both reopens' wall times, MB/s over the tails and each one's
       median per-log open.
+   c. The coproc runtime over config 4 (redpanda_tpu_torch/coproc/api.py,
+      pacemaker.py, wasm_event.py over kafka/server/broker.py): a
+      StorageApi, Broker and CoprocApi(broker, device=the card) with the
+      default knobs; topic bench of 64 partitions holding 64 batches of 32
+      ~1 KB JSON records each (the bench's short_msgs workload, seeded by
+      batch); the columnar spec deployed as errs and the payload spec as
+      errs_v1 through api.deploy (events into coprocessor_internal_topic);
+      the pacemaker's ticks transform the backlog on the card. Every
+      materialized partition's records must equal the same input through a
+      TorchEngine(**PIN_K1) run directly, every materialized batch verify
+      its CRC, the saved offsets name every partition at 2047, and nothing
+      may count a failure. The columnar probe decides (its verdict is
+      printed): K1 must launch at least once (the probe's leg) and K4 at
+      least once a tick of errs_v1. Then a restart over the same directory
+      (recover_topics, a new CoprocApi): both scripts come back from the
+      event log, no materialized high watermark moves over 1 s of idle, and
+      one more batch a partition appears once. Print each script's input
+      record_batches/s from its deploy to its last offset, its ticks (its
+      coproc.tick spans), the medians of its read, submit, harvest and
+      write spans, the autotune's knobs and ADMISSION records.
 8. LZ4 (K11): the block decoder against its plain version over valid,
    overflowing, truncated, bad-offset and empty streams (all three
    outputs), and over the edge streams of ops/lz4_device.py edge_streams
@@ -241,7 +261,7 @@ Phases, each of which exits non-zero on failure:
 11. Print the kernels line, the card's name and power limit, and last the
     {"ok": true, "device": ...} line.
 
-Phases 3, 3h, 3i, 3j, 5-8 (7b too) and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
+Phases 3, 3h, 3i, 3j, 5-8 (7b and 7c too) and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
 every launch count to 0 just before their path and fail if a kernel of that
 path was not launched in it.
 
@@ -2713,6 +2733,256 @@ def phase_restart(dev, partitions: int = P, batches: int = RESTART_BATCHES) -> d
     return launches
 
 
+# ------------------------------------------------------------------ runtime phase
+RUNTIME_BATCHES = 64  # phase 7c: a partition's backlog, 2048 records (~2.1 MB)
+RUNTIME_WAIT_S = 300.0  # a ceiling for the backlog's transform, not a pace
+
+
+def runtime_records(batches) -> list:
+    """(key, value, headers) of every record, in order; every batch must
+    verify its Kafka CRC."""
+    out = []
+    for b in batches:
+        if not b.verify_kafka_crc():
+            fail(f"runtime: a materialized batch at {b.base_offset} does not verify its CRC")
+        out += [(r.key, r.value, tuple((h.key, h.value) for h in r.headers)) for r in b.records()]
+    return out
+
+
+def direct_records(dev, spec, requests) -> dict:
+    """Each partition's records through a TorchEngine on the card (K1
+    pinned, the runtime's default row stride): {partition: records}."""
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+
+    eng = TorchEngine(device=dev, **PIN_K1)
+    try:
+        if eng.enable_coprocessors([(1, spec.to_json(), ("bench",))]) != [0]:
+            fail("runtime: the direct engine did not enable its spec")
+        out = {p: [] for p in range(P)}
+        for req in requests:
+            for it in eng.process_batch(req).items:
+                out[it.source.partition] += runtime_records(it.batches)
+        return out
+    finally:
+        eng.shutdown()
+
+
+async def partition_records(part, start: int = 0) -> list:
+    out, off = [], start
+    while off < part.high_watermark:
+        batches = await part.make_reader(off, 1 << 22)
+        if not batches:
+            fail(f"runtime: {part.ntp} reads nothing at {off} below {part.high_watermark}")
+        out += runtime_records(batches)
+        off = batches[-1].last_offset + 1
+    return out
+
+
+def script_spans(spans, script_of: dict, name: str) -> tuple[int, dict]:
+    """One script's ticks (its coproc.tick spans) and the medians (ms) of
+    its read, submit, harvest and write spans, from the committed spans and
+    ``script_of`` (a tick's trace id -> the script id it submitted)."""
+    import statistics
+
+    from redpanda_tpu_torch.coproc.wasm_event import WasmEvent
+
+    sid = WasmEvent(name, b"").script_id
+    mine = {tid for tid, s in script_of.items() if s == sid}
+    by: dict[str, list[float]] = {}
+    for sp in spans:
+        if sp["trace_id"] in mine:
+            by.setdefault(sp["name"], []).append(sp["dur_us"] / 1e3)
+    med = {k: round(statistics.median(by[k]), 3) for k in (
+        "coproc.read", "coproc.submit.wait", "coproc.harvest.wait", "coproc.write") if by.get(k)}
+    return len(by.get("coproc.tick", [])), med
+
+
+def phase_runtime(dev) -> dict:
+    """Phase 7c: the coproc runtime over config 4 (module docstring).
+    Returns K1's and K4's launches on the runtime's path."""
+    import asyncio
+    import tempfile
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.cluster import TopicConfig
+    from redpanda_tpu_torch.coproc import governor
+    from redpanda_tpu_torch.coproc.api import CoprocApi
+    from redpanda_tpu_torch.coproc.engine import TorchEngine
+    from redpanda_tpu_torch.kafka.server.broker import Broker, BrokerConfig
+    from redpanda_tpu_torch.observability.trace import tracer
+    from redpanda_tpu_torch.storage import KeySpace, StorageApi
+
+    t_phase = time.perf_counter()
+    scripts = {"errs": columnar_spec(), "errs_v1": payload_spec()}
+    # the bench's short_msgs workload: its ~1 KB records in the pad field, so
+    # that msgs of 0-89 bytes survive the projection (the bench workload's
+    # ~900-byte msgs fit no Str("msg", 64): every materialized log would
+    # stay empty)
+    requests = [build_request(True, seed=b) for b in range(RUNTIME_BATCHES)]
+    extra = build_request(True, seed=RUNTIME_BATCHES)  # the restart's one more batch a partition
+    backlog = {p: [req.items[p].batches[0] for req in requests] for p in range(P)}
+    n_records = sum(len(b.records()) for bs in backlog.values() for b in bs)
+    sizes = [len(r.value) for bs in backlog.values() for b in bs for r in b.records()]
+    n_fit = sum(s <= 1024 for s in sizes)
+    want = {name: direct_records(dev, spec, requests) for name, spec in scripts.items()}
+    want_extra = {name: direct_records(dev, spec, [extra]) for name, spec in scripts.items()}
+    last = RUNTIME_BATCHES * RECORDS_PER_BATCH - 1
+    spans, script_of = [], {}
+
+    async def start(d):
+        storage = await StorageApi(d).start()
+        broker = Broker(BrokerConfig(data_dir=d), storage)
+        await broker.recover_topics()  # what KafkaServer.start does in the JAX package
+        api = await CoprocApi(broker, device=str(dev)).start()
+        return storage, broker, api
+
+    def offsets_at(api, name, off) -> bool:
+        ctx = api.pacemaker.scripts().get(name)
+        return ctx is not None and len(ctx.offsets) == P and all(
+            v == off for v in ctx.offsets.values())
+
+    async def wait_for(pred, what, timeout=RUNTIME_WAIT_S):
+        t0 = time.perf_counter()
+        while not pred():
+            if time.perf_counter() - t0 > timeout:
+                fail(f"runtime: {what} not within {timeout:.0f} s")
+            await asyncio.sleep(0.005)
+        return time.perf_counter()
+
+    def hwms(broker) -> dict:
+        return {(n, p): broker.get_partition(f"bench.${n}$", p).high_watermark
+                for n in scripts for p in range(P)}
+
+    async def first_run(d):
+        storage, broker, api = await start(d)
+        try:
+            await broker.create_topic(TopicConfig("bench", P))
+            t0 = time.perf_counter()
+            for p, batches in backlog.items():
+                await broker.get_partition("bench", p).replicate(batches, 0)
+            t_write = time.perf_counter() - t0
+            engine_submit = api.engine.submit
+
+            def submit(req):  # which script each tick's trace belongs to
+                script_of[req.trace_id] = req.items[0].script_id
+                return engine_submit(req)
+
+            api.engine.submit = submit
+            tracer.configure(enabled=True, slow_threshold_ms=60_000)
+            tracer.set_sink(spans.append)
+            f0 = failures_total()
+            kernels.reset_launches()  # the runtime's device path starts here
+            t_deploy = {}
+            for name, spec in scripts.items():
+                t_deploy[name] = time.perf_counter()
+                await api.deploy(name, spec.to_json(), ["bench"])
+            t_done = {}  # each script's last offset, polled together
+
+            def all_done() -> bool:
+                for n in scripts:
+                    if n not in t_done and offsets_at(api, n, last):
+                        t_done[n] = time.perf_counter()
+                return len(t_done) == len(scripts)
+
+            await wait_for(all_done, "the scripts' backlog")
+        finally:
+            await api.stop()
+            tracer.set_sink(None)
+            tracer.configure(enabled=False)
+        launches = path_launches("coproc runtime", kernels.PREDICATE,
+                                 kernels.PAYLOAD_TRANSFORM)  # ... and ends here
+        failed = failures_total() - f0
+        if failed:
+            fail(f"runtime: {failed:.0f} failures counted while the scripts ran "
+                 "(a failed tick or launch)")
+        saved = json.loads(storage.kvs.get(KeySpace.coproc, b"offsets"))
+        if saved != {n: {f"kafka/bench/{p}": last for p in range(P)} for n in scripts}:
+            fail(f"runtime: the saved offsets are not every partition at {last}: {saved}")
+        got = {n: {p: await partition_records(broker.get_partition(f"bench.${n}$", p))
+                   for p in range(P)} for n in scripts}
+        for n in scripts:
+            for p in range(P):
+                if got[n][p] != want[n][p]:
+                    fail(f"runtime: {n}'s materialized partition {p} holds "
+                         f"{len(got[n][p])} records, not the direct engine's "
+                         f"{len(want[n][p])} records")
+        st = api.engine.stats()
+        gov = api.engine.governor
+        admission = [e for e in governor.journal.entries(domain=governor.ADMISSION)
+                     if e["engine"] == gov.engine_tag]
+        out = dict(launches=launches, t_write=t_write, t_deploy=t_deploy, t_done=t_done,
+                   st=st, knobs=gov.autotune_snapshot(), admission=admission[::-1],
+                   hwm=hwms(broker), got=got)
+        await storage.stop()
+        return out
+
+    async def restart(d, before):
+        storage, broker, api = await start(d)
+        try:
+            await wait_for(lambda: api.active_scripts() == sorted(scripts),
+                           "the scripts' return from the event log", 30.0)
+            await wait_for(lambda: all(offsets_at(api, n, last) for n in scripts),
+                           "the saved offsets' return", 30.0)
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 1.0:
+                if hwms(broker) != before["hwm"]:
+                    fail("runtime: a materialized high watermark moved after the restart "
+                         "with no new input (reprocessing)")
+                await asyncio.sleep(0.01)
+            for it in extra.items:
+                await broker.get_partition("bench", it.ntp.partition).replicate(it.batches, 0)
+            for n in scripts:
+                await wait_for(lambda n=n: offsets_at(api, n, last + RECORDS_PER_BATCH),
+                               f"{n}'s one more batch", 60.0)
+        finally:
+            await api.stop()
+        for n in scripts:
+            for p in range(P):
+                recs = await partition_records(broker.get_partition(f"bench.${n}$", p))
+                if recs != before["got"][n][p] + want_extra[n][p]:
+                    fail(f"runtime: after the restart {n}'s partition {p} holds "
+                         f"{len(recs)} records, not {len(before['got'][n][p])} + "
+                         f"{len(want_extra[n][p])} once each")
+        await storage.stop()
+
+    TorchEngine.reset_columnar_probe()  # the runtime's engine probes afresh
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-runtime-") as d:
+        run = asyncio.run(first_run(d))
+        t0 = time.perf_counter()
+        asyncio.run(restart(d, run))
+        t_restart = time.perf_counter() - t0
+    TorchEngine.reset_columnar_probe()
+    st = run["st"]
+    ticks = {}
+    for name in scripts:
+        ticks[name], med = script_spans(spans, script_of, name)
+        secs = run["t_done"][name] - run["t_deploy"][name]
+        log(f"runtime {name}: {RUNTIME_BATCHES * P} input record_batches ({n_records} records) in "
+            f"{secs:.3f} s from the deploy to the last offset = {RUNTIME_BATCHES * P / secs:.1f} "
+            f"record_batches/s (both scripts at once); {ticks[name]} ticks (coproc.tick spans); "
+            f"span medians ms {json.dumps(med)}")
+    k1, k4 = run["launches"]["predicate"], run["launches"]["payload_transform"]
+    if k1 < 1 or k4 < ticks["errs_v1"]:
+        fail(f"runtime: K1 {k1} launches (want >= 1, the probe's leg), K4 {k4} (want >= "
+             f"errs_v1's {ticks['errs_v1']} ticks)")
+    probe = st.get("columnar_probe")
+    log(f"runtime columnar probe: verdict {st.get('columnar_backend')}, t_host_s "
+        f"{probe and probe.get('t_host_s')}, t_device_s {probe and probe.get('t_device_s')}; "
+        f"K1 launches {k1}, K4 launches {k4}, the engine's launches {st.get('n_launches', 0):.0f} "
+        f"(host-pool probe {json.dumps(st.get('host_pool_probe'))}); {n_fit} of {len(sizes)} "
+        f"records fit the 1024-byte payload row")
+    log(f"runtime autotune: final knobs {json.dumps(run['knobs'])}; ADMISSION records "
+        f"{json.dumps([(e['verdict'], e['reason']) for e in run['admission']])}")
+    log(f"runtime (config 4: {P} partitions x {RUNTIME_BATCHES} batches of "
+        f"{RECORDS_PER_BATCH} ~1 KB JSON records, {sum(b.size_bytes for bs in backlog.values() for b in bs) / 1e6:.1f} MB "
+        f"written in {run['t_write']:.2f} s): both scripts' {P} materialized partitions equal "
+        f"the direct engine's records, every batch verified its CRC, offsets saved at {last}; "
+        f"restart: both scripts back from the event log, no high watermark moved over 1 s "
+        f"idle, one more batch a partition materialized once ({t_restart:.2f} s); the phase "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    return run["launches"]
+
+
 # ------------------------------------------------------------------ LZ4 phase
 def phase_lz4(dev) -> tuple[dict, dict]:
     import numpy as np
@@ -3547,6 +3817,8 @@ def main() -> int:
     launches.update(phase_produce(dev))
     crc_paths = [phase_raft(dev), phase_recovery(dev), phase_restart(dev)]
     launches["crc32c"] = sum(p["crc32c"] for p in crc_paths)
+    for name, n in phase_runtime(dev).items():
+        launches[name] += n
     measured["lz4_block"], lz4_launches = phase_lz4(dev)
     launches.update(lz4_launches)
     from redpanda_tpu_torch.parallel import partition_mesh

@@ -1,6 +1,6 @@
 """The coproc governor: one decision plane for every adaptive choice (the
 JAX package's coproc/governor.py, ported with its admission shed episodes
-and without its launch-knob autotune, whose callers are not ported yet).
+and its launch-knob autotune).
 
 The engine carries a family of measured probes -- the host-pool
 calibration (and its periodic recalibration), the parse-path probe, the
@@ -97,6 +97,16 @@ BREAKER_DOMAINS = (
 # its own wedge duration.
 DEADLINE_RECOMPUTE_SAMPLES = 64  # recompute p99.9 after this many new obs
 _DEADLINE_JOURNAL_DELTA = 0.2    # journal a change only when >= 20%
+
+# Launch-knob autotune (ADMISSION domain): how often a verdict may CHANGE
+# the knobs (hysteresis hold window — a flapping input cannot flap the
+# knobs faster than this), and where the success-only dispatch-leg p99.9
+# sits relative to the static deadline floor before we grow (cheap legs:
+# deepen batching toward the ~90%-utilization posture) or shrink (tail
+# approaching the deadline: trade launch depth for latency).
+AUTOTUNE_HOLD_S = 5.0
+_AUTOTUNE_GROW_FRAC = 0.5
+_AUTOTUNE_SHRINK_FRAC = 0.8
 
 # posture verdict -> gauge value per domain (unknown/undecided = -1)
 _STATE_ENCODING: dict[str, dict[str, float]] = {
@@ -317,7 +327,9 @@ class Governor:
         # per-domain adaptive deadline state:
         # domain -> {"count": samples at last recompute, "deadline_s": ...}
         self._deadline_state: dict[str, dict] = {}
-        # open shed episodes (note_shed / note_admitted bracket them)
+        # launch-knob autotune (configure_autotune arms it) + open shed
+        # episodes (note_shed / note_admitted bracket them)
+        self._auto: dict | None = None
         self._shed_open: set = set()
         self._policies: dict[str, faults.FaultPolicy] = {}
         # monotonic per-domain max of deadlines actually ISSUED (floor
@@ -369,6 +381,16 @@ class Governor:
                 "coproc/governor.py encoding; -1 undecided)",
                 domain=domain,
             )
+        for knob in ("group_ticks", "launch_depth"):
+            # the autotune knobs as live gauges, so that a knob resize
+            # shows on a metrics timeline, not only as a journal instant
+            registry.gauge(
+                "coproc_autotune_knob",
+                self._knob_gauge_fn(ref, knob),
+                "Current dynamic launch knob value (ADMISSION autotune; "
+                "-1 when autotune is unarmed)",
+                knob=knob,
+            )
 
     @staticmethod
     def _breaker_gauge_fn(ref, domain):
@@ -398,6 +420,20 @@ class Governor:
                 return -1.0
             verdict = gov._posture_modes.get(domain)
             return _STATE_ENCODING[domain].get(verdict, -1.0)
+
+        return fn
+
+    @staticmethod
+    def _knob_gauge_fn(ref, knob):
+        def fn() -> float:
+            gov = ref()
+            if gov is None:
+                return -1.0
+            auto = gov._auto
+            if auto is None:
+                return -1.0
+            with gov._lock:
+                return float(auto[knob])
 
         return fn
 
@@ -656,6 +692,133 @@ class Governor:
         )
 
     # ------------------------------------------------------------ admission
+    def configure_autotune(
+        self,
+        *,
+        enabled: bool = True,
+        group_ticks: int = 1,
+        group_ticks_cap: int = 8,
+        launch_depth: int = 4,
+        launch_depth_cap: int = 8,
+        hold_s: float = AUTOTUNE_HOLD_S,
+        pressure_fn=None,
+    ) -> None:
+        """Arm the dynamic ``group_ticks_per_launch`` / ``launch_depth``
+        verdicts. ``pressure_fn() -> (level, occupancy)`` is the budget
+        plane's signal (None = no plane: the latency guard still runs).
+        The configured values are the STARTING point; verdicts move within
+        [1, cap] and may only change once per ``hold_s`` (hysteresis) —
+        the same floors/caps posture as the adaptive-deadline machinery."""
+        with self._lock:
+            self._auto = {
+                "enabled": bool(enabled),
+                "group_ticks": max(1, int(group_ticks)),
+                "group_ticks_cap": max(1, int(group_ticks_cap)),
+                "launch_depth": max(1, int(launch_depth)),
+                "launch_depth_cap": max(1, int(launch_depth_cap)),
+                "hold_s": max(0.0, float(hold_s)),
+                "last_change": -float("inf"),
+                "pressure_fn": pressure_fn,
+            }
+
+    def launch_knobs(self) -> dict:
+        """Current {"group_ticks", "launch_depth"} — recomputed here (the
+        pacemaker polls once per tick), journaled under the ADMISSION
+        domain only when a knob actually moves, and held still inside the
+        hysteresis window no matter what the inputs do."""
+        auto = self._auto
+        if auto is None:
+            return {"group_ticks": 1, "launch_depth": 4}
+        with self._lock:
+            gt, ld = auto["group_ticks"], auto["launch_depth"]
+            if not auto["enabled"]:
+                return {"group_ticks": gt, "launch_depth": ld}
+            now = self._clock()
+            if now - auto["last_change"] < auto["hold_s"]:
+                return {"group_ticks": gt, "launch_depth": ld}
+        # inputs read OUTSIDE the lock (pressure_fn reaches the plane,
+        # the histogram percentile walks buckets)
+        level, occ = "ok", 0.0
+        fn = auto["pressure_fn"]
+        if fn is not None:
+            try:
+                level, occ = fn()
+            except Exception as exc:
+                # classified: a dead pressure source silently pins the
+                # knobs at the latency-guard-only posture
+                faults.note_failure("autotune_pressure", exc)
+                logger.exception("autotune pressure source failed")
+        hist = self._stage_hist(faults.DEVICE_DISPATCH)
+        p999_us = hist.percentile(99.9) if hist.count >= self._min_samples else None
+        floor_us = self._policy.deadline_s * 1e6
+        new_gt, new_ld, verdict = gt, ld, None
+        if level == "critical":
+            # memory first: collapse to the floors so held staged bytes
+            # drain; admission keeps shedding the excess meanwhile
+            new_gt, new_ld, verdict = 1, 1, "floor"
+        elif level == "warn":
+            new_gt, new_ld = max(1, gt - 1), max(1, ld - 1)
+            verdict = "shrink"
+        elif p999_us is None:
+            # no device-leg evidence yet (idle engine, host-pinned box):
+            # HOLD the configured knobs — growing on zero samples would
+            # ratchet to the caps exactly when nothing supports it
+            pass
+        elif p999_us > _AUTOTUNE_SHRINK_FRAC * floor_us:
+            # device-leg tail approaching the deadline: trade depth for
+            # latency before the deadline machinery starts abandoning
+            new_gt, new_ld = max(1, gt - 1), max(1, ld - 1)
+            verdict = "shrink"
+        elif p999_us < _AUTOTUNE_GROW_FRAC * floor_us:
+            new_gt = min(auto["group_ticks_cap"], gt + 1)
+            new_ld = min(auto["launch_depth_cap"], ld + 1)
+            verdict = "grow"
+        if (new_gt, new_ld) == (gt, ld):
+            return {"group_ticks": gt, "launch_depth": ld}
+        with self._lock:
+            # re-check under the lock: a concurrent caller may have moved
+            # the knobs (and armed the hold window) while we read inputs
+            if self._clock() - auto["last_change"] < auto["hold_s"]:
+                return {
+                    "group_ticks": auto["group_ticks"],
+                    "launch_depth": auto["launch_depth"],
+                }
+            auto["group_ticks"], auto["launch_depth"] = new_gt, new_ld
+            auto["last_change"] = self._clock()
+        self._emit(
+            ADMISSION,
+            verdict,
+            f"launch knobs {verdict}: group_ticks {gt} -> {new_gt}, "
+            f"launch_depth {ld} -> {new_ld} (pressure {level}, occupancy "
+            f"{occ:.2f}, dispatch-leg p99.9 "
+            f"{'n/a' if p999_us is None else int(p999_us)} us vs floor "
+            f"{int(floor_us)} us)",
+            {
+                "pressure": level,
+                "occupancy": round(occ, 4),
+                "p999_us": None if p999_us is None else int(p999_us),
+                "floor_us": int(floor_us),
+                "group_ticks": new_gt,
+                "launch_depth": new_ld,
+                "prev_group_ticks": gt,
+                "prev_launch_depth": ld,
+            },
+        )
+        return {"group_ticks": new_gt, "launch_depth": new_ld}
+
+    def autotune_snapshot(self) -> dict | None:
+        auto = self._auto
+        if auto is None:
+            return None
+        with self._lock:
+            return {
+                k: auto[k]
+                for k in (
+                    "enabled", "group_ticks", "group_ticks_cap",
+                    "launch_depth", "launch_depth_cap", "hold_s",
+                )
+            }
+
     def note_shed(
         self, subsystem: str, retry_after_ms: int, inputs: dict | None = None
     ) -> None:
@@ -708,7 +871,7 @@ class Governor:
             PARSE_PATH: modes.get(PARSE_PATH),
             MESH: modes.get(MESH),
             ADMISSION: modes.get(ADMISSION),
-            "autotune": None,  # the launch-knob autotune is not ported yet
+            "autotune": self.autotune_snapshot(),
             "breakers": self.breakers_snapshot(),
             "deadlines_ms": {
                 d: round(self.deadline_s(d) * 1e3, 3) for d in BREAKER_DOMAINS

@@ -330,3 +330,156 @@ def test_engine_journals_its_pool_parse_and_seal_decisions(monkeypatch):
     assert {e["domain"] for e in governor.journal.entries()} == {"harvest_path",
                                                                  "sharded_seal"}
     assert governor.journal.entries(domain="sharded_seal")[0]["verdict"] == "sharded"
+
+
+# ------------------------------------------------------------ launch-knob autotune
+class _LegHist:
+    """A device-leg histogram whose p99.9 and count the test sets."""
+
+    def __init__(self):
+        self.count = 0
+        self._p = 0.0
+
+    def percentile(self, q):
+        return self._p
+
+    def record(self, v):
+        self.count += 1
+
+
+def _autotune_gov(pkg, hist, pressure, **kw):
+    """tests/test_resource_mgmt.py's autotune governor, of ``pkg``: a 1 s
+    deadline floor, knobs 2/2 with caps 4/4, a 10 s hold."""
+    gov_mod, faults_mod, _ = PKGS[pkg]
+    clock = FakeClock()
+    clock.t = 0.0
+    g = gov_mod.Governor(
+        fault_policy=faults_mod.FaultPolicy(deadline_s=1.0, retries=0, backoff_s=0.01),
+        clock=clock, register_gauges=False, stage_hist=lambda domain: hist,
+        engine_tag="e", journal_override=gov_mod.DecisionJournal(64))
+    cfg = dict(enabled=True, group_ticks=2, group_ticks_cap=4, launch_depth=2,
+               launch_depth_cap=4, hold_s=10.0, pressure_fn=lambda: pressure[0])
+    cfg.update(kw)
+    g.configure_autotune(**cfg)
+    return g, clock
+
+
+def _grow_hold_and_caps(pkg) -> tuple:
+    hist, pressure = _LegHist(), [("ok", 0.1)]
+    g, clock = _autotune_gov(pkg, hist, pressure)
+    seen = [g.launch_knobs()]  # no device-leg evidence: the knobs hold
+    hist.count, hist._p = 1000, 0.1 * 1e6  # cheap legs: grow one step a window
+    seen.append(g.launch_knobs())
+    pressure[0] = ("critical", 0.99)
+    clock.t = 5.0  # inside the hold window nothing moves
+    seen.append(g.launch_knobs())
+    clock.t = 11.0  # window over: critical floors both knobs in one verdict
+    seen.append(g.launch_knobs())
+    pressure[0] = ("ok", 0.1)
+    for i in range(6):
+        clock.t = 22.0 + 11.0 * i
+        seen.append(g.launch_knobs())
+    pressure[0] = ("warn", 0.8)
+    clock.t = 100.0
+    seen.append(g.launch_knobs())
+    return seen, _entries(g._journal, domain=PKGS[pkg][0].ADMISSION), g.autotune_snapshot(), \
+        g.posture()["autotune"]
+
+
+def test_autotune_grow_hold_and_caps_match_reference():
+    out = {pkg: _grow_hold_and_caps(pkg) for pkg in PKGS}
+    assert out["port"] == out["jax"]
+    seen, entries, snap, posture = out["port"]
+    k = lambda gt, ld: {"group_ticks": gt, "launch_depth": ld}  # noqa: E731
+    assert seen[:4] == [k(2, 2), k(3, 3), k(3, 3), k(1, 1)]
+    assert seen[-2] == k(4, 4) and seen[-1] == k(3, 3)  # capped, then a warn shrinks
+    # the journal lists the newest entry first
+    assert [e["verdict"] for e in entries] == ["shrink", "grow", "grow", "grow", "floor", "grow"]
+    assert all("pressure" in e["inputs"] and "group_ticks" in e["inputs"] for e in entries)
+    assert snap == posture == {"enabled": True, "group_ticks": 3, "group_ticks_cap": 4,
+                               "launch_depth": 3, "launch_depth_cap": 4, "hold_s": 10.0}
+
+
+def _latency_guard(pkg) -> tuple:
+    hist, pressure = _LegHist(), [("ok", 0.1)]
+    hist.count, hist._p = 1000, 0.9 * 1e6  # p99.9 0.9 s against a 1 s floor: shrink
+    g, clock = _autotune_gov(pkg, hist, pressure)
+    seen = [g.launch_knobs()]
+    hist._p = 0.1 * 1e6  # a healthy tail again: grows back
+    clock.t = 11.0
+    seen.append(g.launch_knobs())
+    hist._p = 0.6 * 1e6  # between the grow and shrink fractions: hold
+    clock.t = 30.0
+    seen.append(g.launch_knobs())
+    return seen, _entries(g._journal)
+
+
+def test_autotune_latency_guard_shrinks_match_reference():
+    out = {pkg: _latency_guard(pkg) for pkg in PKGS}
+    assert out["port"] == out["jax"]
+    seen, entries = out["port"]
+    assert seen == [{"group_ticks": 1, "launch_depth": 1}, {"group_ticks": 2, "launch_depth": 2},
+                    {"group_ticks": 2, "launch_depth": 2}]
+    assert [e["verdict"] for e in entries] == ["grow", "shrink"]  # newest first
+
+
+def _unarmed_disabled_and_failing(pkg) -> tuple:
+    gov_mod, faults_mod, _ = PKGS[pkg]
+    hist = _LegHist()
+    hist.count, hist._p = 1000, 0.1 * 1e6
+    g = _gov(pkg, floor_s=1.0)[0]
+    unarmed = (g.launch_knobs(), g.autotune_snapshot(), g.posture()["autotune"])
+    off, _ = _autotune_gov(pkg, hist, [("critical", 1.0)], enabled=False)
+    disabled = (off.launch_knobs(), off.autotune_snapshot()["enabled"], _entries(off._journal))
+
+    def broken():
+        raise RuntimeError("plane gone")
+
+    bad, _ = _autotune_gov(pkg, hist, None, pressure_fn=broken)
+    failing = (bad.launch_knobs(), [e["inputs"]["pressure"] for e in _entries(bad._journal)])
+    return unarmed, disabled, failing
+
+
+def test_autotune_unarmed_disabled_and_failing_pressure_match_reference():
+    """Unarmed: the static 1/4 and no snapshot; disabled: the configured
+    knobs whatever the inputs; a raising pressure source: counted as an
+    ``autotune_pressure`` failure and the latency guard alone decides."""
+    before = sum(v for k, v in registry.snapshot().items()
+                 if k.startswith('coproc_failures_total{domain="autotune_pressure"'))
+    out = {pkg: _unarmed_disabled_and_failing(pkg) for pkg in PKGS}
+    assert out["port"] == out["jax"]
+    unarmed, disabled, failing = out["port"]
+    assert unarmed == ({"group_ticks": 1, "launch_depth": 4}, None, None)
+    assert disabled == ({"group_ticks": 2, "launch_depth": 2}, False, [])
+    assert failing == ({"group_ticks": 3, "launch_depth": 3}, ["ok"])
+    after = sum(v for k, v in registry.snapshot().items()
+                if k.startswith('coproc_failures_total{domain="autotune_pressure"'))
+    assert after == before + 1
+
+
+def test_pacemaker_backstop_derives_from_the_envelope_bounds():
+    """tests/test_governor.py's backstop check: the pacemaker's tick
+    deadline outwaits four times the largest envelope the governor has
+    issued, in both packages, and follows an adaptive raise."""
+    import types
+
+    from redpanda_tpu.coproc.pacemaker import Pacemaker as RefPacemaker
+    from redpanda_tpu_torch.coproc.pacemaker import Pacemaker
+
+    out = {}
+    for pkg, pm_cls in (("port", Pacemaker), ("jax", RefPacemaker)):
+        g, _, hists, _ = _gov(pkg)
+        eng = types.SimpleNamespace(governor=g)
+        pm = pm_cls(object(), eng, tick_deadline_s=0.5)
+        static = pm.tick_deadline_for(eng)
+        for _ in range(1000):
+            hists[PKGS[pkg][1].HARVEST].record(60_000_000)  # raise to the cap
+        g.policy_for(PKGS[pkg][1].HARVEST)
+        bound = g.envelope_bound_s(PKGS[pkg][1].HARVEST)
+        raised = pm.tick_deadline_for(eng)
+        assert g.max_envelope_s() >= bound
+        assert static == max(0.5, 4.0 * g._policy.envelope_s())
+        assert raised == max(0.5, 4.0 * g.max_envelope_s()) > static
+        assert pm.tick_deadline_for(object()) == 0.5  # no governor: the static value
+        out[pkg] = (static, raised)
+    assert out["port"] == out["jax"]
