@@ -209,6 +209,32 @@ Phases, each of which exits non-zero on failure:
       record_batches/s from its deploy to its last offset, its ticks (its
       coproc.tick spans), the medians of its read, submit, harvest and
       write spans, the autotune's knobs and ADMISSION records.
+   d. BASELINE config 5 through raft (redpanda_tpu_torch/rpc/ and raft/):
+      three brokers in this process, each a StorageApi under a temporary
+      directory, an rpc.Server on 127.0.0.1:0, a ConnectionCache to the
+      other two and a GroupManager(device=the card) (election timeout
+      5000 ms, heartbeat 500 ms: see CONFIG5_ELECTION_MS), the process's
+      open-file limit raised to its hard limit where short; 256 groups
+      NTP("kafka", "config5", p), all three nodes voters, each with a
+      leader that held one election timeout. Four rounds, each replicating
+      16 batches of 16 x 1000 B a group at quorum_ack, all groups at once
+      (4096 batches, ~64 MiB a replica), a batch whose leader an election
+      deposed resent to the new one: run A with
+      RaftDevicePlane(probe=False) installed under every follower's append
+      (K5), a torn round with the honey badger flipping a byte of 8
+      appends (raft_crc_rejected rises by 8, the leaders' recovery resends
+      them), run B with a two-shard virtual mesh plane (K8 on every append,
+      K7 on every heartbeat tick that heard both peers, each tick's
+      last_tick_acks equal to a numpy count of its acks) and run C on the
+      default probing plane (its decision printed). After each round every
+      replica of the round's range is byte-identical to its leader's and
+      the leader holds every batch sent; K5's (K8's) launches lie between
+      the appends that carried batches and the plane's validations. Print
+      each round's batches/s and MB/s, raft_replicate_hist's p50 and p99,
+      the plane's counts, the ticks and _tally_acks' time, how late the
+      loop's timers fired, the leaders per node and the elections after
+      the first stable view, and the replicate median beside phase 6's
+      plane-only ms per append.
 8. LZ4 (K11): the block decoder against its plain version over valid,
    overflowing, truncated, bad-offset and empty streams (all three
    outputs), and over the edge streams of ops/lz4_device.py edge_streams
@@ -261,7 +287,7 @@ Phases, each of which exits non-zero on failure:
 11. Print the kernels line, the card's name and power limit, and last the
     {"ok": true, "device": ...} line.
 
-Phases 3, 3h, 3i, 3j, 5-8 (7b and 7c too) and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
+Phases 3, 3h, 3i, 3j, 5-8 (7b, 7c and each round of 7d too) and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
 every launch count to 0 just before their path and fail if a kernel of that
 path was not launched in it.
 
@@ -2570,6 +2596,7 @@ def phase_raft(dev) -> dict:
         fail("raft path: device flags differ from the host oracle's")
     nbytes = sum(len(x) for x in regions)
     p = probing.stats()["probe"]
+    NOTES["raft_plane_ms"] = t_dev * 1e3
     log(f"raft follower (config 5): {RAFT_PARTITIONS} partitions x {RAFT_BATCHES} batches, "
         f"{n} regions of ~{nbytes // n} B (rows of 16384): pinned device plane "
         f"{t_dev * 1e3:.3f} ms per append ({n / t_dev:.1f} batches/s, {nbytes / t_dev / 1e6:.1f} MB/s "
@@ -2981,6 +3008,458 @@ def phase_runtime(dev) -> dict:
         f"idle, one more batch a partition materialized once ({t_restart:.2f} s); the phase "
         f"took {time.perf_counter() - t_phase:.1f} s")
     return run["launches"]
+
+
+# ------------------------------------------------------------------ config 5 through raft
+CONFIG5_NODES, CONFIG5_GROUPS = 3, 256  # BASELINE config 5: three nodes, 256 partitions
+CONFIG5_BATCHES = 16  # a group's batches a round: 16 regions of just under 16 KiB
+CONFIG5_WAIT_S = 60.0  # the ceiling for stable leaders and for a round's commits
+CONFIG5_TORN = 8  # appends the honey badger tears in the torn round
+# raft timings of the three brokers. A round holds the one process's GIL
+# for seconds (all 768 consensus instances, their rpc and their storage are
+# Python on one event loop), and a follower hears nothing from its leader
+# while its append waits: at RaftTimings' 600/60 ms and at a broker's
+# defaults (1500/150 ms, the JAX package's config/properties.py) the
+# followers' election timers fired through the rounds and the elections
+# stormed (chip_tools/raft_config5.py --election-ms 1500 --heartbeat-ms 150
+# counts them). The recovery throttle is a broker's default
+# (raft_recovery_concurrency, 4).
+CONFIG5_ELECTION_MS, CONFIG5_HEARTBEAT_MS, CONFIG5_RECOVERY = 5000.0, 500.0, 4
+NOTES = {}  # numbers one phase prints beside another's
+
+
+class Config5Node:
+    """One broker of phase 7d: a port StorageApi, an rpc.Server on
+    127.0.0.1:0 and a GroupManager on the card."""
+
+    def __init__(self, node_id: int, base_dir: str, dev):
+        from redpanda_tpu_torch import rpc
+
+        self.node_id, self.base_dir, self.dev = node_id, base_dir, dev
+        self.connections = rpc.ConnectionCache()
+        self.storage = self.server = self.gm = None
+        self.appends = 0  # append_entries requests that carried batches
+        self.ticks = []  # (peers, last_tick_acks, want, seconds) of each tally
+
+    async def start(self):
+        from redpanda_tpu_torch import rpc
+        from redpanda_tpu_torch.raft import GroupManager, RaftTimings, VNode
+        from redpanda_tpu_torch.storage import StorageApi
+
+        self.storage = await StorageApi(self.base_dir).start()
+        self.gm = GroupManager(VNode(self.node_id, 0), self.storage, self.connections,
+                               timings=RaftTimings(CONFIG5_ELECTION_MS, CONFIG5_HEARTBEAT_MS),
+                               device=self.dev, recovery_concurrency=CONFIG5_RECOVERY)
+        proto = rpc.SimpleProtocol(node_id=self.node_id)
+        self.gm.register_service(proto)
+        self.server = rpc.Server("127.0.0.1", 0)
+        self.server.set_protocol(proto)
+        await self.server.start()
+        service, hb = self.gm.service, self.gm.heartbeats
+        append_entries, tally = service.append_entries, hb._tally_acks
+
+        async def counted_append(req):
+            if req["batches"]:
+                self.appends += 1
+            return await append_entries(req)
+
+        def counted_tally(acks):  # a test double around the tally's input
+            import numpy as np
+
+            t0 = time.perf_counter()
+            tally(acks)
+            secs = time.perf_counter() - t0
+            if not acks:
+                return
+            groups = sorted(hb._groups)
+            bits = np.array([[1 if (a or {}).get(g) else 0 for g in groups] for a in acks],
+                            np.int64).reshape(len(acks), len(groups))
+            want = dict(zip(groups, bits.sum(axis=0).tolist()))
+            self.ticks.append((len(acks), dict(hb.last_tick_acks), want, secs))
+
+        service.append_entries, hb._tally_acks = counted_append, counted_tally
+        await self.gm.start()
+        return self
+
+    async def stop(self):
+        try:
+            if self.gm is not None:
+                await self.gm.stop()
+        finally:
+            try:
+                if self.server is not None:
+                    await self.server.stop()
+            finally:
+                try:
+                    if self.storage is not None:
+                        await self.storage.stop()
+                finally:
+                    await self.connections.close()
+
+
+def config5_config_batch(voters) -> list:
+    """A raft_configuration batch as an election appends it."""
+    from redpanda_tpu_torch.models import Record, RecordBatch
+    from redpanda_tpu_torch.models.record import RecordBatchType
+    from redpanda_tpu_torch.raft import GroupConfiguration
+
+    return [RecordBatch.build([Record(offset_delta=0, value=GroupConfiguration(voters).encode())],
+                              type=RecordBatchType.raft_configuration)]
+
+
+def config5_fd_limit() -> tuple[int, int, int]:
+    """The process's open-file limits, the soft one raised to the hard one
+    when it is short of what 768 logs, their sockets and the card need."""
+    import resource
+
+    need = 2 * CONFIG5_NODES * CONFIG5_GROUPS + 512
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    raised = soft
+    if soft != resource.RLIM_INFINITY and soft < need:
+        if hard != resource.RLIM_INFINITY and hard < need:
+            fail(f"config 5: RLIMIT_NOFILE soft {soft}, hard {hard}: {need} needed for "
+                 f"{CONFIG5_NODES * CONFIG5_GROUPS} open logs and their sockets")
+        raised = hard if hard != resource.RLIM_INFINITY else need
+        resource.setrlimit(resource.RLIMIT_NOFILE, (raised, hard))
+    return soft, hard, raised
+
+
+async def config5_stable_leaders(nodes, groups) -> tuple[dict, float]:
+    """tests/raft_stability.py's rule for every group: a leader counts once
+    it has survived one election timeout in the same term with an entry of
+    its own term committed. Returns {group: (leader node, term)}."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    stable, timeout_s = {}, nodes[0].gm.timings.election_timeout_ms / 1000.0
+    while len(stable) < len(groups):
+        if time.perf_counter() - t0 > CONFIG5_WAIT_S:
+            fail(f"config 5: {len(groups) - len(stable)} of {len(groups)} groups had no stable "
+                 f"leader within {CONFIG5_WAIT_S:.0f} s")
+        seen = {}
+        for g in groups:
+            if g in stable:
+                continue
+            for n in nodes:
+                c = n.gm.consensus_for(g)
+                if c.is_leader():
+                    seen[g] = (n, c.term)
+        await asyncio.sleep(timeout_s)
+        for g, (n, term) in seen.items():
+            c = n.gm.consensus_for(g)
+            if c.is_leader() and c.term == term and c.leadership_settled():
+                stable[g] = (n, term)
+    return stable, time.perf_counter() - t0
+
+
+async def config5_leaders(nodes, groups) -> dict:
+    """{group: (leader node, term)} once every group has a leader."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    while True:
+        out = {}
+        for g in groups:
+            for n in nodes:
+                c = n.gm.consensus_for(g)
+                if c.is_leader():
+                    out[g] = (n, c.term)
+        if len(out) == len(groups):
+            return out
+        if time.perf_counter() - t0 > CONFIG5_WAIT_S:
+            fail(f"config 5: {len(groups) - len(out)} groups without a leader for "
+                 f"{CONFIG5_WAIT_S:.0f} s")
+        await asyncio.sleep(0.05)
+
+
+async def config5_round(nodes, leaders, batches, what: str) -> dict:
+    """One round: every group's CONFIG5_BATCHES batches replicated at
+    quorum_ack, all groups at once, each replicate sent to its group's
+    leader and, where an election deposed that leader meanwhile (not_leader),
+    sent again to the new one, as a producer retries; then every replica of
+    the round's range equal to its leader's, byte for byte, and the leader
+    holding every payload sent: once each, or, for a group with a resent
+    batch, at least once (a deposed leader's append may still commit).
+    Returns the round's rates, resends and raft_replicate_hist's quantiles."""
+    import asyncio
+    import dataclasses
+
+    from redpanda_tpu_torch.models import RecordBatch
+    from redpanda_tpu_torch.observability import probes
+    from redpanda_tpu_torch.raft import ConsistencyLevel, Errc, RaftError
+    from redpanda_tpu_torch.utils.hdr import HdrHist
+
+    first = {g: n.gm.consensus_for(g).dirty_offset + 1 for g, (n, _t) in leaders.items()}
+    resent = {g: 0 for g in leaders}
+    probes.raft_replicate_hist.hist = HdrHist()  # this round's samples alone
+
+    def leader_of(g):
+        for n in nodes:
+            c = n.gm.consensus_for(g)
+            if c.is_leader():
+                return c
+        return None
+
+    async def one(g, b):
+        deadline = time.perf_counter() + CONFIG5_WAIT_S
+        while True:
+            c = leader_of(g)
+            if c is not None:
+                copy = RecordBatch(dataclasses.replace(b.header), b.payload)
+                try:
+                    return await c.replicate([copy], ConsistencyLevel.quorum_ack,
+                                             timeout=CONFIG5_WAIT_S)
+                except RaftError as e:
+                    if e.errc != Errc.not_leader:
+                        raise
+                resent[g] += 1
+            if time.perf_counter() > deadline:
+                fail(f"config 5 {what}: group {g} found no leader to take a batch "
+                     f"within {CONFIG5_WAIT_S:.0f} s")
+            await asyncio.sleep(0.05)
+
+    t0 = time.perf_counter()
+    results = await asyncio.gather(*(one(g, b) for g in leaders for b in batches[g]))
+    secs = time.perf_counter() - t0
+    hist = probes.raft_replicate_hist.hist
+    last = {}
+    for (g, _b), r in zip(((g, b) for g in leaders for b in batches[g]), results):
+        last[g] = max(last.get(g, -1), r.last_offset)
+    deadline = time.perf_counter() + CONFIG5_WAIT_S
+    for g, off in last.items():
+        while not all(n.gm.consensus_for(g).commit_index >= off for n in nodes):
+            if time.perf_counter() > deadline:
+                fail(f"config 5 {what}: group {g}'s followers did not commit {off}")
+            await asyncio.sleep(0.01)
+    for g in leaders:
+        logs = {}
+        for n in nodes:
+            c, out, at = n.gm.consensus_for(g), [], first[g]
+            while at <= last[g]:
+                got = c.log.read(at, 1 << 20, max_offset=last[g])
+                if asyncio.iscoroutine(got):
+                    got = await got
+                if not got:
+                    break
+                out += [(b.header.term, b.encode_internal()) for b in got]
+                at = got[-1].last_offset + 1
+            logs[n.node_id] = out
+        leader = leader_of(g)
+        want = logs[leader.self_node.id] if leader is not None else logs[nodes[0].node_id]
+        if any(logs[n.node_id] != want for n in nodes):
+            fail(f"config 5 {what}: group {g}: a follower's log differs from its leader's")
+        sent = sorted(b.payload for b in batches[g])
+        held = [RecordBatch.decode_internal(raw)[0] for _t, raw in want]
+        held = sorted(h.payload for h in held if h.header.type == batches[g][0].header.type)
+        if (held != sent if not resent[g] else
+                set(held) != set(sent) or len(held) > len(sent) + resent[g]):
+            fail(f"config 5 {what}: group {g}'s leader holds {len(held)} batches, not the "
+                 f"{len(sent)} sent ({resent[g]} resent)")
+        await asyncio.sleep(0)  # the heartbeats run between groups
+    n_batches = sum(len(v) for v in batches.values())
+    nbytes = sum(b.size_bytes for v in batches.values() for b in v)
+    return {"secs": secs, "batches_per_s": n_batches / secs, "mb_per_s": nbytes / secs / 1e6,
+            "p50_ms": hist.percentile(50) / 1e3, "p99_ms": hist.percentile(99) / 1e3,
+            "n": hist.count, "bytes": nbytes, "resent": sum(resent.values()),
+            "resent_groups": sum(1 for v in resent.values() if v)}
+
+
+def phase_config5(dev) -> dict:
+    """Phase 7d: BASELINE config 5 through raft (module docstring). Returns
+    K5's, K8's and K7's launches on the consensus path."""
+    import asyncio
+    import tempfile
+
+    import numpy as np
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.finjector import honey_badger
+    from redpanda_tpu_torch.models import NTP
+    from redpanda_tpu_torch.parallel import partition_mesh
+    from redpanda_tpu_torch.raft import VNode, device_plane
+    from redpanda_tpu_torch.raft.consensus import raft_crc_rejected
+
+    t_phase = time.perf_counter()
+    soft, hard, raised = config5_fd_limit()
+    groups = list(range(CONFIG5_GROUPS))
+    # every round's batches, built before the cluster starts: building them
+    # on the running loop would starve its heartbeats; each round sends
+    # fresh headers over the same payloads
+    pool = random_batches(CONFIG5_GROUPS * CONFIG5_BATCHES, RAFT_RECORDS, RAFT_VALUE, 5)
+    batches = {g: pool[g * CONFIG5_BATCHES:(g + 1) * CONFIG5_BATCHES] for g in groups}
+    out, launches = {}, {}
+
+    def counted(what: str, r: dict, *expected) -> None:
+        """Add a round's K5, K8 and K7 launches (counted from just before
+        the round to just after it) to the phase's; fail when a kernel of
+        the round's path was not launched."""
+        for k in (kernels.CRC32C, kernels.CRC32C_VOTE, kernels.VOTE_TALLY):
+            if k in expected and r["launched"][k.name] <= 0:
+                fail(f"kernel {k.name} was not launched on the config 5 {what} path")
+            launches[k.name] = launches.get(k.name, 0) + r["launched"][k.name]
+
+    async def run_round(nodes, what, plane):
+        leaders = await config5_leaders(nodes, groups)  # as they stand now
+        for n in nodes:
+            n.appends, n.ticks = 0, []
+        stats0, rej0 = plane.stats(), raft_crc_rejected.value
+        lags = []
+
+        async def lag_probe():  # how late the loop's timers fire during the round
+            while True:
+                t0 = time.perf_counter()
+                await asyncio.sleep(0.01)
+                lags.append(time.perf_counter() - t0 - 0.01)
+
+        probe = asyncio.ensure_future(lag_probe())
+        kernels.reset_launches()  # the round's consensus path starts here
+        try:
+            r = await config5_round(nodes, leaders, batches, what)
+        finally:
+            probe.cancel()
+        lags.sort()
+        r["lag_max_ms"] = lags[-1] * 1e3 if lags else 0.0
+        r["lag_p99_ms"] = lags[int(len(lags) * 0.99)] * 1e3 if lags else 0.0
+        r["appends"] = sum(n.appends for n in nodes)
+        r["ticks"] = [t for n in nodes for t in n.ticks]
+        r["launched"] = {k.name: k.launches for k in kernels.KERNELS}  # ... and ends here
+        stats1 = plane.stats()
+        r["plane"] = stats1
+        r["validations"] = stats1["validations"] - stats0["validations"]
+        r["rows"] = stats1["rows_validated"] - stats0["rows_validated"]
+        r["tallies"] = stats1["tallies"] - stats0["tallies"]
+        r["rejected"] = raft_crc_rejected.value - rej0
+        return r
+
+    async def main(d):
+        nodes = [Config5Node(i, os.path.join(d, f"n{i}"), dev) for i in range(CONFIG5_NODES)]
+        try:
+            for n in nodes:
+                await n.start()
+            for a in nodes:
+                for b in nodes:
+                    if a is not b:
+                        a.connections.register(b.node_id, "127.0.0.1", b.server.port)
+            # run A: the single-card leg, pinned, under every group's consensus
+            voters = [VNode(i, 0) for i in range(CONFIG5_NODES)]
+            pinned = device_plane.RaftDevicePlane(probe=False, device=dev)
+            mesh_plane = device_plane.RaftDevicePlane(
+                mesh=partition_mesh(devices=[dev, dev]), probe=False, device=dev)
+            for plane in (pinned, mesh_plane):
+                # each plane's first appends (an election's configuration
+                # batch, a round's data) build its step for their width and
+                # launch once here: done by the first append a follower
+                # takes, it held that append past the election timeout, and
+                # the heartbeats skip a follower while its append is out
+                for regions in (config5_config_batch(voters), batches[0]):
+                    plane.validate([x.crc_region() for x in regions],
+                                   [x.header.crc for x in regions])
+            mesh_plane.tally_votes(np.zeros((2, CONFIG5_GROUPS), np.uint8))
+            device_plane.install_default_plane(pinned)
+            device_plane.configure(crc_validate=True, vote_tally=True)
+            t0 = time.perf_counter()
+            for g in groups:
+                for n in nodes:
+                    await n.gm.create_group(g, NTP("kafka", "config5", g), voters)
+            t_create = time.perf_counter() - t0
+            leaders, t_stable = await config5_stable_leaders(nodes, groups)
+            out["terms0"] = {g: t for g, (_n, t) in leaders.items()}
+            out["spread"] = [sum(1 for n, _t in leaders.values() if n is node) for node in nodes]
+            out["t_create"], out["t_stable"] = t_create, t_stable
+            a = out["A"] = await run_round(nodes, "run A", pinned)
+            if a["rejected"]:
+                fail(f"config 5 run A: {a['rejected']:.0f} batches rejected on a clean round")
+            k5 = a["launched"]["crc32c"]
+            if not a["appends"] <= k5 <= a["validations"]:
+                fail(f"config 5 run A: {k5} K5 launches for {a['appends']} appends that carried "
+                     f"batches and {a['validations']} validations")
+            counted("run A", a, kernels.CRC32C)
+            # the torn append: the honey badger flips a byte of CONFIG5_TORN appends
+            honey_badger.enable()
+            honey_badger.set_corrupt("raft", "append_blob", count=CONFIG5_TORN)
+            try:
+                t = out["torn"] = await run_round(nodes, "torn round", pinned)
+                left = honey_badger.remaining("raft", "append_blob")
+            finally:
+                honey_badger.unset("raft", "append_blob")
+                honey_badger.disable()
+            if t["rejected"] != CONFIG5_TORN or left:
+                fail(f"config 5 torn round: raft_crc_rejected rose by {t['rejected']:.0f}, "
+                     f"{left} tears left unused; want {CONFIG5_TORN} and 0")
+            counted("torn round", t, kernels.CRC32C)
+            # run B: the mesh leg, two shards (one a peer) on the one card
+            device_plane.install_default_plane(mesh_plane)
+            b = out["B"] = await run_round(nodes, "run B", mesh_plane)
+            if b["rejected"]:
+                fail(f"config 5 run B: {b['rejected']:.0f} batches rejected on a clean round")
+            k8, k7 = b["launched"]["crc32c_vote"], b["launched"]["vote_tally"]
+            two_peer = sum(1 for tick in b["ticks"] if tick[0] == 2)
+            if not b["appends"] <= k8 <= b["validations"]:
+                fail(f"config 5 run B: {k8} K8 launches for {b['appends']} appends that carried "
+                     f"batches and {b['validations']} validations")
+            if k7 < two_peer or two_peer == 0:
+                fail(f"config 5 run B: {k7} K7 launches for {two_peer} ticks that heard both peers")
+            bad = [(got, want) for _rows, got, want, _s in b["ticks"] if got != want]
+            if bad:
+                fail(f"config 5 run B: {len(bad)} ticks' last_tick_acks differ from the numpy "
+                     f"count of their acks")
+            b["two_peer"] = two_peer
+            counted("run B", b, kernels.CRC32C_VOTE, kernels.VOTE_TALLY)
+            # run C: the reference's default, the probing plane
+            device_plane.reset_default_plane()
+            probing = device_plane.default_plane(dev)
+            c = out["C"] = await run_round(nodes, "run C", probing)
+            counted("run C", c)
+            terms = {g: max(n.gm.consensus_for(g).term for n in nodes) for g in groups}
+            out["elections_after"] = sum(terms[g] - out["terms0"][g] for g in groups)
+            out["leaders_end"] = [sum(1 for g in groups if n.gm.consensus_for(g).is_leader())
+                                  for n in nodes]
+        finally:
+            try:
+                for n in nodes:
+                    await n.stop()
+            finally:
+                device_plane.configure(crc_validate=False, vote_tally=False)
+                device_plane.reset_default_plane()
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-config5-") as d:
+        out = asyncio.run(main(d))
+    a, t, b, c = out["A"], out["torn"], out["B"], out["C"]
+
+    def tally_ms(r, at=None) -> float:
+        secs = sorted(tick[3] for tick in r["ticks"])
+        return secs[len(secs) // 2 if at is None else at] * 1e3 if secs else float("nan")
+
+    log(f"config 5 (raft, {CONFIG5_NODES} nodes x {CONFIG5_GROUPS} groups in one process over "
+        f"localhost TCP, election timeout {CONFIG5_ELECTION_MS:.0f} ms, heartbeat "
+        f"{CONFIG5_HEARTBEAT_MS:.0f} ms, recovery throttle {CONFIG5_RECOVERY}): RLIMIT_NOFILE soft {soft} hard {hard} (now {raised}); groups created in "
+        f"{out['t_create']:.2f} s, every group's leader stable after {out['t_stable']:.2f} s; "
+        f"leaders per node {out['spread']} (at the end {out['leaders_end']}); "
+        f"{out['elections_after']} elections after the first stable view")
+    for name, r in (("run A (single-card plane, K5)", a), ("torn round (single-card plane)", t),
+                    ("run B (2-shard mesh plane, K8 + K7)", b), ("run C (probing plane)", c)):
+        log(f"config 5 {name}: {r['n']} replicates of 1 batch ({r['bytes'] / 1e6:.1f} MB) "
+            f"committed on every replica in {r['secs']:.3f} s = {r['batches_per_s']:.1f} "
+            f"batches/s, {r['mb_per_s']:.1f} MB/s; raft_replicate_hist p50 {r['p50_ms']:.3f} ms "
+            f"p99 {r['p99_ms']:.3f} ms (bucket bounds); {r['resent']} replicates resent to a new "
+            f"leader in {r['resent_groups']} groups; {r['appends']} appends carried batches, "
+            f"{r['validations']} validations of {r['rows']} rows, {r['tallies']} tallies "
+            f"({len(r['ticks'])} ticks, {sum(1 for x in r['ticks'] if x[0] == 2)} to both peers, "
+            f"_tally_acks median {tally_ms(r):.4f} ms max {tally_ms(r, -1):.4f} ms); the loop's "
+            f"timers late by max {r['lag_max_ms']:.1f} ms, p99 {r['lag_p99_ms']:.1f} ms; "
+            f"raft_crc_rejected +{r['rejected']:.0f}; launches K5 {r['launched']['crc32c']} "
+            f"K8 {r['launched']['crc32c_vote']} K7 {r['launched']['vote_tally']}")
+    p = c["plane"]
+    log(f"config 5 run C: the probing plane's decision {p['decision']} (None: every append under "
+        f"PROBE_MIN_ROWS stayed on the host oracle), validations {p['validations']}, "
+        f"rows_validated {p['rows_validated']}, probe {json.dumps(p.get('probe'))}")
+    log(f"raft append ms: config 5's replicate median {a['p50_ms']:.3f} ms (run A) and "
+        f"{b['p50_ms']:.3f} ms (run B) beside phase 6's plane-only "
+        f"{NOTES.get('raft_plane_ms', float('nan')):.3f} ms per append of "
+        f"{RAFT_PARTITIONS * RAFT_BATCHES} regions; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # ------------------------------------------------------------------ LZ4 phase
@@ -3819,6 +4298,8 @@ def main() -> int:
     launches["crc32c"] = sum(p["crc32c"] for p in crc_paths)
     for name, n in phase_runtime(dev).items():
         launches[name] += n
+    config5_launches = phase_config5(dev)
+    launches["crc32c"] += config5_launches["crc32c"]
     measured["lz4_block"], lz4_launches = phase_lz4(dev)
     launches.update(lz4_launches)
     from redpanda_tpu_torch.parallel import partition_mesh
@@ -3833,9 +4314,9 @@ def main() -> int:
     dry_launches = phase_dryrun(dev)
     phase_device_times(dev)
     launches["predicate_stacked"] = engine_launches["predicate_stacked"]
-    launches["crc32c_vote"] = raft_launches["crc32c_vote"]
+    launches["crc32c_vote"] = raft_launches["crc32c_vote"] + config5_launches["crc32c_vote"]
     launches["crc32c_sharded"] = mesh_launches["crc32c_sharded"]
-    launches["vote_tally"] = raft_launches["vote_tally"]
+    launches["vote_tally"] = raft_launches["vote_tally"] + config5_launches["vote_tally"]
     launches["coproc_step"] = mesh_launches["coproc_step"] + dry_launches["coproc_step"]
     line = []
     for k in kernels.KERNELS:

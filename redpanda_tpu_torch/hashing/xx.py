@@ -1,17 +1,25 @@
-"""xxHash64 and xxHash32 in plain Python (parity with hashing/xx.h).
+"""xxHash64 and xxHash32 (parity with hashing/xx.h).
 
-Used for the coproc script checksum (``ScriptHandle.checksum``); later the
-RPC method ids and payload checksums. The machine with the card has no
+Used for the coproc script checksum (``ScriptHandle.checksum``) and the rpc
+payload checksum (rpc/wire.py). The machine with the card has no
 ``xxhash`` package, so the port computes the hashes itself: the reference
 algorithm (xxHash 0.8's XXH64 and XXH32) over 64-bit and 32-bit words,
 with every intermediate masked to its width. ``data`` is bytes-like or a
 str (hashed as UTF-8); ``seed`` is taken modulo 2**64 (2**32 for xxHash32),
 as the ``xxhash`` package takes it.
+
+XXH64 over inputs of ``_NATIVE_MIN`` bytes or more runs in a small C
+helper (native/xxhash64.cc, built with g++ at first use): in plain Python
+it takes ~0.3 s a MiB, and every raft append crosses the wire behind one.
+Where the helper cannot be built, the plain Python below serves.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 import struct
+import threading
 
 _M64 = (1 << 64) - 1
 _P64_1 = 0x9E3779B185EBCA87
@@ -46,11 +54,54 @@ def _merge64(h: int, v: int) -> int:
     return (h * _P64_1 + _P64_4) & _M64
 
 
+# below this the ctypes call costs more than the Python loop saves
+_NATIVE_MIN = 256
+
+_native_lock = threading.Lock()
+_native_fn = None  # None: not tried yet; False: unavailable
+
+
+def _native_xxh64():
+    """The C helper's ``rp_xxh64``, built on first call, or False."""
+    global _native_fn
+    if _native_fn is None:
+        with _native_lock:
+            if _native_fn is None:
+                from redpanda_tpu_torch.build import cached_build
+
+                src = os.path.join(
+                    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "native", "xxhash64.cc",
+                )
+                try:
+                    path = cached_build(
+                        "xxhash64", [src],
+                        lambda out: ["g++", "-O3", "-std=c++17", "-fPIC",
+                                     "-shared", "-o", out, src],
+                    )
+                    fn = ctypes.CDLL(path).rp_xxh64
+                except (OSError, RuntimeError, AttributeError):
+                    fn = False
+                else:
+                    fn.restype = ctypes.c_uint64
+                    fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint64]
+                _native_fn = fn
+    return _native_fn
+
+
 def xxhash64(data, seed: int = 0) -> int:
     """XXH64 of ``data`` as an unsigned int."""
     b = _bytes(data)
     n = len(b)
     seed &= _M64
+    if n >= _NATIVE_MIN:
+        fn = _native_xxh64()
+        if fn:
+            return fn(b, n, seed)
+    return _xxhash64_py(b, n, seed)
+
+
+def _xxhash64_py(b: bytes, n: int, seed: int) -> int:
     p = 0
     if n >= 32:
         v1 = (seed + _P64_1 + _P64_2) & _M64

@@ -1,7 +1,8 @@
 """The port's probes over the metrics registry (the JAX package's
 observability/probes.py, its coproc series: the fault domains, the device
-legs, the engine's stages, the host-stage pool and the mesh; and its two
-storage series: the log's append and the manager's housekeeping).
+legs, the engine's stages, the host-stage pool and the mesh; its two
+storage series: the log's append and the manager's housekeeping; and raft's
+replicate and the internal rpc round trip).
 
 Unlike the tracer (trace.py) these are always on: a histogram record is a
 dict lookup plus integer bucket math. The series names are the JAX
@@ -25,12 +26,20 @@ from redpanda_tpu_torch.utils.hdr import _bucket_of, _bucket_upper
 
 # ------------------------------------------------------------ broker path
 # the storage layer's two series (storage/log.py, storage/log_manager.py)
+# and the raft and rpc series (raft/consensus.py, rpc/transport.py)
 storage_append_hist = registry.histogram(
     "storage_append_latency_us", "Storage log append latency (us)"
 )
 storage_housekeeping_hist = registry.histogram(
     "storage_housekeeping_latency_us",
     "One compaction/retention housekeeping pass over a log (us)",
+)
+raft_replicate_hist = registry.histogram(
+    "raft_replicate_latency_us",
+    "Raft replicate() to the requested consistency level (us)",
+)
+rpc_request_hist = registry.histogram(
+    "rpc_request_latency_us", "Internal RPC round-trip latency (us)"
 )
 
 # ------------------------------------------------------ multi-chip meshrunner
@@ -301,8 +310,10 @@ __all__ = [
     "host_pool_task_finished",
     "host_pool_task_started",
     "observe_us",
+    "raft_replicate_hist",
     "record_us",
     "reset_exemplars",
+    "rpc_request_hist",
     "storage_append_hist",
     "storage_housekeeping_hist",
 ]

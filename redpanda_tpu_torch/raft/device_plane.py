@@ -283,20 +283,34 @@ def default_plane(device="cuda") -> RaftDevicePlane:
     """Process-wide plane, built lazily on first use on ``device`` (raises
     without a card unless the caller asks for the CPU). With configured
     ``mesh_devices >= 2`` its device leg is the sharded step over a mesh of
-    that many devices, and it raises when there are fewer."""
+    that many devices, and it raises when there are fewer. Raises
+    ValueError when the existing plane runs on another device: two callers
+    never share one plane across devices."""
     global _default
-    if _default is None:
-        with _default_lock:
-            if _default is None:
-                mesh = None
-                if _mesh_devices >= 2:
-                    mesh = partition_mesh(_mesh_devices, device=device)
-                _default = RaftDevicePlane(mesh=mesh, device=device)
-    return _default
+    dev = resolve_device(device)
+    with _default_lock:
+        if _default is None:
+            mesh = None
+            if _mesh_devices >= 2:
+                mesh = partition_mesh(_mesh_devices, device=dev)
+            _default = RaftDevicePlane(mesh=mesh, device=dev)
+        plane = _default
+    if plane.device != dev:
+        raise ValueError(
+            f"the process raft plane runs on {plane.device}, not on {dev}"
+        )
+    return plane
+
+
+def install_default_plane(plane: RaftDevicePlane | None) -> None:
+    """Test and smoke hook: make ``plane`` the process plane (a pinned or a
+    virtual-mesh plane under the consensus path), or forget it with None,
+    as ``reset_default_plane`` does."""
+    global _default
+    with _default_lock:
+        _default = plane
 
 
 def reset_default_plane() -> None:
     """Test hook: forget the process plane (and its sticky decision)."""
-    global _default
-    with _default_lock:
-        _default = None
+    install_default_plane(None)

@@ -1,7 +1,8 @@
 """xxHash in the PyTorch port against the ``xxhash`` package and the JAX package.
 
 The port's ``hashing/xx.py`` is plain Python (the machine with the card has
-no ``xxhash`` package); it must give the package's 64- and 32-bit digests
+no ``xxhash`` package), with XXH64 over longer inputs in a small C helper
+(native/xxhash64.cc); both must give the package's 64- and 32-bit digests
 for every length class of the algorithm (empty, under one stripe, whole
 stripes and tails, a long input) and for seeds at both ends of the range.
 The engine's script checksum is that xxHash64 of the spec JSON, as the
@@ -35,6 +36,19 @@ def test_xxhash_matches_the_xxhash_package(bits, seed):
         assert ours(bytearray(data), seed) == theirs(data, seed)
     assert ours("héllo, spec", seed) == theirs("héllo, spec".encode(), seed)
     assert ours(b"abc") == theirs(b"abc")  # the default seed is 0
+
+
+@pytest.mark.parametrize("path", ["native", "plain"])
+def test_xxhash64_native_helper_and_plain_python_agree(path):
+    fn = xx._native_xxh64()
+    assert fn, "the C helper did not build"
+    ours = (lambda b, s: fn(b, len(b), s)) if path == "native" else (
+        lambda b, s: xx._xxhash64_py(b, len(b), s))
+    rng = np.random.default_rng(64)
+    for n in [0, 1, 7, 31, 32, 33, 255, 256, 257, 4099, 65537, 1 << 18]:
+        data = rng.bytes(n)
+        for seed in (0, 1, 2**64 - 1, 0x0123456789ABCDEF):
+            assert ours(data, seed) == xxhash.xxh64_intdigest(data, seed), (path, n, seed)
 
 
 SPECS = {
