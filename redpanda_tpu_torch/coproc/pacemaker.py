@@ -16,9 +16,9 @@ keyspace and recovered on startup (offset_storage_utils.cc:36-104), as the
 JAX package's JSON under the same key, so either package resumes from the
 other's offsets.
 
-Materialized topics are created on the standalone path only (a local
-topic next to its source): the clustered path, which replicates the
-create through the controller, comes with the cluster service.
+A materialized topic is created through the controller where the broker
+has a ``controller_dispatcher`` (replicated, every broker's table agrees),
+else as a local topic next to its source.
 """
 
 from __future__ import annotations
@@ -475,14 +475,33 @@ class Pacemaker:
                 src_md = self.broker.topic_table.get(source.topic)
                 n_parts = src_md.config.partition_count if src_md else 1
                 try:
-                    # Standalone: the materialized log lives NEXT TO its
-                    # source partition (script_context_backend.cc:70-78
-                    # direct storage append, no raft). The clustered create
-                    # comes with the cluster service (not ported yet).
-                    await self.broker.create_topic(
-                        TopicConfig(mntp.topic, n_parts, 1, ns=mntp.ns),
-                        local_only=True,
-                    )
+                    dispatcher = getattr(self.broker, "controller_dispatcher", None)
+                    if dispatcher is not None:
+                        # Clustered: replicate create_non_replicable_topic
+                        # so every broker's metadata agrees; assignments
+                        # mirror the source (group -1, coproc writes bypass
+                        # raft — commands.h:112 non_replicable semantics)
+                        from redpanda_tpu_torch.cluster.service import (
+                            OP_CREATE_NON_REPLICABLE,
+                        )
+
+                        await dispatcher.topic_op(  # pandalint: disable=LCK702 -- create-once-per-mntp mutex: a serialized tick beats duplicate create ops racing the controller
+                            OP_CREATE_NON_REPLICABLE,
+                            {"source": source.topic, "name": mntp.topic,
+                             "ns": mntp.ns},
+                        )
+                        await self.broker._await_topic_table(
+                            lambda: self.broker.topic_table.contains(mntp.topic),
+                            f"materialize {mntp.topic}",
+                        )
+                    else:
+                        # Standalone: the materialized log lives NEXT TO its
+                        # source partition (script_context_backend.cc:70-78
+                        # direct storage append, no raft)
+                        await self.broker.create_topic(
+                            TopicConfig(mntp.topic, n_parts, 1, ns=mntp.ns),
+                            local_only=True,
+                        )
                 except ValueError:
                     pass
             # the local log: reconciled by the backend (clustered) or

@@ -449,12 +449,10 @@ def test_broker_has_the_reference_surface_less_the_left_out_members(tmp_path):
 
 
 def test_cluster_exports():
-    assert sorted(port.cluster.__all__) == [
-        "Partition", "PartitionAssignment", "PartitionManager", "TopicConfig",
-        "TopicMetadata", "TopicTable"]
     ref = PKGS["jax"].cluster
+    assert port.cluster.__all__ == ref.__all__
     for n in port.cluster.__all__:
-        assert n in ref.__all__
+        assert hasattr(port.cluster, n)
 
 
 def test_broker_topic_lifecycle_and_recovery_match_jax(tmp_path):

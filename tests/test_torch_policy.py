@@ -5,7 +5,9 @@ The host evaluator and the device leg (the packed payload kernel's plain
 version on the CPU) must give the reference's records for every spec of
 tests/test_policy.py on its random documents, and the view batches the
 reference builds, byte for byte. A fetch under ``min_records_for_device``
-takes the host leg; a failing device leg raises.
+takes the host leg; a failing device leg raises. The replicated table of
+policies applies the controller's commands as the JAX package's does, and a
+policy created through the port's controller reaches every node's table.
 """
 
 from __future__ import annotations
@@ -143,3 +145,69 @@ def test_surviving_records_keep_their_offsets():
         for r in b.records():
             assert src[r.offset_delta] == r
     assert np.sum([b.header.record_count for b in out]) > 0
+
+
+# ------------------------------------------------------------------ the replicated table
+def _policy_view(table) -> tuple:
+    return table.version, {t: (p.topic, p.name, p.spec_json) for t, p in table.policies().items()}
+
+
+def test_policy_table_apply_commands():
+    """tests/test_policy.py's table test on the port's ``DataPolicyTable``,
+    its state after each command equal to the JAX package's table fed the
+    JAX package's commands."""
+    import asyncio
+
+    from redpanda_tpu.cluster import commands as ref_cmds
+    from redpanda_tpu.policy import DataPolicyTable as RefDataPolicyTable
+    from redpanda_tpu_torch.cluster import commands as cmds
+    from redpanda_tpu_torch.policy import DataPolicyTable
+
+    async def main():
+        t, ref = DataPolicyTable(), RefDataPolicyTable()
+        spec = filter_field_eq("level", "error").to_json()
+        await t.apply_command(cmds.create_data_policy_cmd("orders", "errors-only", spec))
+        await ref.apply_command(ref_cmds.create_data_policy_cmd("orders", "errors-only", spec))
+        assert t.get("orders").name == "errors-only"
+        assert _policy_view(t) == _policy_view(ref)
+        # malformed spec is rejected at apply time, by both
+        with pytest.raises(Exception):
+            await t.apply_command(cmds.create_data_policy_cmd("x", "bad", "{not json"))
+        with pytest.raises(Exception):
+            await ref.apply_command(ref_cmds.create_data_policy_cmd("x", "bad", "{not json"))
+        assert _policy_view(t) == _policy_view(ref)
+        with pytest.raises(ValueError):
+            await t.apply_command(cmds.delete_topic_cmd("kafka", "orders"))
+        await t.apply_command(cmds.delete_data_policy_cmd("orders"))
+        await ref.apply_command(ref_cmds.delete_data_policy_cmd("orders"))
+        assert t.get("orders") is None
+        assert _policy_view(t) == _policy_view(ref)
+
+    asyncio.run(main())
+
+
+def test_policy_replicates_through_controller(tmp_path):
+    """A create_data_policy command through the port's controller reaches a
+    ``DataPolicyTable`` attached to every node's controller."""
+    from redpanda_tpu_torch.cluster.commands import create_data_policy_cmd
+    from redpanda_tpu_torch.policy import DataPolicyTable
+    from test_torch_controller import ClusterFixture, run
+
+    async def main():
+        fx = await ClusterFixture(tmp_path, 3).start()
+        try:
+            spec = filter_field_eq("level", "error")
+            tables = [DataPolicyTable().attach(n.controller) for n in fx.nodes]
+            await fx.controller_leader().dispatcher.replicate(
+                create_data_policy_cmd("orders", "errs", spec.to_json())
+            )
+            await fx.wait_converged(
+                lambda n: tables[n.node_id].get("orders") is not None,
+                msg="policy replicated",
+            )
+            assert all(t.get("orders").name == "errs" for t in tables)
+            assert all(t.get("orders").spec_json == spec.to_json() for t in tables)
+        finally:
+            await fx.stop()
+
+    run(main())
