@@ -275,6 +275,29 @@ Phases, each of which exits non-zero on failure:
       p99, group 0's appends and K5 launches beside the data groups', the
       loop's timer lateness in each step and the elections after the first
       stable view.
+   f. The Kafka front door (BASELINE configs 1 and 2 over the wire): one
+      Broker(device="cuda") with a KafkaServer on 127.0.0.1 (port 0) and
+      the port's KafkaClient, the produce path's CRC backend pinned to
+      CrcBackend("device") (crc_backend.install_default_backend), in order:
+      (a) config 1: one partition, 4096 batches of 16 JSON records of 1 KiB
+      (64 MiB), one batch a PRODUCE request at acks=-1, 8 requests in
+      flight on one connection; then a batch with one flipped record byte,
+      answered corrupt_message by K6's verdict with the high watermark
+      unmoved; K6's launches equal the requests (one a partition of a
+      request); everything fetched back from offset 0 byte-identical; (b)
+      config 2: 16 partitions, 256 LZ4 batches of 16 x 1 KiB records a
+      partition, each PRODUCE request carrying one batch of every
+      partition: K6's launches equal requests x 16, every partition
+      fetched back byte-identical; (c) a v1 data policy on config 1's
+      topic (Broker.set_data_policy): four fetches of 1 MiB (~1000
+      records: K4, one launch each, asserted) and one of 16 KiB (16
+      records: the host leg), every response's records equal to
+      PolicyEngine(device="cpu")'s view of the same batches; (d) the
+      backend unpinned: one produce request picks it (the decision and
+      both rates printed; K6 launched by the probe, and by the request if
+      the card won). Print each config's batches/s and MB/s,
+      kafka_produce_hist p50 and p99 and the fetch MB/s beside the card's
+      name and power limit.
 8. LZ4 (K11): the block decoder against its plain version over valid,
    overflowing, truncated, bad-offset and empty streams (all three
    outputs), and over the edge streams of ops/lz4_device.py edge_streams
@@ -327,7 +350,7 @@ Phases, each of which exits non-zero on failure:
 11. Print the kernels line, the card's name and power limit, and last the
     {"ok": true, "device": ...} line.
 
-Phases 3, 3h, 3i, 3j, 5-8 (7b, 7c, each round of 7d, and 7e whole and its round) and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
+Phases 3, 3h, 3i, 3j, 5-8 (7b, 7c, each round of 7d, 7e whole and its round, and each step of 7f) and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
 every launch count to 0 just before their path and fail if a kernel of that
 path was not launched in it.
 
@@ -337,6 +360,7 @@ Without a CUDA device it exits 1 before printing any result.
 from __future__ import annotations
 
 import contextvars
+import functools
 import json
 import os
 import subprocess
@@ -4013,6 +4037,297 @@ def phase_controller(dev) -> dict:
     return {"crc32c": out["k5_total"]}
 
 
+# ------------------------------------------------------------------ Kafka front door
+KAFKA_C1_BATCHES = 4096  # phase 7f: config 1's batches of 16 x 1 KiB records (64 MiB)
+KAFKA_C2_BATCHES = 256  # phase 7f: config 2's LZ4 batches a partition, 16 partitions
+KAFKA_C2_PARTITIONS = 16
+KAFKA_RECORDS, KAFKA_RECORD = 16, 1024  # a batch's records and a record's bytes
+KAFKA_INFLIGHT = 8  # produce requests in flight on the one connection
+KAFKA_POLICY_FETCHES = 4  # policy fetches of 1 MiB (~1000 records: K4's leg)
+
+
+@functools.lru_cache(maxsize=1)
+def card_line() -> str:
+    """`nvidia-smi --query-gpu=name,power.limit` of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+@functools.lru_cache(maxsize=1)
+def kafka_text() -> bytes:
+    """The text the records' pads are cut from: words with repeats."""
+    import numpy as np
+
+    words = np.array([b"error", b"warn", b"info", b"trace", b"x" * 16, b"kafka",
+                      b"partition", b"leader"], dtype=object)
+    return b" ".join(np.random.default_rng(70).choice(words, 1 << 19))
+
+
+def kafka_batches(n: int, seed: int, compression=None) -> list:
+    """``n`` batches of KAFKA_RECORDS JSON records of exactly KAFKA_RECORD
+    bytes: a level (a third "error"), a code, a short msg and a text-like pad
+    cut from one pool of words with repeats (so that LZ4 has something to
+    find)."""
+    import numpy as np
+
+    from redpanda_tpu_torch.models import Compression, Record, RecordBatch
+
+    pool = kafka_text()
+    rng = np.random.default_rng(seed)
+    levels = [b"error", b"info", b"warn"]
+    out = []
+    for i in range(n):
+        recs = []
+        for k in range(KAFKA_RECORDS):
+            head = b'{"level":"%s","code":%d,"msg":"%s","pad":"' % (
+                levels[(i + k) % 3], k - 5, b"m" * int(rng.integers(0, 90)))
+            need = KAFKA_RECORD - len(head) - 2
+            at = int(rng.integers(0, len(pool) - need))
+            recs.append(Record(offset_delta=k, timestamp_delta=k,
+                               value=head + pool[at:at + need] + b'"}'))
+        out.append(RecordBatch.build(recs, first_timestamp=1_700_000_000_000 + i,
+                                     compression=compression or Compression.none))
+    return out
+
+
+def produce_body(parts) -> dict:
+    """A PRODUCE request at acks=-1: ``parts`` is [(topic, partition, wire bytes)]."""
+    topics = {}
+    for t, p, records in parts:
+        topics.setdefault(t, []).append({"partition_index": p, "records": records})
+    return {"transactional_id": None, "acks": -1, "timeout_ms": 30000,
+            "topics": [{"name": t, "partitions": ps} for t, ps in topics.items()]}
+
+
+def fetch_body(topic: str, offsets, max_bytes: int) -> dict:
+    return {"replica_id": -1, "max_wait_ms": 0, "min_bytes": 0, "max_bytes": max_bytes,
+            "isolation_level": 0, "session_id": 0, "session_epoch": -1,
+            "topics": [{"name": topic, "partitions": [
+                {"partition_index": p, "current_leader_epoch": -1, "fetch_offset": o,
+                 "log_start_offset": -1, "partition_max_bytes": max_bytes}
+                for p, o in offsets]}],
+            "forgotten_topics_data": [], "rack_id": ""}
+
+
+def phase_kafka(dev) -> dict:
+    """Phase 7f: BASELINE configs 1 and 2 over the Kafka wire (module
+    docstring). Returns K6's and K4's launches on the path."""
+    import asyncio
+    import tempfile
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.kafka.client import KafkaClient
+    from redpanda_tpu_torch.kafka.protocol import messages as m
+    from redpanda_tpu_torch.kafka.protocol.batch import encode_wire_batches
+    from redpanda_tpu_torch.kafka.protocol.errors import ErrorCode
+    from redpanda_tpu_torch.kafka.server import KafkaServer
+    from redpanda_tpu_torch.kafka.server.broker import Broker, BrokerConfig
+    from redpanda_tpu_torch.models import Compression
+    from redpanda_tpu_torch.observability import probes
+    from redpanda_tpu_torch.ops import crc_backend
+    from redpanda_tpu_torch.policy import PolicyEngine
+    from redpanda_tpu_torch.storage import StorageApi
+    from redpanda_tpu_torch.utils.hdr import HdrHist
+
+    t_phase = time.perf_counter()
+    c1 = kafka_batches(KAFKA_C1_BATCHES + 1, seed=71)
+    extra = c1.pop()  # (d)'s one request
+    warm = kafka_batches(1, seed=79, compression=Compression.lz4)[0]  # config 2's first batch
+    c2 = {p: kafka_batches(KAFKA_C2_BATCHES, seed=720 + p, compression=Compression.lz4)
+          for p in range(KAFKA_C2_PARTITIONS)}
+    wire1 = [encode_wire_batches([b]) for b in c1]
+    wire2 = {p: [encode_wire_batches([b]) for b in bs] for p, bs in c2.items()}
+    c2_bytes = sum(len(w) for ws in wire2.values() for w in ws)
+    bad = bytearray(wire1[0])
+    bad[61 + 100] ^= 0x20  # a byte of the first record
+    log(f"Kafka front door: data made in {time.perf_counter() - t_phase:.1f} s "
+        f"(config 1 {len(c1)} batches, {sum(map(len, wire1)) / 1e6:.1f} MB on the wire; "
+        f"config 2 {KAFKA_C2_PARTITIONS} x {KAFKA_C2_BATCHES} LZ4 batches, "
+        f"{c2_bytes / 1e6:.1f} MB on the wire for "
+        f"{KAFKA_C2_PARTITIONS * KAFKA_C2_BATCHES * KAFKA_RECORDS * KAFKA_RECORD / 1e6:.1f} MB "
+        "of records)")
+    out = {}
+
+    def check(resp, parts: int) -> list:
+        got = [p for t in resp["responses"] for p in t["partitions"]]
+        if len(got) != parts or any(p["error_code"] != 0 for p in got):
+            fail(f"Kafka front door: a produce failed: {got}")
+        return got
+
+    async def produce_all(conn, bodies) -> tuple[list, float]:
+        gate = asyncio.Semaphore(KAFKA_INFLIGHT)
+
+        async def one(body):
+            async with gate:
+                return await conn.request(m.PRODUCE, body)
+
+        t0 = time.perf_counter()
+        resps = await asyncio.gather(*(one(b) for b in bodies))
+        return resps, time.perf_counter() - t0
+
+    async def fetch_all(client, topic: str, p: int, hwm: int) -> tuple[list, int]:
+        got, offset, nbytes = [], 0, 0
+        while offset < hwm:
+            batches, _ = await client.fetch(topic, p, offset, max_bytes=8 << 20, max_wait_ms=0)
+            if not batches:
+                fail(f"Kafka front door: an empty fetch of {topic}/{p} at {offset} < {hwm}")
+            got += batches
+            nbytes += sum(len(encode_wire_batches([b])) for b in batches)
+            offset = batches[-1].last_offset + 1
+        return got, nbytes
+
+    def same(produced, fetched, what: str) -> None:
+        if len(produced) != len(fetched):
+            fail(f"{what}: {len(fetched)} batches came back for {len(produced)}")
+        for a, b in zip(produced, fetched):
+            if (a.payload, a.header.crc, a.header.record_count) != (
+                    b.payload, b.header.crc, b.header.record_count):
+                fail(f"{what}: a fetched batch differs from the produced one")
+
+    async def main(d):
+        storage = await StorageApi(d).start()
+        broker = Broker(BrokerConfig(data_dir=d), storage, device=dev)
+        server = await KafkaServer(broker, "127.0.0.1", 0).start()
+        broker.config.advertised_port = server.port
+        client = await KafkaClient([("127.0.0.1", server.port)]).connect()
+        try:
+            await client.create_topic("config1", partitions=1)
+            await client.create_topic("config2", partitions=KAFKA_C2_PARTITIONS)
+            conn = await client.leader_connection("config1", 0)
+            pinned = crc_backend.CrcBackend("device", device=dev)
+            crc_backend.install_default_backend(pinned)
+            # the warm-up: the validator's first launch at this width, off the clock
+            check(await conn.request(m.PRODUCE, produce_body(
+                [("config2", 0, encode_wire_batches([warm]))])), 1)
+
+            # (a) config 1: one batch a request, KAFKA_INFLIGHT in flight
+            probes.kafka_produce_hist.hist = HdrHist()
+            kernels.reset_launches()  # (a)'s produce path starts here
+            resps, secs = await produce_all(conn, [produce_body([("config1", 0, w)])
+                                                   for w in wire1])
+            bases = [check(r, 1)[0]["base_offset"] for r in resps]
+            hwm = await client.latest_offset("config1", 0)
+            resp = await conn.request(m.PRODUCE, produce_body([("config1", 0, bytes(bad))]))
+            code = resp["responses"][0]["partitions"][0]["error_code"]
+            k6 = path_launches("Kafka produce (config 1)", kernels.CRC32C_VALIDATE)
+            h = probes.kafka_produce_hist.hist
+            out["c1"] = {"secs": secs, "k6": k6["crc32c_validate"], "p50": h.percentile(50),
+                         "p99": h.percentile(99), "bytes": sum(map(len, wire1)),
+                         "requests": len(wire1), "batches": len(wire1)}
+            if code != int(ErrorCode.corrupt_message):
+                fail(f"Kafka front door: the flipped batch got error {code}, not corrupt_message")
+            if await client.latest_offset("config1", 0) != hwm or hwm != len(c1) * KAFKA_RECORDS:
+                fail("Kafka front door: the corrupt batch moved the high watermark")
+            if sorted(bases) != [KAFKA_RECORDS * i for i in range(len(c1))]:
+                fail("Kafka front door: config 1's base offsets are not 16 apart")
+            if out["c1"]["k6"] != len(c1) + 1:
+                fail(f"Kafka front door: K6 launched {out['c1']['k6']} times for "
+                     f"{len(c1) + 1} produce requests of one partition")
+            t0 = time.perf_counter()
+            fetched, nbytes = await fetch_all(client, "config1", 0, hwm)
+            out["c1"]["fetch_secs"], out["c1"]["fetch_bytes"] = time.perf_counter() - t0, nbytes
+            by_base = sorted(zip(bases, c1), key=lambda x: x[0])
+            same([b for _, b in by_base], fetched, "config 1")
+
+            # (b) config 2: every request carries one LZ4 batch of each partition
+            probes.kafka_produce_hist.hist = HdrHist()
+            bodies = [produce_body([("config2", p, wire2[p][i]) for p in range(KAFKA_C2_PARTITIONS)])
+                      for i in range(KAFKA_C2_BATCHES)]
+            kernels.reset_launches()  # (b)'s produce path starts here
+            resps, secs = await produce_all(conn, bodies)
+            for r in resps:
+                check(r, KAFKA_C2_PARTITIONS)
+            k6 = path_launches("Kafka produce (config 2)", kernels.CRC32C_VALIDATE)
+            h = probes.kafka_produce_hist.hist
+            out["c2"] = {"secs": secs, "k6": k6["crc32c_validate"], "requests": len(bodies),
+                         "batches": len(bodies) * KAFKA_C2_PARTITIONS,
+                         "p50": h.percentile(50), "p99": h.percentile(99),
+                         "bytes": sum(len(w) for b in bodies for t in b["topics"]
+                                      for w in (p["records"] for p in t["partitions"]))}
+            if out["c2"]["k6"] != len(bodies) * KAFKA_C2_PARTITIONS:
+                fail(f"Kafka front door: K6 launched {out['c2']['k6']} times for "
+                     f"{len(bodies)} requests of {KAFKA_C2_PARTITIONS} partitions")
+            t0, nbytes = time.perf_counter(), 0
+            for p in range(KAFKA_C2_PARTITIONS):
+                hwm2 = await client.latest_offset("config2", p)
+                fetched, nb = await fetch_all(client, "config2", p, hwm2)
+                nbytes += nb
+                same(([warm] if p == 0 else []) + c2[p], fetched, f"config 2 partition {p}")
+            out["c2"]["fetch_secs"], out["c2"]["fetch_bytes"] = time.perf_counter() - t0, nbytes
+
+            # (c) a data policy on config 1's topic: fetches of ~1000 records take K4
+            spec = payload_spec().to_json()
+            await broker.set_data_policy("config1", "errors_v1", spec)
+            part = broker.get_partition("config1", 0)
+            plain = PolicyEngine(device="cpu")
+            step = hwm // KAFKA_POLICY_FETCHES
+            asks = [(i * step, 1 << 20) for i in range(KAFKA_POLICY_FETCHES)] + [(5, 16 << 10)]
+            kernels.reset_launches()  # (c)'s fetch path starts here
+            views = []
+            for offset, max_bytes in asks:
+                resp = await conn.request(m.FETCH, fetch_body("config1", [(0, offset)], max_bytes))
+                pr = resp["responses"][0]["partitions"][0]
+                if pr["error_code"] != 0:
+                    fail(f"Kafka front door: the policy fetch at {offset} failed: {pr}")
+                views.append(pr["records"] or b"")
+            big = sum(1 for _, mb in asks if mb >= 1 << 20)
+            k4 = path_launches("Kafka policy fetch", kernels.PAYLOAD_TRANSFORM)
+            out["k4"], out["policy_kept"] = k4["payload_transform"], 0
+            if out["k4"] != big:
+                fail(f"Kafka front door: K4 launched {out['k4']} times for {big} policy "
+                     "fetches of 256 records or more")
+            for (offset, max_bytes), got in zip(asks, views):
+                batches = await part.make_reader(offset, max_bytes, max_offset=hwm - 1)
+                view = plain.transform_batches(spec, batches)
+                if got != encode_wire_batches(view):
+                    fail(f"Kafka front door: the policy fetch at {offset} differs from the CPU "
+                         "PolicyEngine's view")
+                out["policy_kept"] += sum(b.header.record_count for b in view)
+            await broker.delete_data_policy("config1")
+
+            # (d) unpinned: the produce path picks its backend on first use
+            crc_backend.install_default_backend(None)
+            kernels.reset_launches()
+            resp = await conn.request(m.PRODUCE, produce_body(
+                [("config1", 0, encode_wire_batches([extra]))]))
+            check(resp, 1)
+            picked = crc_backend.default_backend(dev)
+            out["pick"] = picked.decision
+            out["pick_k6"] = kernels.CRC32C_VALIDATE.launches
+            if out["pick_k6"] != 4 + (picked.backend == "device"):
+                fail(f"Kafka front door: {out['pick_k6']} K6 launches for pick()'s probe "
+                     f"and a request on the {picked.backend} backend")
+        finally:
+            crc_backend.install_default_backend(None)
+            await client.close()
+            await server.stop()
+            await storage.stop()
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-kafka-") as d:
+        asyncio.run(main(d))
+    card = card_line()
+    for name, c, unit in (("config 1", out["c1"], "1 batch (1 partition)"),
+                          ("config 2", out["c2"], f"{KAFKA_C2_PARTITIONS} LZ4 batches")):
+        log(f"Kafka front door {name} [{card}]: {c['requests']} PRODUCE requests of {unit}, "
+            f"{KAFKA_INFLIGHT} in flight on one connection, acks=-1: {c['secs']:.3f} s = "
+            f"{c['batches'] / c['secs']:.1f} batches/s, {c['bytes'] / c['secs'] / 1e6:.1f} MB/s "
+            f"on the wire ({c['batches'] * KAFKA_RECORDS * KAFKA_RECORD / c['secs'] / 1e6:.1f} "
+            f"MB/s of records); kafka_produce_hist p50 {c['p50'] / 1e3:.3f} ms p99 "
+            f"{c['p99'] / 1e3:.3f} ms (bucket bounds); K6 {c['k6']} launches; fetched back "
+            f"byte-identical at {c['fetch_bytes'] / c['fetch_secs'] / 1e6:.1f} MB/s")
+    d = out["pick"]
+    log(f"Kafka front door [{card}]: the flipped batch answered corrupt_message with no append; "
+        f"{KAFKA_POLICY_FETCHES} policy fetches of 1 MiB and one of 16 KiB, {out['policy_kept']} "
+        f"records kept, equal to PolicyEngine(device='cpu'), K4 {out['k4']} launches; unpinned "
+        f"pick(): host {d.host_batches_per_sec:.1f} batches/s, device "
+        f"{d.device_batches_per_sec:.1f} batches/s, chose {d.backend} (K6 {out['pick_k6']}); "
+        f"the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"crc32c_validate": out["c1"]["k6"] + out["c2"]["k6"] + out["pick_k6"],
+            "payload_transform": out["k4"]}
+
+
 # ------------------------------------------------------------------ LZ4 phase
 def phase_lz4(dev) -> tuple[dict, dict]:
     import numpy as np
@@ -4851,6 +5166,8 @@ def main() -> int:
         launches[name] += n
     config5_launches = phase_config5(dev)
     launches["crc32c"] += config5_launches["crc32c"] + phase_controller(dev)["crc32c"]
+    for name, n in phase_kafka(dev).items():
+        launches[name] += n
     measured["lz4_block"], lz4_launches = phase_lz4(dev)
     launches.update(lz4_launches)
     from redpanda_tpu_torch.parallel import partition_mesh
@@ -4884,11 +5201,7 @@ def main() -> int:
         line.append(row)
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": line}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    log(smi)
+    log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

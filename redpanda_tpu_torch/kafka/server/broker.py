@@ -1,5 +1,5 @@
 """Broker aggregate: the service graph a request handler can reach (the
-JAX package's kafka/server/broker.py, its storage half).
+JAX package's kafka/server/broker.py).
 
 Parity with kafka::request_context's view of the world (metadata_cache,
 partition_manager, group router, quota manager — kafka/server/
@@ -7,21 +7,29 @@ request_context.h) plus the topic mutation entry points that the reference
 routes through cluster::topics_frontend. Single-node phase: mutations apply
 locally; the controller replaces the mutation path later.
 
-The port holds ``BrokerConfig`` whole and the ``Broker``'s topic and
-partition half: the topic table, the partition manager, topic
-create/delete/grow, restart recovery of the topic tree, and the lookups
-the coproc runtime uses. The members that stand on the group and
-transaction coordinators, quotas, fetch sessions, data policies and
-security, and the methods that reach them, are not here: they come with
-those layers, and until then reading one raises ``AttributeError``. So
-does the one line of ``delete_topic`` that drops a partition's producer
-state machine.
+The port holds ``BrokerConfig`` whole and the ``Broker``'s data plane: the
+topic table, the partition manager, topic create/delete/grow, restart
+recovery of the topic tree, quotas, fetch sessions, data policies and the
+authorizer. ``device`` is where the produce path's CRC backend and the
+policy engine run: the card unless the caller asks for the CPU. It is
+resolved where the Kafka path first needs it (``KafkaServer.start``, a
+produce, a policy fetch), so a broker that only hosts storage or a coproc
+runtime is built anywhere.
 
-Without a ``KafkaServer`` nothing calls ``recover_topics`` on start: after
-a restart the caller does, before it builds a ``CoprocApi``::
+The group and transaction coordinators, the producer state machines
+(``rm_stm``) and the replicated ``SecurityManager`` come with ROADMAP items
+10b-ii and 10d: until then reading ``group_coordinator``,
+``tx_coordinator`` or ``security`` raises ``AttributeError``, the
+authorizer runs over a store of the broker's own, and
+``recovered_rm_stm`` raises ``NotImplementedError``, which the Kafka
+server answers as ``unknown_server_error`` (an idempotent or
+transactional produce, a ``read_committed`` fetch).
+
+A ``KafkaServer`` calls ``recover_topics`` on start. Without one (a coproc
+runtime over the broker alone) the caller does, after a restart::
 
     storage = await StorageApi(data_dir).start()
-    broker = Broker(BrokerConfig(data_dir=data_dir), storage)
+    broker = Broker(BrokerConfig(data_dir=data_dir), storage, device="cuda")
     await broker.recover_topics()
     api = await CoprocApi(broker, device="cuda").start()
 """
@@ -30,8 +38,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import torch
+
 from redpanda_tpu_torch.cluster.partition import Partition, PartitionManager
 from redpanda_tpu_torch.cluster.topic_table import TopicConfig, TopicTable
+from redpanda_tpu_torch.device import resolve_device
 from redpanda_tpu_torch.models.fundamental import NTP, DEFAULT_NAMESPACE, NodeId
 from redpanda_tpu_torch.storage.log_manager import StorageApi
 
@@ -70,20 +81,81 @@ class BrokerConfig:
 
 
 class Broker:
-    def __init__(self, config: BrokerConfig, storage: StorageApi):
+    def __init__(self, config: BrokerConfig, storage: StorageApi, *, device="cuda"):
         self.config = config
         self.storage = storage
         self.topic_table = TopicTable()
         self.partition_manager = PartitionManager(storage, config.node_id)
         self.metadata_cache = None  # multi-node: cluster.MetadataCache
         self.coproc_api = None  # wired once the transform engine attaches
+        from redpanda_tpu_torch.kafka.server.fetch_session_cache import FetchSessionCache
+        from redpanda_tpu_torch.kafka.server.quota_manager import QuotaManager
+
+        self.quota_manager = QuotaManager(
+            produce_rate=config.target_quota_byte_rate,
+            fetch_rate=config.target_fetch_quota_byte_rate,
+        )
+        self.fetch_sessions = FetchSessionCache(config.fetch_session_cache_size)
+        # per-topic fetch-path transform policies (v8_engine equivalent);
+        # the engine is built on first use, on the broker's device
+        from redpanda_tpu_torch.policy import DataPolicyTable
+
+        self.data_policies = DataPolicyTable()
+        self._device_arg = device
+        self._device: torch.device | None = None
+        self._policy_engine = None
         self.controller_dispatcher = None  # multi-node: routes security/topic cmds
         self.controller_leader_fn = None  # multi-node: live controller leader id
+        # ACLs over a store of the broker's own until the replicated
+        # SecurityManager is ported (ROADMAP item 10d)
+        from redpanda_tpu_torch.security import AclStore, Authorizer
+
+        self.authorizer = Authorizer(AclStore(), set(config.superusers))
+        self.sasl_enabled = config.sasl_enabled
         # resource_mgmt budget plane + produce admission controller:
         # installed by the application (app.py). None = admission off —
         # bare broker harnesses keep the historical semantics.
         self.budget_plane = None
         self.produce_admission = None
+
+    @property
+    def device(self) -> torch.device:
+        """The Kafka path's device, resolved on first use: RuntimeError for
+        ``"cuda"`` without a card."""
+        if self._device is None:
+            self._device = resolve_device(self._device_arg)
+        return self._device
+
+    @property
+    def policy_engine(self):
+        """The fetch path's ``PolicyEngine`` on the broker's device (K4 for
+        fetches of 256 records or more), built on first use."""
+        if self._policy_engine is None:
+            from redpanda_tpu_torch.policy import PolicyEngine
+
+            self._policy_engine = PolicyEngine(device=self.device)
+        return self._policy_engine
+
+    # ------------------------------------------------------------ data policy
+    async def set_data_policy(self, topic: str, name: str, spec_json: str) -> None:
+        """data_policy_frontend: replicate through the controller when
+        clustered, apply locally otherwise."""
+        from redpanda_tpu_torch.cluster.commands import create_data_policy_cmd
+
+        cmd = create_data_policy_cmd(topic, name, spec_json)
+        if self.controller_dispatcher is not None:
+            await self.controller_dispatcher.replicate(cmd)
+        else:
+            await self.data_policies.apply_command(cmd)
+
+    async def delete_data_policy(self, topic: str) -> None:
+        from redpanda_tpu_torch.cluster.commands import delete_data_policy_cmd
+
+        cmd = delete_data_policy_cmd(topic)
+        if self.controller_dispatcher is not None:
+            await self.controller_dispatcher.replicate(cmd)
+        else:
+            await self.data_policies.apply_command(cmd)
 
     # ------------------------------------------------------------ recovery
     def _persist_topic_config(self, cfg: TopicConfig) -> None:
@@ -256,6 +328,15 @@ class Broker:
 
     def is_internal_topic(self, name: str) -> bool:
         return name.startswith("__") or name.startswith("_redpanda")
+
+    async def recovered_rm_stm(self, partition: Partition):
+        """The producer/tx state machine of a partition (idempotent and
+        transactional produce, read_committed fetch): not ported yet."""
+        raise NotImplementedError(
+            "the producer state machine (cluster/rm_stm.py) is not ported yet "
+            "(ROADMAP item 10b-ii): idempotent and transactional produce and "
+            "read_committed fetch are unsupported"
+        )
 
 
 def _scan_topic_tree(base: str) -> dict[tuple[str, str], int]:

@@ -1,8 +1,9 @@
 """The port's probes over the metrics registry (the JAX package's
 observability/probes.py, its coproc series: the fault domains, the device
 legs, the engine's stages, the host-stage pool and the mesh; its two
-storage series: the log's append and the manager's housekeeping; and raft's
-replicate and the internal rpc round trip).
+storage series: the log's append and the manager's housekeeping; raft's
+replicate and the internal rpc round trip; and the Kafka front door's
+produce and fetch latencies).
 
 Unlike the tracer (trace.py) these are always on: a histogram record is a
 dict lookup plus integer bucket math. The series names are the JAX
@@ -25,8 +26,9 @@ from redpanda_tpu_torch.observability.trace import tracer
 from redpanda_tpu_torch.utils.hdr import _bucket_of, _bucket_upper
 
 # ------------------------------------------------------------ broker path
-# the storage layer's two series (storage/log.py, storage/log_manager.py)
-# and the raft and rpc series (raft/consensus.py, rpc/transport.py)
+# the storage layer's two series (storage/log.py, storage/log_manager.py),
+# the raft and rpc series (raft/consensus.py, rpc/transport.py) and the
+# Kafka front door's two (kafka/server/protocol.py)
 storage_append_hist = registry.histogram(
     "storage_append_latency_us", "Storage log append latency (us)"
 )
@@ -37,6 +39,15 @@ storage_housekeeping_hist = registry.histogram(
 raft_replicate_hist = registry.histogram(
     "raft_replicate_latency_us",
     "Raft replicate() to the requested consistency level (us)",
+)
+# Recorded at the kafka dispatch layer (server/protocol.py _dispatch), so
+# one request is one sample — handler wrappers must NOT record these too.
+kafka_produce_hist = registry.histogram(
+    "kafka_produce_latency_us", "Produce handler latency (microseconds)"
+)
+kafka_fetch_hist = registry.histogram(
+    "kafka_fetch_latency_us",
+    "Fetch handler latency incl. long-poll wait (microseconds)",
 )
 rpc_request_hist = registry.histogram(
     "rpc_request_latency_us", "Internal RPC round-trip latency (us)"
@@ -309,6 +320,8 @@ __all__ = [
     "exemplars_snapshot",
     "host_pool_task_finished",
     "host_pool_task_started",
+    "kafka_fetch_hist",
+    "kafka_produce_hist",
     "observe_us",
     "raft_replicate_hist",
     "record_us",

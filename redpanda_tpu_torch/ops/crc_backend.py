@@ -117,13 +117,16 @@ class CrcBackend:
 
 
 _defaults: dict[str, CrcBackend] = {}
+_installed: CrcBackend | None = None
 _default_lock = threading.Lock()
 
 
 def default_backend(device="cuda") -> CrcBackend:
     """Process-wide backend for the produce path on ``device``, chosen by
     ``pick()`` on first use (the card unless the caller asks for the CPU;
-    raises without one)."""
+    raises without one), or the one ``install_default_backend`` pinned."""
+    if _installed is not None:
+        return _installed
     key = str(resolve_device(device))
     if key not in _defaults:
         with _default_lock:
@@ -136,9 +139,23 @@ async def default_backend_async(device="cuda") -> CrcBackend:
     """Async-safe accessor: the first call's probe runs in a worker thread
     so the event loop keeps serving; later calls return the cached
     instance without a thread hop."""
+    if _installed is not None:
+        return _installed
     key = str(resolve_device(device))
     if key in _defaults:
         return _defaults[key]
     import asyncio
 
     return await asyncio.to_thread(default_backend, key)
+
+
+def install_default_backend(backend: CrcBackend | None) -> None:
+    """Test and smoke hook: make ``backend`` the produce path's backend on
+    every device (a pinned ``CrcBackend("device")`` keeps the card's CRC
+    on the path whatever ``pick()`` would measure), or, with None, forget
+    it and every picked backend, so that the next use picks again."""
+    global _installed
+    with _default_lock:
+        _installed = backend
+        if backend is None:
+            _defaults.clear()

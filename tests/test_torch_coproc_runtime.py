@@ -36,7 +36,7 @@ from redpanda_tpu.models.record import RecordBatch as RefRecordBatch
 from redpanda_tpu.models.record import RecordHeader as RefRecordHeader
 from redpanda_tpu.resource_mgmt import budgets as ref_budgets
 from redpanda_tpu_torch.cluster.topic_table import TopicConfig
-from redpanda_tpu_torch.coproc import governor, leakwatch, lockwatch, wasm_event
+from redpanda_tpu_torch.coproc import faults, governor, leakwatch, lockwatch, wasm_event
 from redpanda_tpu_torch.coproc.api import CoprocApi
 from redpanda_tpu_torch.coproc.engine import ProcessBatchItem, ProcessBatchRequest, TorchEngine
 from redpanda_tpu_torch.coproc.pacemaker import Pacemaker
@@ -45,6 +45,7 @@ from redpanda_tpu_torch.kafka.server.broker import Broker, BrokerConfig
 from redpanda_tpu_torch.metrics import registry
 from redpanda_tpu_torch.models.fundamental import COPROC_INTERNAL_TOPIC, NTP
 from redpanda_tpu_torch.models.record import Record, RecordBatch, RecordHeader
+from redpanda_tpu_torch.observability import probes
 from redpanda_tpu_torch.ops.exprs import field
 from redpanda_tpu_torch.ops.transforms import (
     Int,
@@ -56,6 +57,7 @@ from redpanda_tpu_torch.ops.transforms import (
 )
 from redpanda_tpu_torch.resource_mgmt import budgets
 from redpanda_tpu_torch.storage.kvstore import KeySpace
+from redpanda_tpu_torch.utils.hdr import HdrHist
 from redpanda_tpu_torch.storage.log_manager import StorageApi
 
 WAIT_S = 30.0  # a ceiling, not a pace: the -n 6 run loads the host
@@ -72,12 +74,18 @@ def _disarm(badger) -> None:
 
 
 @pytest.fixture(autouse=True)
-def _clean_process_state():
+def _clean_process_state(monkeypatch):
     """The columnar backend, the journal, the badgers, the budget plane and
     the recorders are process-wide: every test starts and ends with them
-    reset."""
+    reset. So are the device legs' latency histograms, which every
+    governor's autotune reads: an earlier test's engines on the same worker
+    leave enough fast samples there to grow a new engine's knobs on its
+    first poll, so every test starts with them empty."""
     TorchEngine.reset_columnar_probe()
     governor.reset_journal()
+    for domain in (faults.DEVICE_DISPATCH, faults.MASK_FETCH, faults.HARVEST,
+                   faults.SHARD_WORKER, faults.SANDBOX_COMPILE, faults.MESH_DISPATCH):
+        monkeypatch.setattr(probes.coproc_device_leg_hist(domain), "hist", HdrHist())
     yield
     TorchEngine.reset_columnar_probe()
     governor.reset_journal()

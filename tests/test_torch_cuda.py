@@ -1171,3 +1171,61 @@ def test_a_host_verdict_frees_cached_device_columns_on_the_card(card):
         assert st["colcache"]["bytes"] == entry.nbytes
     finally:
         eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_kafka_produce_checks_every_partition_on_the_card(card, tmp_path):
+    """A KafkaServer on the card with the produce path pinned to
+    CrcBackend("device"): one K6 launch a partition of a PRODUCE request,
+    the flipped batch answered corrupt_message with nothing appended, and
+    the produced records fetched back whole."""
+    import asyncio
+
+    from redpanda_tpu_torch.kafka.client import KafkaClient
+    from redpanda_tpu_torch.kafka.protocol import messages as m
+    from redpanda_tpu_torch.kafka.protocol.batch import encode_wire_batches
+    from redpanda_tpu_torch.kafka.protocol.errors import ErrorCode
+    from redpanda_tpu_torch.kafka.server import KafkaServer
+    from redpanda_tpu_torch.kafka.server.broker import Broker, BrokerConfig
+    from redpanda_tpu_torch.ops import crc_backend
+    from redpanda_tpu_torch.storage import StorageApi
+
+    rng = np.random.default_rng(23)
+    batches = [RecordBatch.build([Record(offset_delta=k, value=rng.bytes(1024)) for k in range(16)])
+               for _ in range(3)]
+    bad = bytearray(encode_wire_batches([batches[0]]))
+    bad[61 + 40] ^= 1
+
+    async def main():
+        storage = await StorageApi(str(tmp_path)).start()
+        broker = Broker(BrokerConfig(data_dir=str(tmp_path)), storage, device=card)
+        server = await KafkaServer(broker, "127.0.0.1", 0).start()
+        broker.config.advertised_port = server.port
+        client = await KafkaClient([("127.0.0.1", server.port)]).connect()
+        crc_backend.install_default_backend(crc_backend.CrcBackend("device", device=card))
+        try:
+            await client.create_topic("k6", partitions=3)
+            conn = await client.leader_connection("k6", 0)
+
+            def body(parts):
+                return {"transactional_id": None, "acks": -1, "timeout_ms": 5000,
+                        "topics": [{"name": "k6", "partitions": [
+                            {"partition_index": p, "records": r} for p, r in parts]}]}
+
+            before = kernels.CRC32C_VALIDATE.launches
+            resp = await conn.request(m.PRODUCE, body(
+                [(p, encode_wire_batches([b])) for p, b in enumerate(batches)]))
+            assert [p["error_code"] for p in resp["responses"][0]["partitions"]] == [0, 0, 0]
+            resp = await conn.request(m.PRODUCE, body([(0, bytes(bad))]))
+            assert resp["responses"][0]["partitions"][0]["error_code"] == int(ErrorCode.corrupt_message)
+            assert kernels.CRC32C_VALIDATE.launches == before + 4
+            for p, b in enumerate(batches):
+                got, hwm = await client.fetch("k6", p, 0)
+                assert hwm == 16 and [x.payload for x in got] == [b.payload]
+        finally:
+            crc_backend.install_default_backend(None)
+            await client.close()
+            await server.stop()
+            await storage.stop()
+
+    asyncio.run(main())

@@ -621,6 +621,10 @@ def test_follower_rejects_corrupted_append_crc(tmp_path):
             assert leader.commit_index >= res.last_offset
             assert plane.validated and all(ok.all() for _, _, ok in plane.validated)
             follower = next(n for n in fx.nodes if n.node_id != leader_node.node_id).consensus()
+            # quorum_ack returned on one follower's ack: the other may still be
+            # receiving the clean batch, which would land inside the check below
+            await wait_until(lambda: follower.dirty_offset == leader.dirty_offset,
+                             msg="the follower holds the clean batch")
             good = data_batch(b"stays-good")
             bad = data_batch(b"payload-to-corrupt")
             good.header.term = bad.header.term = leader.term
