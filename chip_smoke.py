@@ -298,6 +298,36 @@ Phases, each of which exits non-zero on failure:
       the card won). Print each config's batches/s and MB/s,
       kafka_produce_hist p50 and p99 and the fetch MB/s beside the card's
       name and power limit.
+   g. An exactly-once read-process-write loop over the Kafka wire (the
+      ducktape tx_verifier_test shape; kafka/server group and transaction
+      coordinators, cluster/rm_stm.py, kafka/client producer.py and
+      consumer.py): one Broker(device="cuda") with a KafkaServer, K6 pinned
+      as in 7f; config 2's shape (16 partitions of LZ4 batches of 16 x 1 KiB
+      JSON records, 64 batches a partition, 16 MiB of records) produced by
+      an idempotent TransactionalProducer at acks=-1, each partition's
+      batches in order, the 16 partitions at once; a group of 2
+      GroupConsumers (range assignment, 8 partitions each) polls
+      read_committed, and each member's own TransactionalProducer writes a
+      poll's records (2 batches a partition) to the output partition of the
+      same index, sends the offsets to the group and commits; every 8th
+      transaction of a member aborts and its input is polled again. Checks,
+      each a failure: K6's launches equal the produce requests (one
+      partition each: control markers and offset records are the broker's
+      appends, not validated); a fresh read_committed reader of the output
+      finds every input record exactly once and no batch of an aborted
+      transaction; every output partition's LSO equals its high watermark;
+      the group's committed offsets equal the input's high watermarks; the
+      first member's transactional id re-initialised fences the old
+      producer (invalid_producer_epoch); 4 read_committed fetches of 1 MiB
+      through a v1 data policy on the output launch K4 once each and equal
+      PolicyEngine(device="cpu")'s view (the policy also evaluates the
+      control batches, as the reference's does); a restart with device
+      recovery keeps the transactions, the pid block, every partition's
+      high watermark, LSO and aborted ranges, and the group's offsets (K5's
+      launches printed as measured: frames wider than 4096 B recover on
+      the host). Print committed transactions/s, input records/s through
+      the loop, kafka_produce_hist p50 and p99, the launches and the
+      phase's seconds beside the card's name and power limit.
 8. LZ4 (K11): the block decoder against its plain version over valid,
    overflowing, truncated, bad-offset and empty streams (all three
    outputs), and over the edge streams of ops/lz4_device.py edge_streams
@@ -350,7 +380,8 @@ Phases, each of which exits non-zero on failure:
 11. Print the kernels line, the card's name and power limit, and last the
     {"ok": true, "device": ...} line.
 
-Phases 3, 3h, 3i, 3j, 5-8 (7b, 7c, each round of 7d, 7e whole and its round, and each step of 7f) and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
+Phases 3, 3h, 3i, 3j, 5-8 (7b, 7c, each round of 7d, 7e whole and its round, each step of 7f, and
+7g's loop and its policy fetches) and 9b-9d, and the K9, K8 and K10 runs of 9a, each set
 every launch count to 0 just before their path and fail if a kernel of that
 path was not launched in it.
 
@@ -4101,9 +4132,9 @@ def produce_body(parts) -> dict:
             "topics": [{"name": t, "partitions": ps} for t, ps in topics.items()]}
 
 
-def fetch_body(topic: str, offsets, max_bytes: int) -> dict:
+def fetch_body(topic: str, offsets, max_bytes: int, isolation: int = 0) -> dict:
     return {"replica_id": -1, "max_wait_ms": 0, "min_bytes": 0, "max_bytes": max_bytes,
-            "isolation_level": 0, "session_id": 0, "session_epoch": -1,
+            "isolation_level": isolation, "session_id": 0, "session_epoch": -1,
             "topics": [{"name": topic, "partitions": [
                 {"partition_index": p, "current_leader_epoch": -1, "fetch_offset": o,
                  "log_start_offset": -1, "partition_max_bytes": max_bytes}
@@ -4326,6 +4357,331 @@ def phase_kafka(dev) -> dict:
         f"the phase took {time.perf_counter() - t_phase:.1f} s")
     return {"crc32c_validate": out["c1"]["k6"] + out["c2"]["k6"] + out["pick_k6"],
             "payload_transform": out["k4"]}
+
+
+# ------------------------------------------------------------------ exactly-once loop
+EOS_PARTITIONS = 16  # config 2's partitions, in and out
+EOS_BATCHES = 64  # phase 7g: config 2's LZ4 batches a partition (16 MiB of records in all)
+EOS_MEMBERS = 2  # consumers in the group, each with its own transactional id
+EOS_POLL_BATCHES = 2  # input batches a poll takes from each of a member's partitions
+EOS_ABORT_EVERY = 8  # every 8th transaction of a member aborts and is polled again
+EOS_POLICY_FETCHES = 4  # read_committed policy fetches of 1 MiB, one a partition (K4)
+
+
+async def eos_state(broker, storage) -> dict:
+    """What a restart must keep: the coordinator's transactions and pid
+    block, each partition's high watermark, LSO and aborted ranges (its
+    producer state machine), the group's committed offsets."""
+    from dataclasses import astuple
+
+    from redpanda_tpu_torch.storage import KeySpace
+
+    co = broker.tx_coordinator
+    await co._load()
+    gm = await broker.group_coordinator.start()
+    group = gm.get("eos")
+    parts = {}
+    for topic in ("eos-in", "eos-out"):
+        for p in range(EOS_PARTITIONS):
+            part = broker.get_partition(topic, p)
+            stm = await broker.recovered_rm_stm(part)
+            parts[(topic, p)] = (part.high_watermark, stm.last_stable_offset,
+                                 [astuple(a) for a in stm._aborted])
+    return {"txs": {k: v.to_dict() for k, v in sorted(co._txs.items())},
+            "pid_block": storage.kvs.get(KeySpace.controller, b"id_allocator/next_block"),
+            "partitions": parts,
+            "offsets": {k: oc.offset for k, oc in sorted(group.offsets.items())} if group else None}
+
+
+def phase_eos(dev) -> dict:
+    """Phase 7g: an exactly-once read-process-write loop over the Kafka wire
+    (module docstring). Returns K6's, K4's and K5's launches."""
+    import asyncio
+    import collections
+    import tempfile
+
+    from redpanda_tpu_torch import kernels
+    from redpanda_tpu_torch.kafka.client import KafkaClient
+    from redpanda_tpu_torch.kafka.client.consumer import GroupConsumer
+    from redpanda_tpu_torch.kafka.client.producer import TransactionalProducer
+    from redpanda_tpu_torch.kafka.protocol import messages as m
+    from redpanda_tpu_torch.kafka.protocol.batch import decode_wire_batches, encode_wire_batches
+    from redpanda_tpu_torch.kafka.protocol.errors import ErrorCode, KafkaError
+    from redpanda_tpu_torch.kafka.server import KafkaServer
+    from redpanda_tpu_torch.kafka.server.broker import Broker, BrokerConfig
+    from redpanda_tpu_torch.models import Compression, RecordBatch
+    from redpanda_tpu_torch.observability import probes
+    from redpanda_tpu_torch.ops import crc_backend
+    from redpanda_tpu_torch.policy import PolicyEngine
+    from redpanda_tpu_torch.storage import LogConfig, StorageApi
+    from redpanda_tpu_torch.utils.hdr import HdrHist
+
+    t_phase = time.perf_counter()
+    inputs = {p: kafka_batches(EOS_BATCHES, seed=740 + p, compression=Compression.lz4)
+              for p in range(EOS_PARTITIONS)}
+    warm = kafka_batches(1, seed=79, compression=Compression.lz4)[0]
+    want = collections.Counter(r.value for bs in inputs.values() for b in bs for r in b.records())
+    n_records = sum(want.values())
+    if n_records != EOS_PARTITIONS * EOS_BATCHES * KAFKA_RECORDS or len(want) != n_records:
+        fail("exactly-once loop: the input records are not all distinct")
+    log(f"exactly-once loop: data made in {time.perf_counter() - t_phase:.1f} s "
+        f"({EOS_PARTITIONS} x {EOS_BATCHES} LZ4 batches of {KAFKA_RECORDS} x {KAFKA_RECORD} B, "
+        f"{n_records * KAFKA_RECORD / 2**20:.1f} MiB of records)")
+    out = {"requests": 0, "committed": 0, "aborted": 0, "aborted_at": []}
+
+    async def produce_input(client) -> float:
+        """The idempotent producer's batches, config 2's LZ4 ones (its send()
+        makes uncompressed batches: the same header, built here), each
+        partition's in order, the 16 partitions at once."""
+        prod = await TransactionalProducer(client).init()
+
+        async def one(p):
+            for b in inputs[p]:
+                seq = prod._seqs.get(("eos-in", p), 0)
+                batch = RecordBatch.build(b.records(), compression=Compression.lz4,
+                                          first_timestamp=b.header.first_timestamp,
+                                          producer_id=prod.producer_id,
+                                          producer_epoch=prod.epoch, base_sequence=seq)
+                await client.produce_batches("eos-in", p, [batch])
+                prod._seqs[("eos-in", p)] = seq + b.header.record_count
+                out["requests"] += 1
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(one(p) for p in range(EOS_PARTITIONS)))
+        return time.perf_counter() - t0
+
+    async def join_all(consumers) -> None:
+        """Both members join at once, so that the new group's initial
+        rebalance delay puts them in one generation, 8 partitions each."""
+        await asyncio.gather(*(c.join() for c in consumers))
+        owned = [p for c in consumers for p in c.assignment.get("eos-in", [])]
+        if (sorted(owned) != list(range(EOS_PARTITIONS))
+                or len({c.generation for c in consumers}) != 1):
+            fail(f"exactly-once loop: the group did not settle: "
+                 f"{[(c.generation, c.assignment) for c in consumers]}")
+
+    async def member(cons, prod, hwm: dict) -> None:
+        """Poll read_committed, write the records to the output partition of
+        the same index inside a transaction, send the offsets to the group,
+        commit; every EOS_ABORT_EVERY-th transaction aborts and its input is
+        polled again."""
+        mine = cons.assignment["eos-in"]
+        pos = await cons.fetch_committed("eos-in", mine)
+        pos = {p: max(o, 0) for p, o in pos.items()}
+        n_tx = 0
+        while any(pos[p] < hwm[p] for p in mine):
+            polled = {}
+            for p in mine:
+                if pos[p] >= hwm[p]:
+                    continue
+                batches, _ = await cons.client.fetch("eos-in", p, pos[p], max_bytes=256 << 10,
+                                                     max_wait_ms=0, isolation_level=1)
+                polled[p] = batches[:EOS_POLL_BATCHES]
+                if not polled[p]:
+                    fail(f"exactly-once loop: an empty read_committed poll of eos-in/{p} "
+                         f"at {pos[p]} < {hwm[p]}")
+            n_tx += 1
+            abort = n_tx % EOS_ABORT_EVERY == 0
+            prod.begin()
+            sent = []
+            for p, batches in polled.items():
+                values = [r.value for b in batches for r in b.records()]
+                sent.append((p, await prod.send("eos-out", p, values)))
+                out["requests"] += 1
+            await prod.send_offsets("eos", {("eos-in", p): bs[-1].last_offset + 1
+                                            for p, bs in polled.items()})
+            if abort:
+                await prod.abort()
+                out["aborted"] += 1
+                out["aborted_at"] += sent
+                continue
+            await prod.commit()
+            out["committed"] += 1
+            for p, bs in polled.items():
+                pos[p] = bs[-1].last_offset + 1
+
+    async def read_output(client, conn) -> tuple[collections.Counter, set]:
+        """A fresh read_committed reader of every output partition: its
+        records, and the base offsets of the batches it was shown. The
+        next offset is the last batch's of the raw response (markers
+        included), which the reader's view hides."""
+        got, bases = collections.Counter(), set()
+        for p in range(EOS_PARTITIONS):
+            offset, hwm = 0, await client.latest_offset("eos-out", p)
+            while offset < hwm:
+                batches, _ = await client.fetch("eos-out", p, offset, max_bytes=8 << 20,
+                                                max_wait_ms=0, isolation_level=1)
+                resp = await conn.request(m.FETCH, fetch_body("eos-out", [(p, offset)], 8 << 20,
+                                                              isolation=1))
+                raw = decode_wire_batches(resp["responses"][0]["partitions"][0]["records"] or b"")
+                if not raw:
+                    fail(f"exactly-once loop: an empty read_committed fetch of eos-out/{p} "
+                         f"at {offset} < {hwm}")
+                got.update(r.value for b in batches for r in b.records())
+                bases |= {(p, b.header.base_offset) for b in batches}
+                offset = raw[-1].batch.last_offset + 1
+        return got, bases
+
+    async def lso_hwm(conn) -> list:
+        resp = await conn.request(m.FETCH, fetch_body(
+            "eos-out", [(p, 0) for p in range(EOS_PARTITIONS)], 1 << 10, isolation=1))
+        return [(q["last_stable_offset"], q["high_watermark"])
+                for q in resp["responses"][0]["partitions"]]
+
+    async def main(d):
+        storage = await StorageApi(d).start()
+        broker = Broker(BrokerConfig(data_dir=d), storage, device=dev)
+        server = await KafkaServer(broker, "127.0.0.1", 0).start()
+        broker.config.advertised_port = server.port
+        addr = [("127.0.0.1", server.port)]
+        clients = [await KafkaClient(addr).connect() for _ in range(EOS_MEMBERS + 1)]
+        consumers = []
+        try:
+            admin = clients[0]
+            for topic in ("eos-in", "eos-out"):
+                await admin.create_topic(topic, partitions=EOS_PARTITIONS)
+            await admin.create_topic("eos-warm", partitions=1)
+            pinned = crc_backend.CrcBackend("device", device=dev)
+            crc_backend.install_default_backend(pinned)
+            conn = await admin.leader_connection("eos-in", 0)
+            # the warm-up: the validator's first launch at this width, off the clock
+            resp = await conn.request(m.PRODUCE, produce_body(
+                [("eos-warm", 0, encode_wire_batches([warm]))]))
+            if resp["responses"][0]["partitions"][0]["error_code"] != 0:
+                fail(f"exactly-once loop: the warm-up produce failed: {resp}")
+
+            # the main path: the idempotent input, then the loop
+            probes.kafka_produce_hist.hist = HdrHist()
+            kernels.reset_launches()
+            out["produce_secs"] = await produce_input(admin)
+            hwm = {p: await admin.latest_offset("eos-in", p) for p in range(EOS_PARTITIONS)}
+            if any(h != EOS_BATCHES * KAFKA_RECORDS for h in hwm.values()):
+                fail(f"exactly-once loop: the input's high watermarks are {hwm}")
+            consumers = [GroupConsumer(clients[1 + i], "eos", ["eos-in"], session_timeout_ms=60_000,
+                                       heartbeat_interval_s=0.5) for i in range(EOS_MEMBERS)]
+            t0 = time.perf_counter()
+            await join_all(consumers)
+            producers = [await TransactionalProducer(clients[1 + i], f"eos-tx-{i}").init()
+                         for i in range(EOS_MEMBERS)]
+            await asyncio.gather(*(member(c, pr, hwm) for c, pr in zip(consumers, producers)))
+            out["loop_secs"] = time.perf_counter() - t0
+            k = path_launches("exactly-once loop", kernels.CRC32C_VALIDATE)
+            h = probes.kafka_produce_hist.hist
+            out.update(k6=k["crc32c_validate"], p50=h.percentile(50), p99=h.percentile(99))
+            if out["k6"] != out["requests"]:
+                fail(f"exactly-once loop: K6 launched {out['k6']} times for {out['requests']} "
+                     "produce requests of one partition each")
+
+            # the checks, each a failure
+            got, bases = await read_output(admin, conn)
+            if got != want:
+                missing, extra = want - got, got - want
+                fail(f"exactly-once loop: the output holds {sum(got.values())} records for "
+                     f"{n_records}: {sum(missing.values())} missing, {sum(extra.values())} extra")
+            shown = set(out["aborted_at"]) & bases
+            if shown:
+                fail(f"exactly-once loop: {len(shown)} batches of aborted transactions were shown")
+            pairs = await lso_hwm(conn)
+            if any(lso != hw for lso, hw in pairs):
+                fail(f"exactly-once loop: an output partition's LSO is not its high watermark: {pairs}")
+            committed = await consumers[0].fetch_committed("eos-in", list(range(EOS_PARTITIONS)))
+            if committed != hwm:
+                fail(f"exactly-once loop: the group's offsets {committed} are not the input's "
+                     f"high watermarks {hwm}")
+            zombie = producers[0]
+            fresh = await TransactionalProducer(clients[0], "eos-tx-0").init()
+            if (fresh.producer_id, fresh.epoch) != (zombie.producer_id, zombie.epoch + 1):
+                fail("exactly-once loop: re-initialising eos-tx-0 did not bump its epoch")
+            zombie.begin()
+            try:
+                await zombie.send("eos-out", 0, [b"zombie"])
+                fail("exactly-once loop: the zombie producer's send was accepted")
+            except KafkaError as e:
+                if e.code != ErrorCode.invalid_producer_epoch:
+                    raise
+
+            # K4: read_committed fetches of the output through a data policy
+            spec = payload_spec().to_json()
+            await broker.set_data_policy("eos-out", "errors_v1", spec)
+            plain = PolicyEngine(device="cpu")
+            kernels.reset_launches()
+            views = []
+            for p in range(EOS_POLICY_FETCHES):
+                resp = await conn.request(m.FETCH, fetch_body("eos-out", [(p, 0)], 1 << 20,
+                                                              isolation=1))
+                pr = resp["responses"][0]["partitions"][0]
+                if pr["error_code"] != 0:
+                    fail(f"exactly-once loop: the policy fetch of eos-out/{p} failed: {pr}")
+                views.append((p, pr["records"] or b""))
+            out["k4"] = path_launches("exactly-once policy fetch",
+                                      kernels.PAYLOAD_TRANSFORM)["payload_transform"]
+            if out["k4"] != EOS_POLICY_FETCHES:
+                fail(f"exactly-once loop: K4 launched {out['k4']} times for "
+                     f"{EOS_POLICY_FETCHES} policy fetches of 256 records or more")
+            out["policy_kept"] = out["policy_markers"] = 0
+            for p, got_view in views:
+                part = broker.get_partition("eos-out", p)
+                batches = await part.make_reader(0, 1 << 20, max_offset=part.high_watermark - 1)
+                view = plain.transform_batches(spec, batches)
+                if got_view != encode_wire_batches(view):
+                    fail(f"exactly-once loop: the policy fetch of eos-out/{p} differs from the "
+                         "CPU PolicyEngine's view")
+                out["policy_kept"] += sum(b.header.record_count for b in view)
+                out["policy_markers"] += sum(b.header.is_control for b in batches)
+            await broker.delete_data_policy("eos-out")
+            before = await eos_state(broker, storage)
+        finally:
+            crc_backend.install_default_backend(None)
+            for c in consumers:
+                await c.leave()
+            for c in clients:
+                await c.close()
+            await server.stop()
+            await storage.stop()
+
+        # the restart: storage reopened with device recovery, state unchanged
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        storage = await StorageApi(d, LogConfig(base_dir=os.path.join(d, "data"),
+                                                use_device_recovery=True,
+                                                recovery_device=str(dev))).start()
+        broker = Broker(BrokerConfig(data_dir=d), storage, device=dev)
+        server = await KafkaServer(broker, "127.0.0.1", 0).start()
+        try:
+            after = await eos_state(broker, storage)
+            out["restart_secs"] = time.perf_counter() - t0
+            out["k5"] = kernels.CRC32C.launches
+            for key in before:
+                if after[key] != before[key]:
+                    fail(f"exactly-once loop: the restart changed {key}")
+            out["txs"] = {k: v["state"] for k, v in after["txs"].items()}
+            out["aborted_ranges"] = sum(len(v[2]) for v in after["partitions"].values())
+        finally:
+            await server.stop()
+            await storage.stop()
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-eos-") as d:
+        asyncio.run(main(d))
+    card = card_line()
+    secs = out["loop_secs"]
+    log(f"exactly-once loop [{card}]: config 2's {EOS_PARTITIONS} x {EOS_BATCHES} LZ4 batches "
+        f"produced by an idempotent producer at acks=-1 in {out['produce_secs']:.3f} s; "
+        f"{EOS_MEMBERS} consumers (range, {EOS_PARTITIONS // EOS_MEMBERS} partitions each) "
+        f"read_committed, {out['committed']} committed and {out['aborted']} aborted "
+        f"transactions in {secs:.3f} s = {out['committed'] / secs:.1f} committed transactions/s, "
+        f"{n_records / secs:.1f} input records/s; kafka_produce_hist p50 {out['p50'] / 1e3:.3f} ms "
+        f"p99 {out['p99'] / 1e3:.3f} ms (bucket bounds) over input and loop; K6 {out['k6']} "
+        f"launches for {out['requests']} produce requests")
+    log(f"exactly-once loop [{card}]: every input record once in the output, no batch of an "
+        f"aborted transaction shown, LSO = high watermark on every output partition, the "
+        f"group's offsets = the input's high watermarks, the zombie fenced; "
+        f"{EOS_POLICY_FETCHES} read_committed policy fetches of 1 MiB, {out['policy_kept']} "
+        f"records kept ({out['policy_markers']} control batches read, none kept), equal to "
+        f"PolicyEngine(device='cpu'), K4 {out['k4']} launches; restart in "
+        f"{out['restart_secs']:.3f} s with device recovery (K5 {out['k5']} launches), tx "
+        f"states {out['txs']}, {out['aborted_ranges']} aborted ranges, pid block, LSOs and "
+        f"offsets unchanged; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"crc32c_validate": out["k6"], "payload_transform": out["k4"], "crc32c": out["k5"]}
 
 
 # ------------------------------------------------------------------ LZ4 phase
@@ -5167,6 +5523,8 @@ def main() -> int:
     config5_launches = phase_config5(dev)
     launches["crc32c"] += config5_launches["crc32c"] + phase_controller(dev)["crc32c"]
     for name, n in phase_kafka(dev).items():
+        launches[name] += n
+    for name, n in phase_eos(dev).items():
         launches[name] += n
     measured["lz4_block"], lz4_launches = phase_lz4(dev)
     launches.update(lz4_launches)

@@ -7,9 +7,8 @@ reconciles deltas into local raft groups/partitions
 (controller_backend.cc:202). ``Partition`` fronts a pluggable consensus
 (direct-log single-node, raft::consensus replicated).
 
-(The JAX package's cluster/, with the same exports. ``rm_stm`` and
-``tx_gateway`` come with the Kafka server: they stand on its error codes
-and group coordinator.)
+(The JAX package's cluster/, with the same exports; ``rm_stm`` and
+``tx_gateway`` are imported from their modules, as in the reference.)
 """
 
 from redpanda_tpu_torch.cluster.allocator import AllocationError, PartitionAllocator

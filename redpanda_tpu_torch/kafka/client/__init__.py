@@ -2,8 +2,8 @@
 package's kafka/client).
 
 ``KafkaClient`` and ``BrokerConnection`` are here; the group-aware consumer
-and the transactional producer come with the group and transaction
-coordinators (ROADMAP item 10b-ii).
+is ``consumer.GroupConsumer`` and the idempotent and transactional producer
+``producer.TransactionalProducer``, as in the reference.
 """
 
 from redpanda_tpu_torch.kafka.client.client import KafkaClient, BrokerConnection

@@ -16,14 +16,13 @@ resolved where the Kafka path first needs it (``KafkaServer.start``, a
 produce, a policy fetch), so a broker that only hosts storage or a coproc
 runtime is built anywhere.
 
-The group and transaction coordinators, the producer state machines
-(``rm_stm``) and the replicated ``SecurityManager`` come with ROADMAP items
-10b-ii and 10d: until then reading ``group_coordinator``,
-``tx_coordinator`` or ``security`` raises ``AttributeError``, the
-authorizer runs over a store of the broker's own, and
-``recovered_rm_stm`` raises ``NotImplementedError``, which the Kafka
-server answers as ``unknown_server_error`` (an idempotent or
-transactional produce, a ``read_committed`` fetch).
+The group coordinator (``group_manager.GroupManager`` over
+``__consumer_offsets``), the transaction coordinator
+(``tx_coordinator.TxCoordinator``) and one producer state machine a
+partition (``rm_stm_for``) are the reference's. The replicated
+``SecurityManager`` comes with ROADMAP item 10d: until then reading
+``security`` raises ``AttributeError`` and the authorizer runs over a
+store of the broker's own.
 
 A ``KafkaServer`` calls ``recover_topics`` on start. Without one (a coproc
 runtime over the broker alone) the caller does, after a restart::
@@ -86,8 +85,15 @@ class Broker:
         self.storage = storage
         self.topic_table = TopicTable()
         self.partition_manager = PartitionManager(storage, config.node_id)
+        from redpanda_tpu_torch.kafka.server.group_manager import GroupManager
+
+        self.group_coordinator = GroupManager(self)
         self.metadata_cache = None  # multi-node: cluster.MetadataCache
         self.coproc_api = None  # wired once the transform engine attaches
+        from redpanda_tpu_torch.kafka.server.tx_coordinator import TxCoordinator
+
+        self.tx_coordinator = TxCoordinator(self)
+        self._rm_stms: dict = {}  # NTP -> RmStm
         from redpanda_tpu_torch.kafka.server.fetch_session_cache import FetchSessionCache
         from redpanda_tpu_torch.kafka.server.quota_manager import QuotaManager
 
@@ -296,6 +302,9 @@ class Broker:
         md = self.topic_table.remove_topic(name)
         for pa in md.assignments.values():
             await self.partition_manager.remove(pa.ntp)
+            # drop the producer/tx stm: a recreated topic must not inherit
+            # the old incarnation's sequence/transaction state
+            self._rm_stms.pop(pa.ntp, None)
         self.storage.kvs.remove(
             KeySpace.storage, f"topic_cfg/{md.config.ns}/{name}".encode()
         )
@@ -326,17 +335,23 @@ class Broker:
     def get_partition(self, topic: str, partition: int, ns: str = DEFAULT_NAMESPACE) -> Partition | None:
         return self.partition_manager.get(NTP(ns, topic, partition))
 
-    def is_internal_topic(self, name: str) -> bool:
-        return name.startswith("__") or name.startswith("_redpanda")
+    def rm_stm_for(self, partition: Partition):
+        """Producer/tx state machine attached to a partition, created on
+        first touch (partition.h stm_manager hooks). Callers must
+        ``await ensure_rm_recovered`` before first use after restart."""
+        from redpanda_tpu_torch.cluster.rm_stm import RmStm
+
+        stm = self._rm_stms.get(partition.ntp)
+        if stm is None:
+            stm = RmStm(partition)
+            self._rm_stms[partition.ntp] = stm
+        return stm
 
     async def recovered_rm_stm(self, partition: Partition):
-        """The producer/tx state machine of a partition (idempotent and
-        transactional produce, read_committed fetch): not ported yet."""
-        raise NotImplementedError(
-            "the producer state machine (cluster/rm_stm.py) is not ported yet "
-            "(ROADMAP item 10b-ii): idempotent and transactional produce and "
-            "read_committed fetch are unsupported"
-        )
+        return await self.rm_stm_for(partition).ensure_recovered()
+
+    def is_internal_topic(self, name: str) -> bool:
+        return name.startswith("__") or name.startswith("_redpanda")
 
 
 def _scan_topic_tree(base: str) -> dict[tuple[str, str], int]:

@@ -9,13 +9,13 @@ with pipeline depth bounded per connection (the reference gates on
 size-based memory units; here the response queue is bounded, so one
 connection can hold at most MAX_PIPELINE frames in flight).
 
-The server registers the data-plane and topic-admin handlers of
-``handlers.py``. The group, transaction, SASL and ACL handlers come with
-ROADMAP items 10b-ii and 10d: until then a request for one of those keys
-gets the reference's answer for a key with no handler (the
-unsupported-version path, which closes the connection), while ApiVersions
-still advertises the whole ``APIS`` table, as the reference does. A broker
-with ``sasl_enabled`` is refused at construction, since nothing could
+The server registers the data-plane, topic-admin, group and transaction
+handlers, as the reference does. The SASL and ACL handlers come with
+ROADMAP item 10d: until then a request for one of those keys gets the
+reference's answer for a key with no handler (the unsupported-version
+path, which closes the connection), while ApiVersions still advertises the
+whole ``APIS`` table, as the reference does. A broker with
+``sasl_enabled`` is refused at construction, since nothing could
 authenticate against it; TLS comes with item 10d too.
 """
 
@@ -358,6 +358,11 @@ class KafkaServer:
         self.host = host
         self.port = port
         self.handlers = h.build_dispatch_table()
+        from redpanda_tpu_torch.kafka.server import group_handlers as gh
+        from redpanda_tpu_torch.kafka.server import tx_handlers as th
+
+        gh.register_group_handlers(self.handlers)
+        th.register_tx_handlers(self.handlers)
         from redpanda_tpu_torch.coproc import leakwatch
         from redpanda_tpu_torch.resource_mgmt import MemoryBudget
 
@@ -391,6 +396,9 @@ class KafkaServer:
         # (cluster mode repopulates the table via controller replay instead)
         if getattr(self.broker, "controller_dispatcher", None) is None:
             await self.broker.recover_topics()
+        tx = getattr(self.broker, "tx_coordinator", None)
+        if tx is not None:
+            tx.start_expiry()
         self._server = await asyncio.start_server(
             self._on_connection, self.host, self.port
         )
@@ -413,6 +421,14 @@ class KafkaServer:
                 await asyncio.wait_for(self._server.wait_closed(), timeout=1.0)
             except asyncio.TimeoutError:
                 pass
+        # AFTER connections are torn down: an in-flight group request could
+        # otherwise restart the manager and leak its expiry fiber
+        gm = getattr(self.broker, "group_coordinator", None)
+        if gm is not None:
+            await gm.stop()
+        tx = getattr(self.broker, "tx_coordinator", None)
+        if tx is not None:
+            await tx.stop()
 
     async def _on_connection(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
         task = asyncio.current_task()

@@ -405,14 +405,13 @@ def test_partition_offsets_and_reads_match_jax(seed, tmp_path):
 
 # ------------------------------------------------------------ broker
 # the JAX package's Broker members and methods the port leaves out until the
-# group and transaction coordinators, the producer state machines and the
-# replicated security manager are ported; the policy engine is a property
+# replicated security manager is ported; the policy engine is a property
 # built on first use on the broker's device, and the port's own members hold
 # that device
-LEFT_OUT_MEMBERS = {"group_coordinator", "tx_coordinator", "_rm_stms", "security"}
+LEFT_OUT_MEMBERS = {"security"}
 LAZY_MEMBERS = {"policy_engine"}
 PORT_ONLY_MEMBERS = {"_device_arg", "_device", "_policy_engine"}
-LEFT_OUT_METHODS = {"replicate_security_cmd", "rm_stm_for"}
+LEFT_OUT_METHODS = {"replicate_security_cmd"}
 NONE_MEMBERS = {"metadata_cache", "coproc_api", "controller_dispatcher",
                 "controller_leader_fn", "budget_plane", "produce_admission"}
 
@@ -422,6 +421,10 @@ def _methods(cls) -> set:
 
 
 def test_broker_has_the_reference_surface_less_the_left_out_members(tmp_path):
+    """The port's Broker has every member and method of the JAX package's
+    (the group and transaction coordinators, the producer state machines and
+    ``rm_stm_for`` included) but the security manager and its command route,
+    which wait for ROADMAP item 10d."""
     import dataclasses
 
     async def main():

@@ -312,37 +312,58 @@ def test_frame_script_is_byte_identical_across_servers(tmp_path):
 # ------------------------------------------------------------ standing departures
 _NO_HANDLER = [m.JOIN_GROUP, m.OFFSET_COMMIT, m.FIND_COORDINATOR, m.INIT_PRODUCER_ID,
                m.END_TXN, m.SASL_HANDSHAKE, m.DESCRIBE_ACLS, m.CREATE_ACLS]
+_SECURITY_KEYS = {m.SASL_HANDSHAKE, m.DESCRIBE_ACLS, m.CREATE_ACLS}
+
+
+async def _versions_then(port: int, key: int) -> tuple[bytes, bytes | None]:
+    """ApiVersions, then ``key`` at its top version with an empty body:
+    the two raw answers (None for the second when the server closed the
+    connection instead)."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        f = _frame(key, m.APIS[key].max_version, 5, {})
+        versions = _frame(m.API_VERSIONS, 0, 6, {})
+        writer.write(struct.pack(">i", len(versions)) + versions)
+        writer.write(struct.pack(">i", len(f)) + f)
+        await writer.drain()
+        (n,) = struct.unpack(">i", await reader.readexactly(4))
+        first = await reader.readexactly(n)
+        head = await reader.read(4)
+        if not head:
+            return first, None
+        (n,) = struct.unpack(">i", head)
+        return first, await reader.readexactly(n)
+    finally:
+        writer.close()
 
 
 @pytest.mark.parametrize("key", _NO_HANDLER, ids=[m.APIS[k].name for k in _NO_HANDLER])
 def test_group_tx_sasl_acl_keys_get_the_no_handler_answer(tmp_path, key):
-    """No group, transaction, SASL or ACL handler yet: such a request gets
-    the reference's answer for a key with no handler (the connection is
-    closed), while ApiVersions still advertises the whole APIS table."""
+    """The SASL and ACL keys have no handler yet (ROADMAP item 10d): such a
+    request gets the reference's answer for a key with no handler (the
+    connection is closed), while ApiVersions still advertises the whole
+    APIS table. The group and transaction keys are registered, and the
+    port's answer to the same frame is byte-identical to the JAX server's."""
 
-    async def main():
-        node = await _Node("port", str(tmp_path)).start()
+    async def main(pkg):
+        node = await _Node(pkg, str(tmp_path / pkg)).start()
         try:
-            assert key not in node.server.handlers
-            reader, writer = await asyncio.open_connection("127.0.0.1", node.server.port)
-            api = m.APIS[key]
-            v = api.max_version
-            f = _frame(key, v, 5, {})
-            versions = _frame(m.API_VERSIONS, 0, 6, {})
-            writer.write(struct.pack(">i", len(versions)) + versions)
-            writer.write(struct.pack(">i", len(f)) + f)
-            await writer.drain()
-            (n,) = struct.unpack(">i", await reader.readexactly(4))
-            body = await reader.readexactly(n)
-            resp = decode_message(m.APIS[m.API_VERSIONS], "response", body[4:], 0)
-            assert resp["error_code"] == 0
-            assert sorted(e["api_key"] for e in resp["api_keys"]) == sorted(m.APIS)
-            assert await reader.read() == b""  # closed, no answer
-            writer.close()
+            assert (key in node.server.handlers) == (key not in _SECURITY_KEYS)
+            return await _versions_then(node.server.port, key)
         finally:
             await node.stop()
 
-    run(main())
+    versions, answer = run(main("port"))
+    resp = decode_message(m.APIS[m.API_VERSIONS], "response", versions[4:], 0)
+    assert resp["error_code"] == 0
+    assert sorted(e["api_key"] for e in resp["api_keys"]) == sorted(m.APIS)
+    if key in _SECURITY_KEYS:
+        assert answer is None  # closed, no answer
+        return
+    ref_versions, ref_answer = run(main("jax"))
+    assert answer is not None and (versions, answer) == (ref_versions, ref_answer)
+    r = Reader(answer)
+    assert r.int32() == 5
 
 
 def test_sasl_broker_is_refused_at_construction(tmp_path):
@@ -366,9 +387,12 @@ def test_sasl_broker_is_refused_at_construction(tmp_path):
 
 
 def test_producer_state_requests_answer_unknown_server_error(tmp_path):
-    """No rm_stm yet: an idempotent produce and a read_committed fetch go
-    through the reference's catch-all to unknown_server_error, and nothing
-    is appended."""
+    """The producer state machine is ported: an idempotent produce sent
+    twice is appended once (the retry is acked with base_offset -1), and a
+    read_committed fetch is answered with error 0 and the last stable
+    offset, as the reference answers them."""
+    from redpanda_tpu_torch.cluster.rm_stm import RmStm
+    from redpanda_tpu_torch.kafka.protocol.batch import encode_wire_batches
 
     async def main():
         node = await _Node("port", str(tmp_path)).start()
@@ -377,19 +401,19 @@ def test_producer_state_requests_answer_unknown_server_error(tmp_path):
         try:
             await client.create_topic("idem", partitions=1)
             await client.produce("idem", 0, [b"plain"])
-            with pytest.raises(NotImplementedError, match="10b-ii"):
-                await node.broker.recovered_rm_stm(node.broker.get_partition("idem", 0))
+            stm = await node.broker.recovered_rm_stm(node.broker.get_partition("idem", 0))
+            assert isinstance(stm, RmStm)
             b = RecordBatch.build([Record(value=b"v")], producer_id=5, producer_epoch=0, base_sequence=0)
-            from redpanda_tpu_torch.kafka.protocol.batch import encode_wire_batches
-
             conn = await client.leader_connection("idem", 0)
-            resp = await conn.request(m.PRODUCE, {
+            body = {
                 "transactional_id": None, "acks": -1, "timeout_ms": 1000,
                 "topics": [{"name": "idem", "partitions": [
                     {"partition_index": 0, "records": encode_wire_batches([b])}]}],
-            })
-            p = resp["responses"][0]["partitions"][0]
-            assert p["error_code"] == int(ErrorCode.unknown_server_error)
+            }
+            first = (await conn.request(m.PRODUCE, body))["responses"][0]["partitions"][0]
+            again = (await conn.request(m.PRODUCE, body))["responses"][0]["partitions"][0]
+            assert (first["error_code"], first["base_offset"]) == (0, 1)
+            assert (again["error_code"], again["base_offset"]) == (0, -1)
             resp = await conn.request(m.FETCH, {
                 "replica_id": -1, "max_wait_ms": 0, "min_bytes": 0, "max_bytes": 1 << 20,
                 "isolation_level": 1, "session_id": 0, "session_epoch": -1,
@@ -399,8 +423,10 @@ def test_producer_state_requests_answer_unknown_server_error(tmp_path):
                 "forgotten_topics_data": [], "rack_id": "",
             })
             p = resp["responses"][0]["partitions"][0]
-            assert p["error_code"] == int(ErrorCode.unknown_server_error)
-            assert await client.latest_offset("idem", 0) == 1
+            assert p["error_code"] == 0
+            assert p["last_stable_offset"] == p["high_watermark"] == stm.last_stable_offset == 2
+            assert p["aborted_transactions"] is None
+            assert await client.latest_offset("idem", 0) == 2
         finally:
             await client.close()
             await node.stop()
